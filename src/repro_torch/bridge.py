@@ -1,0 +1,47 @@
+"""Carry parameter trees between the JAX package and the port.
+
+The JAX ``init_model`` tree, turned into numpy arrays by its caller
+(``jax.tree_util.tree_map(np.asarray, params)``), maps one to one onto the
+port's parameters: the same nested keys, the same stacked ``(L, ...)``
+layer leaves, weights kept ``(in, out)``.  The port never imports JAX; the
+parity tests use this to feed both packages the same weights.
+"""
+from __future__ import annotations
+
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+from repro_torch import DeviceLike, resolve_device
+
+
+def _leaf_to_torch(a, device: torch.device,
+                   dtype: Optional[torch.dtype]) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":  # ml_dtypes bfloat16: no torch view
+        t = torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    else:
+        t = torch.tensor(a)
+    return t.to(device=device, dtype=dtype or t.dtype)
+
+
+def params_from_numpy(tree: Any, device: DeviceLike = None,
+                      dtype: Optional[torch.dtype] = None) -> Any:
+    """Nested dict of numpy arrays -> the same dict of tensors on `device`
+    (the CUDA card unless given), cast to `dtype` when given."""
+    dev = resolve_device(device)
+    if isinstance(tree, dict):
+        return {k: params_from_numpy(v, dev, dtype) for k, v in tree.items()}
+    return _leaf_to_torch(tree, dev, dtype)
+
+
+def params_to_numpy(tree: Any) -> Any:
+    """The reverse: nested dict of tensors -> nested dict of float numpy
+    arrays (bfloat16 widened to float32)."""
+    if isinstance(tree, dict):
+        return {k: params_to_numpy(v) for k, v in tree.items()}
+    t = tree.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return t.numpy()

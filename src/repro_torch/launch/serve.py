@@ -1,0 +1,178 @@
+"""Serving launcher: static batched serving or continuous batching.
+
+The PyTorch counterpart of the JAX package's ``launch/serve.py``.
+
+Static (default): a batch of requests is prefilled once, then decoded
+token by token in lockstep behind one scalar position.
+
+Continuous (--continuous): the `repro_torch.serving.ServeEngine` slot
+pool, dense or paged (--paged), with FIFO admission that backfills a slot
+the moment its request retires.
+
+Runs on the CUDA card (both attention kernels on) unless --device cpu,
+where the kernel wrappers take their plain PyTorch versions.
+
+Usage:
+  PYTHONPATH=src python -m repro_torch.launch.serve --batch 4 \
+      --prompt-len 64 --gen 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --continuous --paged \
+      --requests 16 --batch 8 --prompt-len 512 --gen 128
+  PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
+      --continuous --requests 6 --batch 2 --prompt-len 16 --gen 8
+
+Not ported yet: --replicas, --speculative, the transports and tracing.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs import get_config
+from repro_torch.launch.steps import make_serve_step, sharded_argmax
+from repro_torch.models import model as MD
+
+
+def make_static_fns(cfg, cache_len):
+    """(prefill, decode) pair for the static serve path."""
+    serve_step = make_serve_step(cfg)
+
+    def prefill(params, tokens):
+        logits, _, cache = MD.forward(params, cfg, tokens,
+                                      return_cache=True,
+                                      cache_len=cache_len)
+        return sharded_argmax(logits[:, -1])[:, None], cache
+
+    def decode(params, tok, pos, cache):
+        return serve_step(params, cache, tok, pos)
+
+    return prefill, decode
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _serve_static(params, cfg, args, device):
+    B, S, G = args.batch, args.prompt_len, args.gen
+    cache_len = S + G
+    rng = np.random.RandomState(args.seed + 1)
+    prompts = torch.as_tensor(rng.randint(0, cfg.vocab_size, size=(B, S)),
+                              device=device)
+    prefill, decode = make_static_fns(cfg, cache_len)
+
+    t0 = time.time()
+    tok, cache = prefill(params, prompts)
+    _sync(device)
+    t_prefill = time.time() - t0
+    out = [tok]
+    t0 = time.time()
+    for i in range(G - 1):
+        tok, cache = decode(params, tok, S + i, cache)
+        out.append(tok)
+    _sync(device)
+    t_decode = time.time() - t0
+
+    gen = torch.cat(out, dim=1).cpu().numpy()
+    tput = B * (G - 1) / max(t_decode, 1e-9)
+    print(f"arch={cfg.name} device={device} B={B} prompt={S} gen={G}")
+    print(f"prefill: {t_prefill:.3f}s   decode: {t_decode:.3f}s "
+          f"({tput:.1f} tok/s)")
+    print("sample generation (first request):", gen[0, :16].tolist())
+    return {"generated": gen, "t_prefill": t_prefill, "t_decode": t_decode}
+
+
+def _make_stream(cfg, args):
+    """Deterministic mixed-length request stream (as the JAX launcher)."""
+    from repro_torch.serving import Request
+
+    rng = np.random.RandomState(args.seed + 1)
+    S, G = args.prompt_len, args.gen
+    plens = sorted({min(S, max(1, S // 2)), min(S, max(1, 3 * S // 4)), S})
+    gens = sorted({max(1, G // 4), max(1, G // 2), G})
+    return [Request(rid=i,
+                    prompt=rng.randint(0, cfg.vocab_size,
+                                       size=int(rng.choice(plens))),
+                    max_new_tokens=int(rng.choice(gens)))
+            for i in range(args.requests)]
+
+
+def _serve_continuous(params, cfg, args, device):
+    from repro_torch.serving import ServeEngine
+
+    S, G = args.prompt_len, args.gen
+    reqs = _make_stream(cfg, args)
+    paged = dict(page_size=args.page_size,
+                 num_pages=args.num_pages) if args.paged else {}
+    engine = ServeEngine(params, cfg, num_slots=args.batch,
+                         cache_len=S + G, device=device, **paged)
+    t0 = time.time()
+    finished = engine.run(reqs)
+    _sync(device)
+    dt = time.time() - t0
+    st = engine.stats()
+    tput = st["generated_tokens"] / max(dt, 1e-9)
+    print(f"arch={cfg.name} device={device} slots={args.batch} "
+          f"requests={args.requests} prompt<=~{S} gen<={G}")
+    print(f"continuous: {dt:.3f}s  {st['generated_tokens']} tokens "
+          f"({tput:.1f} tok/s)  occupancy={st['occupancy']:.2f}  "
+          f"ticks={st['ticks']} (prefill {st['prefill_ticks']}, "
+          f"decode {st['decode_ticks']})")
+    if args.paged:
+        print(f"paged: page_size={engine.page_size} "
+              f"pages={engine.num_pages} "
+              f"pool_occupancy={st['pool_occupancy']:.2f} "
+              f"preemptions={st['preemptions']}")
+    print("sample generation (first request):", finished[0].tokens[:16])
+    return {"finished": finished, "stats": st, "t_total": dt}
+
+
+def serve(argv=None) -> dict:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen3-0.6b")
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    ap.add_argument("--batch", type=int, default=4,
+                    help="static: batch size; continuous: pool slots")
+    ap.add_argument("--prompt-len", type=int, default=64)
+    ap.add_argument("--gen", type=int, default=32)
+    ap.add_argument("--continuous", action="store_true",
+                    help="continuous batching over a slot pool "
+                         "(repro_torch.serving.ServeEngine)")
+    ap.add_argument("--requests", type=int, default=16,
+                    help="--continuous: requests in the stream")
+    ap.add_argument("--paged", action="store_true",
+                    help="paged KV-cache pool: slots share fixed-size "
+                         "pages instead of reserving max-length rows")
+    ap.add_argument("--page-size", type=int, default=16,
+                    help="--paged: tokens per KV page")
+    ap.add_argument("--num-pages", type=int, default=None,
+                    help="--paged: pool pages (default: worst-case "
+                         "slots x ceil(cache_len/page_size))")
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+    return _serve(args)
+
+
+def _serve(args) -> dict:
+    device = resolve_device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("--device cuda: no CUDA device available")
+    cfg = get_config(args.arch, smoke=args.smoke)
+    if device.type == "cuda":
+        cfg = cfg.with_(use_flash_kernel=True, use_paged_kernel=True)
+    else:
+        cfg = cfg.with_(param_dtype="float32", compute_dtype="float32")
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    params = MD.init_model(cfg, gen)
+    if args.continuous:
+        return _serve_continuous(params, cfg, args, device)
+    return _serve_static(params, cfg, args, device)
+
+
+if __name__ == "__main__":
+    serve()

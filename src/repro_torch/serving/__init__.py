@@ -1,0 +1,14 @@
+"""Continuous-batching serving engine (slot-level admission scheduling),
+ported from the JAX package's ``serving`` package.
+
+Public API:
+  Request / FinishedRequest             (request.py)
+  FifoScheduler / SlotPool / PagePool   (scheduler.py)
+  ServeEngine / ServeProgram            (engine.py)
+"""
+from repro_torch.serving.engine import ServeEngine, ServeProgram
+from repro_torch.serving.request import FinishedRequest, Request
+from repro_torch.serving.scheduler import FifoScheduler, PagePool, SlotPool
+
+__all__ = ["Request", "FinishedRequest", "FifoScheduler", "SlotPool",
+           "PagePool", "ServeEngine", "ServeProgram"]

@@ -1,0 +1,160 @@
+"""Port parity for the attention kernels' plain versions (against the JAX
+Pallas kernels in interpret mode and the JAX oracles) and the CPU dispatch
+of the kernel wrappers.  The CUDA kernels themselves are held against the
+plain versions in tests/test_torch_cuda.py."""
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+
+from repro.kernels import ref as JR  # noqa: E402
+from repro.kernels.flash_attention import flash_attention as jax_flash  # noqa: E402
+from repro.kernels.paged_attention import paged_attention as jax_paged  # noqa: E402
+from repro_torch.kernels import flash_attention as FA  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import paged_attention as PA  # noqa: E402
+from repro_torch.kernels import ref as TR  # noqa: E402
+
+# a subset of tests/test_kernels.py FA_SHAPES; every query row sees at
+# least one key (T >= S, causal), so the kernels' "masked row -> 0" and the
+# oracle's uniform average never differ here
+FA_SHAPES = [
+    # B, S, T, Hq, Hk, dh, causal, window
+    (1, 128, 384, 4, 4, 128, True, None),   # MHA, S < T (suffix decode)
+    (2, 256, 256, 8, 4, 64, True, 128),     # sliding window
+    (1, 200, 256, 4, 2, 64, True, None),    # unpadded q length
+    (2, 128, 128, 4, 2, 64, False, None),   # non-causal (encoder)
+]
+PA_SHAPES = [
+    # B, Np, P, n_max, Hq, Hk, dh
+    (3, 16, 8, 4, 8, 2, 64),     # GQA group 4
+    (2, 16, 4, 6, 4, 4, 32),     # MHA, small pages
+    (4, 32, 8, 8, 8, 8, 64),     # many rows
+]
+
+
+def _qkv(B, S, T, Hq, Hk, dh, seed=0):
+    r = np.random.RandomState(seed)
+    return (r.randn(B, S, Hq, dh).astype(np.float32),
+            r.randn(B, T, Hk, dh).astype(np.float32),
+            r.randn(B, T, Hk, dh).astype(np.float32))
+
+
+def _paged_case(B, Np, P, n_max, Hq, Hk, dh, seed=0):
+    r = np.random.RandomState(seed)
+    q = r.randn(B, Hq, dh).astype(np.float32)
+    kp = r.randn(Np, P, Hk, dh).astype(np.float32)
+    vp = r.randn(Np, P, Hk, dh).astype(np.float32)
+    # distinct pages per row in scrambled order (the fragmented pool)
+    ids = np.stack([np.random.RandomState(seed + b).permutation(Np)[:n_max]
+                    for b in range(B)]).astype(np.int32)
+    pos = r.randint(0, n_max * P, size=B).astype(np.int32)
+    return q, kp, vp, ids, pos
+
+
+def _poison_stale(kp, vp, ids, pos, P):
+    """Copies of the pools with every page outside the rows' live
+    prefixes set to +-1e9."""
+    live = {int(ids[b, j]) for b in range(len(pos))
+            for j in range(int(pos[b]) // P + 1)}
+    stale = [p for p in range(kp.shape[0]) if p not in live]
+    kp2, vp2 = kp.copy(), vp.copy()
+    kp2[stale], vp2[stale] = 1e9, -1e9
+    return kp2, vp2
+
+
+def _t(*arrays, device="cpu", dtype=None):
+    out = [torch.from_numpy(a).to(device) for a in arrays]
+    return [o.to(dtype) if dtype is not None and o.is_floating_point() else o
+            for o in out]
+
+
+# ---------------------------------------------------------------------------
+# plain versions vs the JAX kernels (interpret mode) and oracles
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("B,S,T,Hq,Hk,dh,causal,window", FA_SHAPES)
+def test_flash_plain_matches_jax(B, S, T, Hq, Hk, dh, causal, window):
+    q, k, v = _qkv(B, S, T, Hq, Hk, dh)
+    out = FA.reference(*_t(q, k, v), causal=causal, window=window).numpy()
+    jq, jk, jv = map(jnp.asarray, (q, k, v))
+    kern = jax_flash(jq, jk, jv, causal=causal, window=window,
+                     interpret=True)
+    oracle = JR.attention_ref(jq, jk, jv, causal=causal, window=window)
+    np.testing.assert_allclose(out, np.asarray(kern), rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(out, np.asarray(oracle), rtol=2e-5, atol=2e-5)
+
+
+def test_flash_plain_bf16_matches_jax():
+    q, k, v = _qkv(2, 256, 256, 8, 2, 64, seed=1)
+    out = FA.reference(*_t(q, k, v, dtype=torch.bfloat16))
+    assert out.dtype == torch.bfloat16
+    jb = [jnp.asarray(a).astype(jnp.bfloat16) for a in (q, k, v)]
+    kern = jax_flash(*jb, interpret=True)
+    oracle = JR.attention_ref(*jb)
+    for ref in (kern, oracle):
+        np.testing.assert_allclose(out.float().numpy(),
+                                   np.asarray(ref, np.float32),
+                                   rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("B,Np,P,n_max,Hq,Hk,dh", PA_SHAPES)
+def test_paged_plain_matches_jax(B, Np, P, n_max, Hq, Hk, dh):
+    q, kp, vp, ids, pos = _paged_case(B, Np, P, n_max, Hq, Hk, dh)
+    out = PA.reference(*_t(q, kp, vp, ids, pos)).numpy()
+    args = [jnp.asarray(a) for a in (q, kp, vp, ids, pos)]
+    kern = jax_paged(*args, interpret=True)
+    oracle = JR.paged_attention_ref(*args)
+    np.testing.assert_allclose(out, np.asarray(kern), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(out, np.asarray(oracle), rtol=1e-5, atol=1e-5)
+
+
+def test_paged_plain_ignores_stale_pages():
+    """Pages past a row's position hold +-1e9 and still contribute an exact
+    softmax zero: bit-identical to the clean pool, and equal to JAX."""
+    B, Np, P, n_max, Hq, Hk, dh = 2, 12, 4, 5, 4, 2, 32
+    q, kp, vp, ids, _ = _paged_case(B, Np, P, n_max, Hq, Hk, dh, seed=3)
+    pos = np.asarray([P + 1, 2 * P - 1], np.int32)   # 2 pages live each
+    clean = PA.reference(*_t(q, kp, vp, ids, pos))
+    kp2, vp2 = _poison_stale(kp, vp, ids, pos, P)
+    poisoned = PA.reference(*_t(q, kp2, vp2, ids, pos))
+    assert torch.equal(clean, poisoned)
+    kern = jax_paged(*[jnp.asarray(a) for a in (q, kp2, vp2, ids, pos)],
+                     interpret=True)
+    np.testing.assert_allclose(poisoned.numpy(), np.asarray(kern),
+                               rtol=1e-5, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# wrappers: CPU tensors take the plain version and launch nothing
+# ---------------------------------------------------------------------------
+def test_wrappers_take_plain_path_on_cpu():
+    ops.reset_launches()
+    q, k, v = _t(*_qkv(1, 64, 64, 4, 2, 32))
+    out = ops.flash_attention(q, k, v, causal=True)
+    assert torch.equal(out, TR.attention_ref(q, k, v, causal=True))
+    pq, kp, vp, ids, pos = _t(*_paged_case(2, 16, 4, 6, 4, 2, 32))
+    out = ops.paged_attention(pq, kp, vp, ids, pos)
+    assert torch.equal(out, TR.paged_attention_ref(pq, kp, vp, ids, pos))
+    assert ops.flash_attention.launches == 0
+    assert ops.paged_attention.launches == 0
+
+
+def test_paged_wrapper_crops_block_table():
+    """logical_len crops the table to ceil(logical_len / P) pages, as the
+    JAX wrapper does; columns past the crop are never read."""
+    q, kp, vp, ids, pos = _paged_case(2, 16, 4, 6, 4, 2, 32)
+    pos = np.minimum(pos, 9).astype(np.int32)
+    full = ops.paged_attention(*_t(q, kp, vp, ids, pos))
+    ids2 = ids.copy()
+    ids2[:, 3:] = 15   # beyond ceil(10 / 4) = 3 pages
+    crop = ops.paged_attention(*_t(q, kp, vp, ids2, pos), logical_len=10)
+    np.testing.assert_allclose(crop.numpy(), full.numpy(),
+                               rtol=1e-6, atol=1e-6)
+
+
+def test_flash_wrapper_rejects_ragged_noncausal():
+    q, k, v = _t(*_qkv(1, 16, 200, 4, 2, 32))
+    with pytest.raises(ValueError, match="non-causal"):
+        ops.flash_attention(q, k, v, causal=False)
