@@ -7,16 +7,30 @@ Run from the repository root on a machine with one CUDA card:
 
 Phases (each raises on failure, and then no result is printed):
   1. require CUDA; print the card's name and power limit (nvidia-smi);
-  2. build the CUDA kernels from `src/repro_torch/csrc` (nvcc, sm_90a);
-  3. hold each kernel against its plain PyTorch version on the card, in
-     bf16 (2e-2) and fp32 (2e-5, TF32 off), at the serve path's shapes;
+  2. build the CUDA kernels from `src/repro_torch/csrc` (nvcc, sm_90a),
+     one nvcc per source, all started together;
+  3. hold each kernel against its plain PyTorch version on the card: the
+     attention kernels in bf16 (2e-2) and fp32 (2e-5, TF32 off) at the
+     serve path's shapes; nc_pack / nc_unpack bit for bit, fp32 and bf16,
+     on ragged sizes with zeros, powers of two and their predecessors and
+     values outside the wire's range [2^-69, 2^57);
   4. serve qwen3-0.6b at full width (28 layers, bf16, seeded random
      weights) through the paged continuous-batching ServeEngine, with the
      kernel launch counters zeroed just before and read just after; then
      hold the kernel path's prefill logits and paged decode logits against
      the plain versions' (flags off);
   5. time each kernel beside its plain version, one PyTorch library call
-     (timed only, never used by the port) and its bound; print tokens/s.
+     where one computes the same function (timed only, never used by the
+     port) and its bound; print tokens/s;
+  6. train qwen3-0.6b at full width (28 layers, bf16, block remat, AdamW,
+     warmup-cosine, natural-compressed gradients, the synthetic bigram
+     pipeline) at batch 2 x seq 4096: one warm-up step, then timed steps
+     with the launch counters zeroed just before and read just after
+     (14 nc_pack and 14 nc_unpack launches a step, one per gradient leaf;
+     no attention kernel); then one step's split into forward+backward,
+     compression and optimizer, and the same gradients compressed by the
+     kernels and by the plain versions, which must agree bit for bit, and
+     so must the parameters each update gives.
 
 The serve run of phase 4 is timed warm: one short batch goes through the
 same engine first (cuBLAS handles, allocator growth, first launches).
@@ -24,7 +38,8 @@ With `--profile`, phase 4 also serves the workload twice more: once with
 a synchronize after every engine tick, which splits the wall time into
 admits (prefill) and decode chunks, and once under `torch.profiler` over
 a window of engine ticks, which gives kernel time by name and the card's
-busy share (summed kernel time over the window's wall time).
+busy share (summed kernel time over the window's wall time); phase 6
+runs one more train step under `torch.profiler`.
 
 Every line that holds a measured number names the card and its power
 limit.  The second-last line is the kernels' JSON record, the last line
@@ -59,6 +74,11 @@ SLOTS, REQUESTS, PAGE = 8, 16, 16
 PLEN, GEN = (256, 512), (32, 128)
 WARMUP_GEN = 4                        # budget of the warm-up batch
 WINDOW_SKIP, WINDOW_TICKS = 24, 12    # --profile: ticks before / inside
+# train phase: train_4k's sequence length, its global batch of 256 cut to
+# 2 sequences on one card; one warm-up step, then TRAIN_STEPS timed
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_WARMUP = 2, 4096, 10, 20
+# the nc wire format: code 1..127 <=> |value| 2^-69 .. 2^57
+NC_LO, NC_HI = 2.0 ** -69, 2.0 ** 57
 
 
 def fail(msg: str) -> None:
@@ -181,6 +201,78 @@ def check_kernels(torch, FA, PA, rows):
     return errs
 
 
+def nc_inputs(torch, n, dtype, seed):
+    """n values (n ragged) at several scales with the edge cases spliced
+    in, and uniforms that include 0 and the largest float below 1."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(n, generator=g, device="cuda")
+    x *= 10.0 ** torch.randint(-12, 4, (n,), generator=g, device="cuda")
+    pw = torch.tensor([2.0 ** k for k in range(-75, 64, 3)], device="cuda")
+    low = torch.tensor([2.0 ** -70, 2.0 ** -80, 1e-30, 1e-38, 1e-40, 1e-45,
+                        2.0 ** -69], device="cuda")
+    high = torch.tensor([2.0 ** 57, 2.0 ** 60, 3e30, 2.0 ** 57 * 1.5],
+                        device="cuda")
+    edge = torch.cat([torch.zeros(8, device="cuda"), pw, low, high]).to(dtype)
+    # float predecessors of the powers of two, in the tensor's own type
+    wide = torch.int32 if dtype == torch.float32 else torch.int16
+    pred = (pw.to(dtype).view(wide) - 1).view(dtype)
+    edge = torch.cat([edge, pred])
+    edge = torch.cat([edge, -edge])
+    x = x.to(dtype)
+    k = min(n, edge.numel())
+    idx = torch.randperm(n, generator=g, device="cuda")[:k]
+    x[idx] = edge[:k]
+    u = torch.rand(n, generator=g, device="cuda")
+    u[:2] = torch.tensor([0.0, 1.0 - 2.0 ** -24], device="cuda")
+    return x, u
+
+
+def check_nc(torch, NC, rows):
+    """Pack codes and unpacked values bit-identical to the plain versions,
+    unpacked values equal to +-2^(code-70); contiguous views at an odd
+    element offset take the kernels' unaligned path."""
+    sizes = (1, 3, 127, 1000, 4097, 131073, 1024 * 151936 + 5)
+    # +-2^(code-70) by code, from Python's exact float powers of two
+    # (torch.pow on the card is not exact for every exponent)
+    mags = [0.0] + [2.0 ** (c - 70) for c in range(1, 128)]
+    exact = torch.tensor(mags + [-m for m in mags], dtype=torch.float64,
+                         device="cuda")
+    for dtype in (torch.float32, torch.bfloat16):
+        for i, n in enumerate(sizes):
+            x, u = nc_inputs(torch, n + 1, dtype, seed=100 + i)
+            for off in (0, 1):
+                xs, us = x[off:off + n], u[off:off + n]
+                codes = NC.nc_pack(xs, us)
+                torch.cuda.synchronize()
+                ref = NC.pack_reference(xs, us)
+                if not torch.equal(codes, ref):
+                    bad = int((codes != ref).sum())
+                    fail(f"nc_pack {dtype} n={n} off={off}: {bad} codes "
+                         f"differ from the plain version")
+                for out_dt in (torch.float32, torch.bfloat16):
+                    y = NC.nc_unpack(codes, out_dt)
+                    torch.cuda.synchronize()
+                    yr = NC.unpack_reference(codes, out_dt)
+                    wide = torch.int32 if out_dt == torch.float32 else torch.int16
+                    if not torch.equal(y.view(wide), yr.view(wide)):
+                        fail(f"nc_unpack {out_dt} n={n} off={off}: values "
+                             f"differ from the plain version")
+                    if not torch.equal(y.double(), exact[codes.long()]):
+                        fail(f"nc_unpack {out_dt} n={n}: not +-2^(code-70)")
+            a = x[:n].float().abs()
+            a = a[a > 0]
+            rows.append({"dtype": str(dtype).split(".")[-1], "n": n,
+                         "below_range": int((a < NC_LO).sum()),
+                         "above_range": int((a >= NC_HI).sum())})
+    every = torch.arange(256, device="cuda").to(torch.uint8)
+    for out_dt in (torch.float32, torch.bfloat16):
+        wide = torch.int32 if out_dt == torch.float32 else torch.int16
+        if not torch.equal(NC.nc_unpack(every, out_dt).view(wide),
+                           NC.unpack_reference(every, out_dt).view(wide)):
+            fail(f"nc_unpack {out_dt}: the 256 codes differ")
+    return {"nc_pack": 0.0, "nc_unpack": 0.0}   # bit-identical, or failed
+
+
 # ---------------------------------------------------------------------------
 # phase 4: serve at full width
 # ---------------------------------------------------------------------------
@@ -281,20 +373,33 @@ def profile_serve(torch, cfg, params, ServeEngine, Request):
             kinds.append(eng.tick())
         torch.cuda.synchronize()
         window_s = time.perf_counter() - t0
+    res["trace"] = dict(trace_summary(prof, window_s), ticks=kinds)
+    return res
+
+
+def trace_summary(prof, window_s):
+    """Kernel time by name and the card's busy share (summed kernel time
+    over the window's wall time) from a torch.profiler run."""
     avg = prof.key_averages()
     kern = sorted(((r.key, _device_us(r), r.count) for r in avg
                    if str(getattr(r, "device_type", "")).endswith("CUDA")),
                   key=lambda x: -x[1])
     busy_us = sum(us for _, us, _ in kern)
-    res["trace"] = {
-        "ticks": kinds, "window_s": window_s, "kernel_s": busy_us / 1e6,
+    return {
+        "window_s": window_s, "kernel_s": busy_us / 1e6,
         "kernel_launches": sum(c for *_, c in kern),
         "cpu_ops": sum(r.count for r in avg
                        if str(getattr(r, "device_type", "")).endswith("CPU")),
         "busy_share": (busy_us / 1e6 / window_s) if busy_us else None,
         "top_kernels": [{"name": k, "ms": us / 1e3, "count": c}
                         for k, us, c in kern[:15]]}
-    return res
+
+
+def print_trace(card, what, trace):
+    print(f"{what} [{card}]: {json.dumps(dict(trace, top_kernels=None))}")
+    for k in trace["top_kernels"]:
+        print(f"  kernel [{card}] {k['ms']:.3f} ms x{k['count']} "
+              f"{k['name'][:100]}")
 
 
 def compare_plain_paths(torch, cfg, params, MD, reqs):
@@ -413,13 +518,170 @@ def time_paged(torch, PA, pos_list):
             "flops": flops, "bytes": nbytes}
 
 
+def nc_bound(n_in_bytes, n_out_bytes):
+    """(bound ms, 'bytes'): a few integer operations per element never
+    bound these kernels; each input byte read once, each output written
+    once, at the card's memory rate."""
+    return 1e3 * (n_in_bytes + n_out_bytes) / PEAK_BYTES, "bytes"
+
+
+def time_nc(torch, NC, leaves):
+    """nc_pack / nc_unpack at the embed leaf (the train path's largest,
+    one launch each) and over one step's gradient leaves (14 launches
+    each), bf16 gradients and fp32 uniforms as the train step gives them."""
+    g = torch.Generator(device="cuda").manual_seed(44)
+    xs = [(torch.randn(s, generator=g, device="cuda") * 1e-3).bfloat16()
+          for s in leaves]
+    us = [torch.rand(s, generator=g, device="cuda") for s in leaves]
+    cs = [NC.nc_pack(x, u) for x, u in zip(xs, us)]
+    big = max(range(len(leaves)), key=lambda i: xs[i].numel())
+    res = {}
+    for scope, idx in (("embed", [big]), ("step", list(range(len(xs))))):
+        n = sum(xs[i].numel() for i in idx)
+        pk = cuda_ms(lambda: [NC.nc_pack(xs[i], us[i]) for i in idx], n=10)
+        pk_plain = cuda_ms(lambda: [NC.pack_reference(xs[i], us[i])
+                                    for i in idx], n=3, warmup=1)
+        up = cuda_ms(lambda: [NC.nc_unpack(cs[i], torch.bfloat16)
+                              for i in idx], n=10)
+        up_plain = cuda_ms(lambda: [NC.unpack_reference(cs[i], torch.bfloat16)
+                                    for i in idx], n=3, warmup=1)
+        pb, pby = nc_bound(n * (2 + 4), n)
+        ub, uby = nc_bound(n, 2 * n)
+        res[scope] = {
+            "elements": n, "launches": len(idx),
+            "shape": list(xs[big].shape) if scope == "embed" else None,
+            "nc_pack": {"ms": pk, "plain_ms": pk_plain, "bound_ms": pb,
+                        "bound_by": pby, "library_ms": None,
+                        "bytes": n * 7},
+            "nc_unpack": {"ms": up, "plain_ms": up_plain, "bound_ms": ub,
+                          "bound_by": uby, "library_ms": None,
+                          "bytes": n * 3}}
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 6: train at full width with compressed gradients
+# ---------------------------------------------------------------------------
+def train_phase(torch, cfg, ops, NC, profile=False):
+    from repro_torch.core.compression import draw_uniforms
+    from repro_torch.data import make_pipeline
+    from repro_torch.launch.steps import (apply_grads, loss_and_grads,
+                                          make_train_step)
+    from repro_torch.models import model as MD
+    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.optim.optimizers import adamw, warmup_cosine
+
+    def same_bits(a, b):
+        """Two trees equal bit for bit (-0.0 and 0.0 differ)."""
+        def bits(t):
+            return t.view(torch.int16 if t.dtype == torch.bfloat16
+                          else torch.int32)
+        return all(torch.equal(bits(x), bits(y))
+                   for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+    B, S = TRAIN_BATCH, TRAIN_SEQ
+    total = 1 + TRAIN_STEPS
+    params = MD.init_model(cfg, torch.Generator(device="cuda").manual_seed(0))
+    n_leaves = len(tree_leaves(params))
+    opt = adamw(warmup_cosine(3e-3, TRAIN_WARMUP, total))
+    state = opt.init(params)
+    step_fn = make_train_step(cfg, opt, compress_grads=True)
+    batches = iter(make_pipeline(cfg.vocab_size, B, S, seed=0))
+
+    def batch():
+        return {k: torch.from_numpy(v).cuda() for k, v in next(batches).items()}
+
+    def noise(step):
+        return torch.Generator(device="cuda").manual_seed(1 + step)
+
+    losses = []
+    params, state, m = step_fn(params, state, batch(), noise(0))   # warm-up
+    losses.append(float(m["loss"]))
+    data = [batch() for _ in range(TRAIN_STEPS)]    # host sampling untimed
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    for i, b in enumerate(data):
+        params, state, m = step_fn(params, state, b, noise(1 + i))
+        losses.append(float(m["loss"]))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {n: getattr(ops, n).launches for n in
+                ("nc_pack", "nc_unpack", "flash_attention", "paged_attention")}
+    peak = torch.cuda.max_memory_allocated()
+    want = n_leaves * TRAIN_STEPS
+    if launches["nc_pack"] != want or launches["nc_unpack"] != want:
+        fail(f"train run: nc launches {launches}, want {want} each "
+             f"({n_leaves} gradient leaves x {TRAIN_STEPS} steps)")
+    if launches["flash_attention"] or launches["paged_attention"]:
+        fail(f"train run launched an attention kernel: {launches}")
+    if not all(map(lambda v: v == v and abs(v) != float("inf"), losses)):
+        fail(f"non-finite train loss: {losses}")
+    if not losses[-1] < losses[0]:
+        fail(f"train loss did not fall: {losses}")
+
+    # one step split, a synchronize between the parts
+    b = batch()
+    split = {}
+    t = time.perf_counter()
+    loss, grads = loss_and_grads(params, cfg, b)
+    torch.cuda.synchronize()
+    split["forward_backward_ms"] = 1e3 * (time.perf_counter() - t)
+    u = draw_uniforms(grads, noise(total))
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    ck = tree_map(ops.nc_roundtrip, grads, u)
+    torch.cuda.synchronize()
+    split["compression_ms"] = 1e3 * (time.perf_counter() - t)
+    t = time.perf_counter()
+    pk, sk, _ = apply_grads(opt, params, state, ck)
+    torch.cuda.synchronize()
+    split["optimizer_ms"] = 1e3 * (time.perf_counter() - t)
+
+    # the same gradients and uniforms through the plain round trip
+    cp = tree_map(lambda g, v: NC.unpack_reference(NC.pack_reference(g, v),
+                                                   g.dtype), grads, u)
+    if not same_bits(ck, cp):
+        fail("compressed gradients: kernels and plain versions differ")
+    pp, sp, _ = apply_grads(opt, params, state, cp)
+    if not (same_bits(pk, pp) and same_bits(sk["mu"], sp["mu"])
+            and same_bits(sk["nu"], sp["nu"])):
+        fail("params after the kernel step and the plain step differ")
+    del u, ck, cp, pk, sk, pp, sp
+    trace = None
+    if profile:        # one more step under the profiler
+        b = batch()
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            t = time.perf_counter()
+            step_fn(params, state, b, noise(total + 1))
+            torch.cuda.synchronize()
+            window_s = time.perf_counter() - t
+        trace = trace_summary(prof, window_s)
+    gl = [g.float().abs() for g in tree_leaves(grads)]
+    outside = {"zero": sum(int((a == 0).sum()) for a in gl),
+               "below_2^-69": sum(int(((a > 0) & (a < NC_LO)).sum())
+                                  for a in gl),
+               "at_or_above_2^57": sum(int((a >= NC_HI).sum()) for a in gl)}
+    return {"batch": B, "seq": S, "steps": TRAIN_STEPS, "losses": losses,
+            "wall_s": wall, "ms_per_step": 1e3 * wall / TRAIN_STEPS,
+            "tok_s": B * S * TRAIN_STEPS / wall, "peak_mem_gb": peak / 1e9,
+            "launches": launches, "n_leaves": n_leaves, "split": split,
+            "grad_elements": sum(a.numel() for a in gl),
+            "grad_range": outside, "compare_loss": float(loss),
+            "trace": trace}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
                     help="directory for the full results, chip_smoke.json")
     ap.add_argument("--profile", action="store_true",
                     help="also split a serve run into admits and decode "
-                         "ticks and trace a window of it")
+                         "ticks and trace a window of it, and trace one "
+                         "train step")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -438,8 +700,10 @@ def main(argv=None) -> int:
     from repro_torch.configs import get_config
     from repro_torch.kernels import build, ops
     from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import nat_compress as NC
     from repro_torch.kernels import paged_attention as PA
     from repro_torch.models import model as MD
+    from repro_torch.models.common import tree_leaves
     from repro_torch.models.config import param_count
     from repro_torch.serving import Request, ServeEngine
 
@@ -450,7 +714,8 @@ def main(argv=None) -> int:
           f"device {torch.cuda.get_device_name(0)}")
 
     t0 = time.perf_counter()                                    # phase 2
-    reports = build.build(["flash_attention", "paged_attention"])
+    reports = build.build(["flash_attention", "paged_attention",
+                           "nat_compress"])
     build_s = time.perf_counter() - t0
     print(f"build [{card}]: {build_s:.1f} s")
     for name, rep in reports.items():
@@ -463,14 +728,20 @@ def main(argv=None) -> int:
     for r in rows:
         print(f"check [{card}] {r[0]} {r[1]} {r[2]} window={r[3]} "
               f"max|err|={r[4]:.3g}")
+    nc_rows = []
+    errs.update(check_nc(torch, NC, nc_rows))
+    for r in nc_rows:
+        print(f"check [{card}] nc_pack/nc_unpack {r['dtype']} n={r['n']} "
+              f"(below 2^-69: {r['below_range']}, at or above 2^57: "
+              f"{r['above_range']}): codes and values bit-identical")
 
     cfg = get_config(ARCH).with_(use_flash_kernel=True,         # phase 4
                                  use_paged_kernel=True)
     total, _ = param_count(cfg)
     gen = torch.Generator(device="cuda").manual_seed(0)
     params = MD.init_model(cfg, gen)
-    reqs, launches, st, wall = serve(torch, cfg, params, ops, ServeEngine,
-                                     Request)
+    reqs, serve_launches, st, wall = serve(torch, cfg, params, ops,
+                                           ServeEngine, Request)
     tps = st["generated_tokens"] / wall
     print(f"serve [{card}]: {ARCH} {total / 1e6:.1f}M params bf16, "
           f"{SLOTS} slots, {REQUESTS} requests, warm run: "
@@ -479,16 +750,12 @@ def main(argv=None) -> int:
           f"prefill_tokens={st['prefill_tokens']} "
           f"decode_ticks={st['decode_ticks']} "
           f"pool_occupancy={st['pool_occupancy']:.3f} "
-          f"preemptions={st['preemptions']} launches={launches}")
+          f"preemptions={st['preemptions']} launches={serve_launches}")
     prof = None
     if args.profile:
         prof = profile_serve(torch, cfg, params, ServeEngine, Request)
         print(f"split [{card}]: {json.dumps(prof['split'])}")
-        print(f"trace [{card}]: "
-              f"{json.dumps(dict(prof['trace'], top_kernels=None))}")
-        for k in prof["trace"]["top_kernels"]:
-            print(f"  kernel [{card}] {k['ms']:.3f} ms x{k['count']} "
-                  f"{k['name'][:100]}")
+        print_trace(card, "trace", prof["trace"])
     plain = compare_plain_paths(torch, cfg, params, MD, reqs)
     print(f"kernel vs plain path [{card}]: {json.dumps(plain)}")
 
@@ -502,16 +769,52 @@ def main(argv=None) -> int:
               f"plain {t['plain_ms']:.4f} ms, {t['library']} "
               f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
               f"({t['bound_by']})")
+    train_cfg = get_config(ARCH)          # bf16, block remat, flags off
+    nc_t = time_nc(torch, NC, [d.shape for d in
+                               tree_leaves(MD.model_descs(train_cfg))])
+    for scope, t in nc_t.items():
+        for name in ("nc_pack", "nc_unpack"):
+            k = t[name]
+            print(f"time [{card}] {name} {scope} ({t['elements']} elements, "
+                  f"{t['launches']} launches): kernel {k['ms']:.4f} ms, "
+                  f"plain {k['plain_ms']:.4f} ms, library none, "
+                  f"bound {k['bound_ms']:.4f} ms ({k['bound_by']})")
 
+    del params                                                  # phase 6
+    torch.cuda.empty_cache()
+    tr = train_phase(torch, train_cfg, ops, NC, profile=args.profile)
+    print(f"train [{card}]: {ARCH} {total / 1e6:.1f}M params bf16, "
+          f"remat={train_cfg.remat}, batch {tr['batch']} x seq {tr['seq']}, "
+          f"{tr['steps']} timed steps: {tr['ms_per_step']:.1f} ms/step, "
+          f"{tr['tok_s']:.0f} tokens/s, peak memory "
+          f"{tr['peak_mem_gb']:.2f} GB, launches {tr['launches']}")
+    print(f"train [{card}]: losses {[round(x, 4) for x in tr['losses']]}")
+    print(f"train split [{card}]: {json.dumps(tr['split'])}")
+    if tr["trace"]:
+        print_trace(card, "train trace", tr["trace"])
+    print(f"train kernel vs plain compression [{card}]: {tr['n_leaves']} "
+          f"leaves, {tr['grad_elements']} gradient elements "
+          f"{json.dumps(tr['grad_range'])}: compressed gradients, params "
+          f"and moments bit-identical")
+
+    launches = dict(serve_launches, nc_pack=tr["launches"]["nc_pack"],
+                    nc_unpack=tr["launches"]["nc_unpack"])
+    timing = {"flash_attention": flash_t, "paged_attention": paged_t,
+              "nc_pack": nc_t["embed"]["nc_pack"],
+              "nc_unpack": nc_t["embed"]["nc_unpack"]}
     kernels = []
-    for name, t, replaces in (
-            ("flash_attention", flash_t,
+    for name, src, replaces in (
+            ("flash_attention", "flash_attention",
              "src/repro/kernels/flash_attention.py:77"),
-            ("paged_attention", paged_t,
-             "src/repro/kernels/paged_attention.py:77")):
+            ("paged_attention", "paged_attention",
+             "src/repro/kernels/paged_attention.py:77"),
+            ("nc_pack", "nat_compress", "src/repro/kernels/nat_compress.py:56"),
+            ("nc_unpack", "nat_compress",
+             "src/repro/kernels/nat_compress.py:80")):
+        t = timing[name]
         kernels.append({
             "name": name, "route": "cuda",
-            "source": f"src/repro_torch/csrc/{name}.cu",
+            "source": f"src/repro_torch/csrc/{src}.cu",
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": errs[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
@@ -519,10 +822,11 @@ def main(argv=None) -> int:
     elapsed = time.perf_counter() - t_start
     result = {"card": card, "build_s": build_s, "elapsed_s": elapsed,
               "checks": rows, "serve": dict(st, wall_s=wall, tok_s=tps,
-                                            launches=launches),
-              "profile": prof, "plain_paths": plain,
+                                            launches=serve_launches),
+              "nc_checks": nc_rows, "profile": prof, "plain_paths": plain,
               "timing": {"flash_attention": flash_t,
-                         "paged_attention": paged_t}}
+                         "paged_attention": paged_t, "nc": nc_t},
+              "train": tr}
     if args.out:
         os.makedirs(args.out, exist_ok=True)
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as fh:

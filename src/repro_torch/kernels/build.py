@@ -22,16 +22,19 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-# C signatures of the exported launchers: pointers and the stream are
-# c_void_p (a bare int would be cut to 32 bits), sizes c_int.
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# C signatures of the exported launchers, by source: pointers and the
+# stream are c_void_p (a bare int would be cut to 32 bits), sizes c_int,
+# element counts that may pass 2^31 c_longlong.
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 SIGNATURES = {
-    "flash_attention": ("flash_attention_fwd",
+    "flash_attention": {"flash_attention_fwd":
                         [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                         _F, _I, _P]),
-    "paged_attention": ("paged_attention_fwd",
+                         _F, _I, _P]},
+    "paged_attention": {"paged_attention_fwd":
                         [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                         _F, _I, _P]),
+                         _F, _I, _P]},
+    "nat_compress": {"nc_pack_fwd": [_P, _P, _P, _L, _I, _P],
+                     "nc_unpack_fwd": [_P, _P, _L, _I, _P]},
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -92,9 +95,9 @@ def load(name: str) -> ctypes.CDLL:
     if not path.exists():
         build([name])
     lib = ctypes.CDLL(str(path))
-    fn_name, argtypes = SIGNATURES[name]
-    fn = getattr(lib, fn_name)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
+    for fn_name, argtypes in SIGNATURES[name].items():
+        fn = getattr(lib, fn_name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
     _loaded[name] = lib
     return lib

@@ -1,10 +1,15 @@
-"""Public wrappers around the attention kernels; model code calls these.
+"""Public wrappers around the kernels; model and train-step code call these.
 
 A CUDA tensor goes to the hand-written CUDA kernel, and a failed build or
 launch raises; a CPU tensor goes to the kernel's plain PyTorch version.
 Each wrapper carries ``launches``, a plain integer that counts kernel
 launches (and nothing else), so a run can show that it went through the
 kernels.
+
+The attention kernels have no backward, as the TPU kernels they replace
+have none (``jax.grad`` through them raises): their wrappers refuse inputs
+that require a gradient while autograd records, on either device, rather
+than return a result cut off from the graph.
 """
 from __future__ import annotations
 
@@ -13,6 +18,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import nat_compress as _nc
 from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels import ref as _ref
 
@@ -21,10 +27,19 @@ from repro_torch.kernels import ref as _ref
 _TPU_BLOCK_K = 128
 
 
+def _refuse_autograd(name: str, *tensors: torch.Tensor) -> None:
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name} has no backward (nor has the TPU kernel it replaces): "
+            f"run it under torch.no_grad(), or turn the kernel flag off to "
+            f"differentiate through the plain attention")
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True,
                     window: Optional[int] = None) -> torch.Tensor:
     """GQA flash attention.  q: (B,S,Hq,dh); k,v: (B,T,Hk,dh)."""
+    _refuse_autograd("flash_attention", q, k, v)
     T = k.shape[1]
     if not causal and T % min(_TPU_BLOCK_K, T):
         raise ValueError("non-causal flash requires T % block_k == 0 "
@@ -49,6 +64,7 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
     pos: (B,) int32.  logical_len crops the block table to
     ceil(logical_len / P) pages, so tables wider than the engine's
     cache_len cost nothing for their dead pages."""
+    _refuse_autograd("paged_attention", q, k_pool, v_pool)
     if logical_len is not None:
         P = k_pool.shape[1]
         block_tables = block_tables[:, :-(-logical_len // P)]
@@ -62,6 +78,42 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
 paged_attention.launches = 0
 
 
+def nc_pack(x: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """Natural-compress to the uint8 wire format, with the caller's
+    uniforms ``u`` (float32, x's shape) as the rounding noise."""
+    if not x.is_cuda:
+        return _nc.pack_reference(x, u)
+    out = _nc.nc_pack(x, u)
+    if x.numel():
+        nc_pack.launches += 1
+    return out
+
+
+nc_pack.launches = 0
+
+
+def nc_unpack(b: torch.Tensor,
+              dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The wire format back to ``dtype``: exactly sign * 2^(code - 70)."""
+    if not b.is_cuda:
+        return _nc.unpack_reference(b, dtype)
+    out = _nc.nc_unpack(b, dtype)
+    if b.numel():
+        nc_unpack.launches += 1
+    return out
+
+
+nc_unpack.launches = 0
+
+
+def nc_roundtrip(x: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """pack + unpack: the on-device view of a compressed gradient
+    (unbiased: E[nc_roundtrip(x, u)] = x over u, on the wire's range)."""
+    return nc_unpack(nc_pack(x, u), dtype=x.dtype)
+
+
 def reset_launches() -> None:
     flash_attention.launches = 0
     paged_attention.launches = 0
+    nc_pack.launches = 0
+    nc_unpack.launches = 0

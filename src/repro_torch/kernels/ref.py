@@ -1,9 +1,11 @@
-"""Plain PyTorch versions of the attention kernels.
+"""Plain PyTorch versions of the kernels (attention, natural compression).
 
-The same semantics as the JAX package's ``kernels/ref.py`` oracles:
-scores in fp32, probabilities cast to ``v.dtype`` before the PV product,
-masked scores set to ``NEG_INF`` (so a fully masked row averages
-uniformly, where the kernels emit 0).  The CPU path of every wrapper in
+The same semantics as the JAX package's ``kernels/ref.py`` oracles.
+Attention: scores in fp32, probabilities cast to ``v.dtype`` before the
+PV product, masked scores set to ``NEG_INF`` (so a fully masked row
+averages uniformly, where the kernels emit 0).  Natural compression:
+exponents read from the float's bit fields and powers of two built from
+them, where the oracles take ``log2`` and ``exp2``.  The CPU path of every wrapper in
 ``kernels.ops`` runs these, and the tests and ``chip_smoke.py`` hold the
 CUDA kernels against them.
 """
@@ -61,3 +63,56 @@ def paged_attention_ref(q: torch.Tensor, k_pool: torch.Tensor,
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgt,btkd->bkgd", probs.to(v.dtype), v)
     return out.reshape(B, Hq, dh).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Natural compression: the uint8 wire format, uniforms given explicitly
+# ---------------------------------------------------------------------------
+NC_BIAS = 70                 # value = sign * 2^(code - 70); code 0 => zero
+_MANT = 23                   # fp32 mantissa bits
+_NORMAL_MIN_BITS = 1 << _MANT   # bit patterns below: zero or subnormal
+
+
+def float_fields(a: torch.Tensor):
+    """a: float32 >= 0.  Returns (e, p), int32 and float32, with
+    a = 2^e (1 + p) and p in [0, 1) for every a > 0 — read from the bit
+    fields (a subnormal is scaled by 2^23 first, exactly), never from
+    ``log2``, which is inexact near powers of two on some backends."""
+    sub = a.view(torch.int32) < _NORMAL_MIN_BITS
+    bits = torch.where(sub, a * float(1 << _MANT), a).view(torch.int32)
+    e = (bits >> _MANT) - 127 - torch.where(sub, _MANT, 0)
+    p = (bits & (_NORMAL_MIN_BITS - 1)).float() * (1.0 / (1 << _MANT))
+    return e, p
+
+
+def pow2(e: torch.Tensor) -> torch.Tensor:
+    """Exactly 2^e as float32, for int e in [-149, 127], from the bits."""
+    e = e.int()
+    normal = ((e + 127).clamp(min=1) << _MANT).view(torch.float32)
+    subnormal = (1 << (e + 149).clamp(0, _MANT - 1)).view(torch.float32)
+    return torch.where(e >= -126, normal, subnormal)
+
+
+def nc_pack_ref(x: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """Stochastic power-of-two rounding to the uint8 wire format: sign in
+    bit 7, a 7-bit exponent code clipped to 1..127, code 0 for zero.
+
+    x: float (fp32 or bf16, widened to fp32 exactly); u: fp32 uniforms in
+    [0, 1) of x's shape.  With |x| = 2^e (1 + p), the code is e + 70, plus
+    one when u < p."""
+    a = x.float().abs()
+    e, p = float_fields(a)
+    code = torch.clamp(e + (u.float() < p).int() + NC_BIAS, 1, 127)
+    code = torch.where(a == 0, 0, code)
+    sign = torch.where(x < 0, 128, 0)
+    return (code | sign).to(torch.uint8)
+
+
+def nc_unpack_ref(b: torch.Tensor,
+                  dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The wire format back to floats: exactly ``sign * 2^(code - 70)``,
+    0 for code 0 (every such power is normal in fp32 and bf16)."""
+    bi = b.int()
+    code = bi & 0x7F
+    mag = torch.where(code == 0, 0.0, pow2(code - NC_BIAS))
+    return torch.where((bi & 0x80) != 0, -mag, mag).to(dtype)

@@ -1,18 +1,68 @@
-"""Serve step builders: prefill and decode ticks over the model.
+"""Step builders: the train step, prefill and decode ticks over the model.
 
-The PyTorch counterpart of the serve half of the JAX package's
-``launch/steps.py``.  PyTorch runs eagerly, so a builder returns a plain
-closure where the JAX one returns a function for ``jax.jit``.  The train
-step is not ported yet (ROADMAP.md).
+The PyTorch counterpart of the JAX package's ``launch/steps.py``.
+PyTorch runs eagerly, so a builder returns a plain closure where the JAX
+one returns a function for ``jax.jit``.  The sharding specs and abstract
+inputs of the JAX module belong to meshes and ahead-of-time lowering,
+which the port does not have yet (ROADMAP.md).
 """
 from __future__ import annotations
 
-from typing import Callable
+from typing import Any, Callable, Optional, Union
 
 import torch
 
+from repro_torch.core.compression import wire_roundtrip
 from repro_torch.models import model as MD
+from repro_torch.models.common import tree_leaves, tree_map
 from repro_torch.models.config import ModelConfig
+from repro_torch.optim.optimizers import clip_by_global_norm
+
+
+# ---------------------------------------------------------------------------
+# Train step
+# ---------------------------------------------------------------------------
+def loss_and_grads(params, cfg: ModelConfig, batch):
+    """(loss, grads) of ``lm_loss``: the port's ``jax.value_and_grad``.
+    grads mirror params (a parameter that the loss does not reach gets
+    zeros, as in JAX); params themselves are left untouched."""
+    leaves = tree_map(lambda p: p.detach().requires_grad_(True), params)
+    loss = MD.lm_loss(leaves, cfg, batch)
+    grads = iter(torch.autograd.grad(loss, tree_leaves(leaves),
+                                     materialize_grads=True))
+    return loss.detach(), tree_map(lambda _: next(grads), params)
+
+
+def apply_grads(opt, params, opt_state, grads, max_norm: float = 1.0):
+    """Clip to the global norm, then one optimizer update.  Returns
+    (params, opt_state, gnorm)."""
+    grads, gnorm = clip_by_global_norm(grads, max_norm)
+    params, opt_state = opt.update(grads, opt_state, params)
+    return params, opt_state, gnorm
+
+
+def make_train_step(cfg: ModelConfig, opt,
+                    compress_grads: bool = False) -> Callable:
+    """compress_grads: every gradient leaf goes through the natural-
+    compression wire format and back before the optimizer (survey ref 75;
+    the nc_pack/nc_unpack kernels on the card)."""
+    def train_step(params, opt_state, batch,
+                   noise: Optional[Union[Any, torch.Generator]] = None):
+        """noise (compress_grads only): a tree of uniforms shaped like the
+        params, or a generator to draw them from, one leaf after another
+        in sorted-key order.  Without it, a generator seeded with the
+        optimizer's step count draws fresh noise each step, as the JAX
+        step folds its step counter into a fixed key."""
+        loss, grads = loss_and_grads(params, cfg, batch)
+        if compress_grads:
+            if noise is None:
+                step = opt_state["step"]
+                noise = torch.Generator(device=step.device).manual_seed(
+                    int(step))
+            grads = wire_roundtrip(grads, noise)
+        params, opt_state, gnorm = apply_grads(opt, params, opt_state, grads)
+        return params, opt_state, {"loss": loss, "gnorm": gnorm}
+    return train_step
 
 
 def make_prefill_step(cfg: ModelConfig, cache_len: int) -> Callable:

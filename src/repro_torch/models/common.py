@@ -51,12 +51,20 @@ def _materialize(desc: ParamDesc, generator: torch.Generator,
     return (x * scale).to(dtype)
 
 
-def tree_map(fn: Callable, tree: Any) -> Any:
-    """Map over the leaves of a nested dict (keys visited sorted, as JAX
-    flattens dicts)."""
+def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
+    """Map over the leaves of a nested dict, and of trees of the same
+    structure in `rest` (keys visited sorted, as JAX flattens dicts)."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, tree[k]) for k in sorted(tree)}
-    return fn(tree)
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest))
+                for k in sorted(tree)}
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree: Any) -> list:
+    """The leaves of a nested dict in sorted-key order (JAX's leaf order)."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+    return [tree]
 
 
 def init_params(tree: Dict[str, Any], generator: torch.Generator,

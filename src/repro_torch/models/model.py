@@ -11,12 +11,14 @@ Public entry points:
   decode_step(params, cfg, tokens, pos, cache) -> (logits, cache)
   cache_specs / init_cache / write_cache_slot
   paged_leaf_names / init_paged_cache / write_paged_cache
+  lm_loss(params, cfg, batch)                 -> scalar loss
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as A
 from repro_torch.models import mlp as M
@@ -99,11 +101,19 @@ def _apply_attn_mlp(p, x, positions, cfg):
     return x + M.mlp(p["mlp"], h, cfg), kv
 
 
+def _block(p, x, positions, cfg):
+    return _apply_attn_mlp(p, x, positions, cfg)[0]
+
+
 def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *,
             extra_embeds=None, return_cache: bool = False,
             cache_len: Optional[int] = None):
     """tokens: (B, S) int.  Returns (logits (B, S, V), aux_loss scalar,
-    cache|None); the cache is {"k", "v"}: (L, B, cache_len, Hk, dh)."""
+    cache|None); the cache is {"k", "v"}: (L, B, cache_len, Hk, dh).
+
+    With ``cfg.remat == "block"`` and autograd recording, each layer runs
+    under ``torch.utils.checkpoint`` (the JAX package's ``jax.checkpoint``
+    of the scan body): its activations are recomputed in the backward."""
     _require_ported(cfg)
     if extra_embeds is not None:
         raise NotImplementedError("modality prefixes are not ported yet "
@@ -118,9 +128,14 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *,
     cache = None
     if return_cache:
         cache = A.init_kv_cache(cfg, B, C, cfg.num_layers, cdt, x.device)
+    remat = (cfg.remat == "block" and torch.is_grad_enabled()
+             and not return_cache)
     for i in range(cfg.num_layers):
-        x, (k, v) = _apply_attn_mlp(_layer(params["blocks"], i), x,
-                                    positions, cfg)
+        lp = _layer(params["blocks"], i)
+        if remat:
+            x = checkpoint(_block, lp, x, positions, cfg, use_reentrant=False)
+            continue
+        x, (k, v) = _apply_attn_mlp(lp, x, positions, cfg)
         if return_cache:
             cache["k"][i, :, :S] = k
             cache["v"][i, :, :S] = v
@@ -219,3 +234,17 @@ def write_cache_slot(pool_cache, request_cache, slot):
     for name, pool in pool_cache.items():
         pool[:, slot] = request_cache[name][:, 0].to(pool.dtype)
     return pool_cache
+
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+def lm_loss(params, cfg: ModelConfig, batch, aux_weight: float = 0.01):
+    """batch: {"tokens": (B,S), "labels": (B,S), optional "extra_embeds"}.
+    Mean next-token cross-entropy over fp32 logits, plus aux_weight * aux."""
+    logits, aux, _ = forward(params, cfg, batch["tokens"],
+                             extra_embeds=batch.get("extra_embeds"))
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, batch["labels"].long()[..., None])[..., 0]
+    return (logz - gold).mean() + aux_weight * aux

@@ -12,6 +12,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import flash_attention as FA  # noqa: E402
+from repro_torch.kernels import nat_compress as NC  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import paged_attention as PA  # noqa: E402
 
@@ -107,6 +108,64 @@ def test_wrappers_count_kernel_launches():
     k = torch.randn(1, 64, 2, 64, device="cuda")
     ops.flash_attention(q, k, k)
     ops.paged_attention(*_paged_case(2, 16, 4, 4, 4, 4, 32, torch.float32))
+    ops.nc_roundtrip(q, torch.rand_like(q))
     torch.cuda.synchronize()
     assert ops.flash_attention.launches == 1
     assert ops.paged_attention.launches == 1
+    assert ops.nc_pack.launches == 1 and ops.nc_unpack.launches == 1
+
+
+def _bits(t):
+    return t.view(torch.int32 if t.dtype == torch.float32 else torch.int16)
+
+
+def _nc_inputs(n, dtype, seed):
+    """Normal draws over 16 decades, with zeros, +-powers of two, their
+    float predecessors, and values below 2^-69 and at or above 2^57."""
+    r = np.random.RandomState(seed)
+    x = (r.randn(n) * 10.0 ** r.randint(-12, 4, n)).astype(np.float32)
+    pw = np.exp2(np.arange(-75, 64, 3)).astype(np.float32)
+    edge = np.concatenate([np.zeros(4, np.float32), pw,
+                           np.nextafter(pw, np.float32(0)),
+                           np.float32([2.0 ** -80, 1e-30, 1e-40, 2.0 ** 57,
+                                       2.0 ** 60, 3e30])])
+    edge = np.concatenate([edge, -edge])
+    k = min(n, edge.size)
+    x[r.permutation(n)[:k]] = edge[:k]
+    u = r.rand(n).astype(np.float32)
+    u[:2] = np.float32([0.0, 1.0 - 2.0 ** -24])[:n]
+    return (torch.from_numpy(x).cuda().to(dtype),
+            torch.from_numpy(u).cuda())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n", [1, 5, 127, 1001, 65537])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_nc_kernels_match_plain_bit_for_bit(n, dtype, offset):
+    """Codes and unpacked values equal to the plain versions', bit for
+    bit; offset 1 (a view one element in) takes the kernels' unaligned
+    path, for pack's inputs and for unpack's codes."""
+    _cuda()
+    x, u = _nc_inputs(n + offset, getattr(torch, dtype), seed=n)
+    x, u = x[offset:], u[offset:]
+    codes = NC.nc_pack(x, u)
+    torch.cuda.synchronize()
+    assert torch.equal(codes, NC.pack_reference(x, u))
+    for out in (torch.float32, torch.bfloat16):
+        y = NC.nc_unpack(codes[offset:], out)
+        torch.cuda.synchronize()
+        assert torch.equal(_bits(y), _bits(NC.unpack_reference(codes[offset:],
+                                                               out)))
+
+
+def test_flash_kernel_refuses_autograd_on_the_card():
+    _cuda()
+    q = torch.randn(1, 64, 4, 64, device="cuda", requires_grad=True)
+    k = torch.randn(1, 64, 2, 64, device="cuda")
+    ops.reset_launches()
+    with pytest.raises(RuntimeError, match="no backward"):
+        ops.flash_attention(q, k, k)
+    assert ops.flash_attention.launches == 0
+    with torch.no_grad():
+        ops.flash_attention(q, k, k)
+    assert ops.flash_attention.launches == 1

@@ -158,3 +158,56 @@ def test_flash_wrapper_rejects_ragged_noncausal():
     q, k, v = _t(*_qkv(1, 16, 200, 4, 2, 32))
     with pytest.raises(ValueError, match="non-causal"):
         ops.flash_attention(q, k, v, causal=False)
+
+
+# ---------------------------------------------------------------------------
+# no backward: autograd through a kernel wrapper raises, on either device,
+# as jax.grad through the Pallas kernel does
+# ---------------------------------------------------------------------------
+def test_jax_cannot_differentiate_through_the_flash_kernel():
+    import jax
+    from repro.kernels import ops as jax_ops
+    q, k, v = (jnp.asarray(a) for a in _qkv(1, 16, 16, 4, 2, 32))
+    with pytest.raises(AssertionError):
+        jax.grad(lambda q: jax_ops.flash_attention(q, k, v).sum())(q)
+
+
+def test_flash_wrapper_refuses_autograd():
+    import test_torch_bridge as TP
+    from repro_torch.launch.steps import loss_and_grads
+    from repro_torch.models import attention as TA
+    _, tcfg = TP.configs(use_flash_kernel=True)
+    q, k, v = _t(*_qkv(1, 16, 16, 4, 2, 32))
+    with pytest.raises(RuntimeError, match="no backward"):
+        TA.gqa_attend(q.requires_grad_(), k, v, tcfg)
+    with torch.no_grad():            # inference through the kernel is fine
+        TA.gqa_attend(q, k, v, tcfg)
+    _, tp = TP.params(TP.configs()[0])
+    toks = torch.from_numpy(np.random.RandomState(0).randint(
+        0, tcfg.vocab_size, (2, 9)).astype(np.int32))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    with pytest.raises(RuntimeError, match="no backward"):
+        loss_and_grads(tp, tcfg, batch)
+    loss_and_grads(tp, tcfg.with_(use_flash_kernel=False), batch)
+
+
+def test_paged_wrapper_refuses_autograd():
+    import test_torch_bridge as TP
+    from repro_torch.models import attention as TA
+    from repro_torch.models import model as TMD
+    _, tcfg = TP.configs(use_paged_kernel=True)
+    _, tp = TP.params(TP.configs()[0])
+    lp = {k: v[0] for k, v in tp["blocks"]["attn"].items()}
+    lp["wq"].requires_grad_()
+    pool = TMD.init_paged_cache(tcfg, 2, 8, 4, "cpu")
+    x = torch.randn(2, 1, tcfg.d_model)
+    bt = torch.arange(8, dtype=torch.int32).reshape(2, 4)
+    pos = torch.tensor([3, 6], dtype=torch.int32)
+    args = (lp, x, pool["k"][0], pool["v"][0], pos, tcfg)
+    with pytest.raises(RuntimeError, match="no backward"):
+        TA.attention_decode(*args, block_tables=bt, logical_len=16)
+    with torch.no_grad():
+        TA.attention_decode(*args, block_tables=bt, logical_len=16)
+    q, kp, vp, ids, pos = _t(*_paged_case(2, 16, 4, 6, 4, 2, 32))
+    with pytest.raises(RuntimeError, match="no backward"):
+        ops.paged_attention(q.requires_grad_(), kp, vp, ids, pos)
