@@ -10,15 +10,26 @@ Phases (each raises on failure, and then no result is printed):
   2. build the CUDA kernels from `src/repro_torch/csrc` (nvcc, sm_90a),
      one nvcc per source, all started together;
   3. hold each kernel against its plain PyTorch version on the card: the
-     attention kernels in bf16 (2e-2) and fp32 (2e-5, TF32 off) at the
-     serve path's shapes; nc_pack / nc_unpack bit for bit, fp32 and bf16,
-     on ragged sizes with zeros, powers of two and their predecessors and
-     values outside the wire's range [2^-69, 2^57);
+     attention kernels in bf16 (2e-2) and fp32 (2e-5, TF32 off) at both
+     serve paths' shapes (qwen3-0.6b: dh 128, 16/8 heads; zamba2-1.2b:
+     dh 64, 32/32 heads); the SSD scan in fp32 and bf16 (1e-4: both
+     compute in fp32) at the JAX package's test shapes and zamba2's
+     prefill, a prompt shorter than the chunk, a strong-decay case that
+     must stay finite and hold to the float64 recurrence, and against the
+     sequential oracle; nc_pack /
+     nc_unpack bit for bit, fp32 and bf16, on ragged sizes with zeros,
+     powers of two and their predecessors and values outside the wire's
+     range [2^-69, 2^57);
   4. serve qwen3-0.6b at full width (28 layers, bf16, seeded random
      weights) through the paged continuous-batching ServeEngine, with the
-     kernel launch counters zeroed just before and read just after; then
-     hold the kernel path's prefill logits and paged decode logits against
-     the plain versions' (flags off);
+     kernel launch counters zeroed just before and read just after (28
+     flash launches an admit, 28 paged launches a decode tick); then hold
+     the kernel path's prefill logits and paged decode logits against the
+     plain versions' (flags off); then serve zamba2-1.2b at full width
+     (38 Mamba2 layers, the shared attention block after every 6th, bf16)
+     the same way: 38 ssd_scan and 6 flash launches an admit, 6 paged
+     launches a decode tick, no preemption, and the kernel path's logits
+     and the first layer's prefill SSM state against the plain path's;
   5. time each kernel beside its plain version, one PyTorch library call
      where one computes the same function (timed only, never used by the
      port) and its bound; print tokens/s;
@@ -32,9 +43,9 @@ Phases (each raises on failure, and then no result is printed):
      kernels and by the plain versions, which must agree bit for bit, and
      so must the parameters each update gives.
 
-The serve run of phase 4 is timed warm: one short batch goes through the
-same engine first (cuBLAS handles, allocator growth, first launches).
-With `--profile`, phase 4 also serves the workload twice more: once with
+The serve runs of phase 4 are timed warm: one short batch goes through
+the same engine first (cuBLAS handles, allocator growth, first launches).
+With `--profile`, phase 4 also serves each workload twice more: once with
 a synchronize after every engine tick, which splits the wall time into
 admits (prefill) and decode chunks, and once under `torch.profiler` over
 a window of engine ticks, which gives kernel time by name and the card's
@@ -65,15 +76,23 @@ PEAK_BYTES = 3.35e12
 
 # tolerances: |kernel - plain| <= tol + tol * |plain|, elementwise
 TOL = {"bfloat16": 2e-2, "float32": 2e-5}
+# the SSD scan computes in fp32 from either input type, as its plain
+# version does: the JAX package's own kernel-test figure, for both
+SSD_TOL = 1e-4
 # serve-path logits, kernel path vs plain path, bf16 through 28 layers:
 # |diff| <= LOGIT_TOL * max(1, max|plain logit|)
 LOGIT_TOL = 5e-2
 
 ARCH = "qwen3-0.6b"
+HYBRID = "zamba2-1.2b"
 SLOTS, REQUESTS, PAGE = 8, 16, 16
 PLEN, GEN = (256, 512), (32, 128)
+# zamba2's prompts: whole multiples of its ssm_chunk (128), as its
+# prefill requires; the same budgets and cache_len (512 + 128 = 640)
+HYBRID_PLENS = (128, 256, 384, 512)
 WARMUP_GEN = 4                        # budget of the warm-up batch
-WINDOW_SKIP, WINDOW_TICKS = 24, 12    # --profile: ticks before / inside
+# --profile: engine ticks before / inside the traced window
+WINDOW = {ARCH: (24, 12), HYBRID: (24, 6)}
 # train phase: train_4k's sequence length, its global batch of 256 cut to
 # 2 sequences on one card; one warm-up step, then TRAIN_STEPS timed
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_WARMUP = 2, 4096, 10, 20
@@ -134,8 +153,10 @@ def check_close(name, out, ref, tol) -> float:
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
 def flash_cases():
-    # main path: one request's prefill, Hq=16, Hk=8, dh=128, causal
+    # main paths: one request's prefill, causal; qwen3-0.6b Hq=16, Hk=8,
+    # dh=128, zamba2-1.2b's shared block Hq=Hk=32 (G 1), dh=64
     main = [(1, S, S, 16, 8, 128, True, None) for S in (200, 512, 1024)]
+    main += [(1, S, S, 32, 32, 64, True, None) for S in (128, 512)]
     return main, [(1, 512, 512, 16, 8, 128, True, 128)]
 
 
@@ -182,7 +203,8 @@ def check_kernels(torch, FA, PA, rows):
                          window, e])
             if dtype == "bfloat16" and i < len(main):
                 errs["flash_attention"] = max(errs["flash_attention"], e)
-        shapes = [(8, 400, 16, 40, 16, 8, 128),   # main path: 8 slots, P=16
+        # main paths first: 8 slots, P=16; qwen3-0.6b, then zamba2-1.2b
+        shapes = [(8, 400, 16, 40, 16, 8, 128), (8, 320, 16, 40, 32, 32, 64),
                   (3, 16, 8, 4, 8, 2, 128), (2, 16, 4, 4, 4, 4, 128),
                   (1, 8, 16, 2, 8, 4, 128), (4, 32, 8, 8, 8, 8, 128)]
         for i, shp in enumerate(shapes):
@@ -196,9 +218,85 @@ def check_kernels(torch, FA, PA, rows):
             ref = PA.reference(*args)
             e = check_close(f"paged {dtype} {shp}", out, ref, TOL[dtype])
             rows.append(["paged_attention", dtype, shp, None, e])
-            if dtype == "bfloat16" and i == 0:
-                errs["paged_attention"] = e
+            if dtype == "bfloat16" and i < 2:
+                errs["paged_attention"] = max(errs["paged_attention"], e)
     return errs
+
+
+def ssd_case(torch, B, S, H, P, N, dtype, seed, decay=0.1):
+    """xe, b, c in `dtype`; loga = -|normal| * decay - shift in float32."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    xe = torch.randn(B, S, H, P, generator=g, device="cuda").to(dtype)
+    loga = -torch.randn(B, S, H, generator=g, device="cuda").abs() * decay
+    b = torch.randn(B, S, N, generator=g, device="cuda").to(dtype)
+    c = torch.randn(B, S, N, generator=g, device="cuda").to(dtype)
+    return xe, loga, b, c
+
+
+def ssd_f64(xe, loga, b, c):
+    """The SSD recurrence step by step in float64 (the exact answer to
+    ~1e-12, for the strong-decay case)."""
+    import torch
+    xe, loga, b, c = xe.double(), loga.double(), b.double(), c.double()
+    state = torch.zeros(xe.shape[0], xe.shape[2], b.shape[-1], xe.shape[3],
+                        dtype=torch.float64, device=xe.device)
+    ys = []
+    for t in range(xe.shape[1]):
+        state = (state * loga[:, t].exp()[..., None, None]
+                 + torch.einsum("bn,bhp->bhnp", b[:, t], xe[:, t]))
+        ys.append(torch.einsum("bn,bhnp->bhp", c[:, t], state))
+    return torch.stack(ys, 1), state
+
+
+def check_ssd(torch, SS, TR, rows):
+    """The SSD scan against its plain version: the JAX package's test
+    shapes, zamba2-1.2b's prefill (first), a prompt shorter than the
+    chunk, SMOKE's chunk; a strong decay (loga ~ -0.8 a step, as zamba2's
+    random weights give: L reaches ~-120 in a chunk) that must stay finite
+    and hold to the plain version and to the float64 recurrence; and the
+    sequential oracle at a small shape."""
+    shapes = [(1, 512, 64, 64, 64, 128),            # zamba2-1.2b prefill
+              (2, 256, 4, 64, 64, 128), (1, 128, 2, 32, 16, 64),
+              (2, 512, 3, 64, 64, 128), (1, 256, 1, 128, 32, 256),
+              (1, 384, 2, 64, 64, 128), (2, 40, 4, 16, 128, 128),
+              (1, 96, 4, 64, 64, 32)]
+    err = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for i, (B, S, H, P, N, chunk) in enumerate(shapes):
+            args = ssd_case(torch, B, S, H, P, N, dtype, seed=200 + i)
+            y, fin = SS.ssd_scan(*args, chunk=chunk)
+            torch.cuda.synchronize()
+            yr, fr = SS.reference(*args, chunk)
+            name = f"ssd {dtype} {(B, S, H, P, N, chunk)}"
+            e = max(check_close(name, y, yr, SSD_TOL),
+                    check_close(name + " final", fin, fr, SSD_TOL))
+            rows.append(["ssd_scan", str(dtype).split(".")[-1],
+                         (B, S, H, P, N, chunk), None, e])
+            if i == 0 and dtype == torch.bfloat16:
+                err = e
+        xe, loga, b, c = ssd_case(torch, 1, 512, 64, 64, 64, dtype, seed=300,
+                                  decay=0.2)
+        loga = loga - 0.8
+        y, fin = SS.ssd_scan(xe, loga, b, c, chunk=128)
+        torch.cuda.synchronize()
+        low = float(loga.reshape(1, 4, 128, 64).sum(2).min())
+        name = f"ssd {dtype} strong decay (L down to {low:.1f} in a chunk)"
+        for what, (yr, fr) in (("plain", SS.reference(xe, loga, b, c, 128)),
+                               ("float64 recurrence", ssd_f64(xe, loga, b, c))):
+            e = max(check_close(f"{name} vs {what}", y, yr, SSD_TOL),
+                    check_close(f"{name} vs {what} final", fin, fr,
+                                SSD_TOL))
+            rows.append(["ssd_scan", str(dtype).split(".")[-1],
+                         f"strong decay, loga ~ -0.8 a step, vs {what}",
+                         None, e])
+    args = ssd_case(torch, 1, 64, 2, 16, 16, torch.float32, seed=301)
+    y, fin = SS.ssd_scan(*args, chunk=32)
+    yr, fr = TR.ssd_ref(*args)
+    e = max(check_close("ssd vs sequential oracle", y, yr, SSD_TOL),
+            check_close("ssd vs sequential oracle final", fin, fr, SSD_TOL))
+    rows.append(["ssd_scan", "float32", "sequential oracle (1,64,2,16,16)",
+                 None, e])
+    return {"ssd_scan": err}
 
 
 def nc_inputs(torch, n, dtype, seed):
@@ -277,19 +375,31 @@ def check_nc(torch, NC, rows):
 # phase 4: serve at full width
 # ---------------------------------------------------------------------------
 def make_requests(cfg, Request):
+    """REQUESTS requests, seed 0: prompts of 257-512 tokens (zamba2-1.2b:
+    128, 256, 384 or 512), budgets 33-128."""
     import numpy as np
     rng = np.random.RandomState(0)
-    return [Request(rid=i,
-                    prompt=rng.randint(0, cfg.vocab_size,
-                                       size=int(rng.randint(*PLEN) + 1)),
-                    max_new_tokens=int(rng.randint(*GEN) + 1))
-            for i in range(REQUESTS)]
+    reqs = []
+    for i in range(REQUESTS):
+        S = (int(rng.choice(HYBRID_PLENS)) if cfg.arch_type == "hybrid"
+             else int(rng.randint(*PLEN) + 1))
+        reqs.append(Request(rid=i, prompt=rng.randint(0, cfg.vocab_size,
+                                                      size=S),
+                            max_new_tokens=int(rng.randint(*GEN) + 1)))
+    return reqs
 
 
 def make_engine(cfg, params, ServeEngine):
     return ServeEngine(params, cfg, num_slots=SLOTS,
                        cache_len=PLEN[1] + GEN[1], page_size=PAGE,
                        device="cuda")
+
+
+def path_layers(cfg):
+    """(attention layers, Mamba2 layers) one token passes through."""
+    if cfg.arch_type == "hybrid":
+        return cfg.num_layers // cfg.hybrid_attn_every, cfg.num_layers
+    return cfg.num_layers, 0
 
 
 def serve(torch, cfg, params, ops, ServeEngine, Request):
@@ -305,8 +415,8 @@ def serve(torch, cfg, params, ops, ServeEngine, Request):
     fins = eng.run(reqs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"flash_attention": ops.flash_attention.launches,
-                "paged_attention": ops.paged_attention.launches}
+    launches = {n: getattr(ops, n).launches for n in
+                ("flash_attention", "paged_attention", "ssd_scan")}
     if len(fins) != len(reqs):
         fail(f"{len(fins)} of {len(reqs)} requests finished")
     for f, r in zip(fins, reqs):
@@ -315,10 +425,20 @@ def serve(torch, cfg, params, ops, ServeEngine, Request):
                  f"{r.max_new_tokens}")
         if not all(0 <= t < cfg.vocab_size for t in f.tokens):
             fail(f"request {r.rid}: token out of the vocabulary")
-    for name, n in launches.items():
-        if n <= 0:
-            fail(f"the serve run launched {name} {n} times")
     st = eng.stats()
+    attn, ssm = path_layers(cfg)
+    want = {"flash_attention": attn * st["prefill_ticks"],
+            "paged_attention": attn * st["decode_ticks"],
+            "ssd_scan": ssm * st["prefill_ticks"]}
+    if launches != want:
+        fail(f"{cfg.name} serve run: launches {launches}, want {want} "
+             f"({st['prefill_ticks']} admits, {st['decode_ticks']} decode "
+             f"ticks)")
+    if cfg.arch_type == "hybrid" and st["preemptions"]:
+        fail(f"{cfg.name} serve run: {st['preemptions']} preemptions; the "
+             f"pool holds every slot at full length")
+    if not launches["paged_attention"] or not launches["flash_attention"]:
+        fail(f"{cfg.name} serve run: a kernel of the path never launched")
     return reqs, launches, st, wall
 
 
@@ -361,7 +481,8 @@ def profile_serve(torch, cfg, params, ServeEngine, Request):
                                            + split["decode"])}}
 
     eng = loaded()
-    for _ in range(WINDOW_SKIP):
+    skip, ticks = WINDOW[cfg.name]
+    for _ in range(skip):
         eng.tick()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -369,7 +490,7 @@ def profile_serve(torch, cfg, params, ServeEngine, Request):
     kinds = []
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        for _ in range(WINDOW_TICKS):
+        for _ in range(ticks):
             kinds.append(eng.tick())
         torch.cuda.synchronize()
         window_s = time.perf_counter() - t0
@@ -402,15 +523,24 @@ def print_trace(card, what, trace):
               f"{k['name'][:100]}")
 
 
+def clone_tree(tree):
+    if isinstance(tree, dict):
+        return {k: clone_tree(v) for k, v in tree.items()}
+    return tree.clone()
+
+
 def compare_plain_paths(torch, cfg, params, MD, reqs):
-    """Prefill (flash) and one paged decode tick (paged kernel) with both
-    flags on, against the same with both flags off."""
-    plain = cfg.with_(use_flash_kernel=False, use_paged_kernel=False)
+    """Prefill (flash, and ssd_scan in the hybrid) and one paged decode
+    tick (paged kernel) with the kernel flags on, against the same with
+    them off.  The hybrid's first-layer prefill SSM state, whose inputs
+    the two paths compute alike, is held to SSD_TOL of its largest entry."""
+    plain = cfg.with_(use_flash_kernel=False, use_paged_kernel=False,
+                      use_ssd_kernel=False)
     res = {}
     prompts = [torch.as_tensor(r.prompt, device="cuda")[None].int()
                for r in reqs[:2]]
-    lk, _, _ = MD.forward(params, cfg, prompts[0])
-    lp, _, _ = MD.forward(params, plain, prompts[0])
+    lk, _, ck = MD.forward(params, cfg, prompts[0], return_cache=True)
+    lp, _, cp = MD.forward(params, plain, prompts[0], return_cache=True)
     for name, a in (("kernel", lk), ("plain", lp)):
         if not bool(torch.isfinite(a.float()).all()):
             fail(f"prefill logits ({name} path) not finite")
@@ -422,6 +552,15 @@ def compare_plain_paths(torch, cfg, params, MD, reqs):
     same = float((lk.argmax(-1) == lp.argmax(-1)).float().mean())
     res["prefill"] = {"S": prompts[0].shape[1], "max_abs_err": err,
                       "logit_scale": scale, "greedy_same_share": same}
+    if cfg.arch_type == "hybrid":
+        rel = [max_err(a, b) / float(b.abs().max())
+               for a, b in zip(ck["ssm"], cp["ssm"])]
+        if not rel[0] <= SSD_TOL:
+            fail(f"first-layer prefill SSM state: kernel vs plain "
+                 f"{rel[0]} of its largest entry (> {SSD_TOL})")
+        res["prefill"].update(ssm_state_rel_err_layer0=rel[0],
+                              ssm_state_rel_err_max_layer=max(rel))
+    del ck, cp
 
     # a paged pool holding both prompts on scrambled pages
     n_max = -(-(PLEN[1] + GEN[1]) // PAGE)
@@ -441,7 +580,7 @@ def compare_plain_paths(torch, cfg, params, MD, reqs):
     tok = torch.tensor(toks, device="cuda", dtype=torch.int32)[:, None]
     pos = torch.tensor(pos, device="cuda", dtype=torch.int32)
     active = torch.ones(2, dtype=torch.bool, device="cuda")
-    pool2 = {n: t.clone() for n, t in pool.items()}
+    pool2 = clone_tree(pool)
     dk, _ = MD.decode_step(params, cfg, tok, pos, pool, active=active,
                            block_tables=ids, logical_len=n_max * PAGE)
     dp, _ = MD.decode_step(params, plain, tok, pos, pool2, active=active,
@@ -513,6 +652,28 @@ def time_paged(torch, PA, pos_list):
     return {"shape": [B, Hq, Hk, dh, P, n_max], "pos": pos_list, "ms": ms,
             "plain_ms": plain_ms, "library_ms": lib_ms,
             "library": "gather + scaled_dot_product_attention",
+            "bound_ms": 1e3 * max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "flops": flops, "bytes": nbytes}
+
+
+def time_ssd(torch, SS, shape=(1, 512, 64, 64, 64, 128)):
+    """The SSD scan at zamba2-1.2b's 512-token prefill: xe, b, c bf16 and
+    loga fp32 as the model gives them.  Operations: the causal halves of
+    the (Q,Q) score and score-times-xe products, and the inter-chunk and
+    state products, per chunk and head; no single PyTorch call computes
+    the scan (library none)."""
+    B, S, H, P, N, Q = shape
+    xe, loga, b, c = ssd_case(torch, B, S, H, P, N, torch.bfloat16, seed=45)
+    ms = cuda_ms(lambda: SS.ssd_scan(xe, loga, b, c, chunk=Q), n=50)
+    plain_ms = cuda_ms(lambda: SS.reference(xe, loga, b, c, Q), n=10)
+    chunks = B * H * (S // Q)
+    flops = 2 * chunks * (Q * (Q + 1) // 2 * (N + P) + 2 * Q * N * P)
+    nbytes = (xe.numel() * 2 + loga.numel() * 4 + 2 * b.numel() * 2
+              + 4 * xe.numel() + 4 * B * H * N * P)     # + y and final
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+    return {"shape": list(shape), "ms": ms, "plain_ms": plain_ms,
+            "library_ms": None, "library": "none",
             "bound_ms": 1e3 * max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "flops": flops, "bytes": nbytes}
@@ -674,12 +835,49 @@ def train_phase(torch, cfg, ops, NC, profile=False):
             "trace": trace}
 
 
+def serve_path(torch, card, arch, ops, MD, ServeEngine, Request,
+               profile=False):
+    """Phase 4 for one model: the warm serve run with its launch counts,
+    the --profile split and trace, and kernel path vs plain path."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.config import param_count
+    cfg = get_config(arch).with_(use_flash_kernel=True, use_paged_kernel=True,
+                                 use_ssd_kernel=True)
+    total, _ = param_count(cfg)
+    params = MD.init_model(cfg, torch.Generator(device="cuda").manual_seed(0))
+    reqs, launches, st, wall = serve(torch, cfg, params, ops, ServeEngine,
+                                     Request)
+    tps = st["generated_tokens"] / wall
+    print(f"serve [{card}]: {arch} {total / 1e6:.1f}M params bf16, "
+          f"{cfg.num_layers} layers, d_model {cfg.d_model}, "
+          f"{SLOTS} slots, {REQUESTS} requests, warm run: "
+          f"{st['generated_tokens']} tokens in {wall:.2f} s = "
+          f"{tps:.1f} tok/s, admits={st['prefill_ticks']} "
+          f"prefill_tokens={st['prefill_tokens']} "
+          f"decode_ticks={st['decode_ticks']} "
+          f"occupancy={st['occupancy']:.3f} "
+          f"pool_occupancy={st['pool_occupancy']:.3f} "
+          f"preemptions={st['preemptions']} launches={launches}")
+    prof = None
+    if profile:
+        prof = profile_serve(torch, cfg, params, ServeEngine, Request)
+        print(f"split [{card}] {arch}: {json.dumps(prof['split'])}")
+        print_trace(card, f"trace {arch}", prof["trace"])
+    plain = compare_plain_paths(torch, cfg, params, MD, reqs)
+    print(f"kernel vs plain path [{card}] {arch}: {json.dumps(plain)}")
+    del params
+    torch.cuda.empty_cache()
+    return {"arch": arch, "params": total, "launches": launches,
+            "stats": dict(st, wall_s=wall, tok_s=tps), "profile": prof,
+            "plain_paths": plain}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
                     help="directory for the full results, chip_smoke.json")
     ap.add_argument("--profile", action="store_true",
-                    help="also split a serve run into admits and decode "
+                    help="also split each serve run into admits and decode "
                          "ticks and trace a window of it, and trace one "
                          "train step")
     args = ap.parse_args(argv)
@@ -702,6 +900,8 @@ def main(argv=None) -> int:
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import nat_compress as NC
     from repro_torch.kernels import paged_attention as PA
+    from repro_torch.kernels import ref as TR
+    from repro_torch.kernels import ssd_scan as SS
     from repro_torch.models import model as MD
     from repro_torch.models.common import tree_leaves
     from repro_torch.models.config import param_count
@@ -715,7 +915,7 @@ def main(argv=None) -> int:
 
     t0 = time.perf_counter()                                    # phase 2
     reports = build.build(["flash_attention", "paged_attention",
-                           "nat_compress"])
+                           "nat_compress", "ssd_scan"])
     build_s = time.perf_counter() - t0
     print(f"build [{card}]: {build_s:.1f} s")
     for name, rep in reports.items():
@@ -725,6 +925,7 @@ def main(argv=None) -> int:
 
     rows = []                                                   # phase 3
     errs = check_kernels(torch, FA, PA, rows)
+    errs.update(check_ssd(torch, SS, TR, rows))
     for r in rows:
         print(f"check [{card}] {r[0]} {r[1]} {r[2]} window={r[3]} "
               f"max|err|={r[4]:.3g}")
@@ -735,41 +936,24 @@ def main(argv=None) -> int:
               f"(below 2^-69: {r['below_range']}, at or above 2^57: "
               f"{r['above_range']}): codes and values bit-identical")
 
-    cfg = get_config(ARCH).with_(use_flash_kernel=True,         # phase 4
-                                 use_paged_kernel=True)
-    total, _ = param_count(cfg)
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    params = MD.init_model(cfg, gen)
-    reqs, serve_launches, st, wall = serve(torch, cfg, params, ops,
-                                           ServeEngine, Request)
-    tps = st["generated_tokens"] / wall
-    print(f"serve [{card}]: {ARCH} {total / 1e6:.1f}M params bf16, "
-          f"{SLOTS} slots, {REQUESTS} requests, warm run: "
-          f"{st['generated_tokens']} tokens in {wall:.2f} s = "
-          f"{tps:.1f} tok/s, "
-          f"prefill_tokens={st['prefill_tokens']} "
-          f"decode_ticks={st['decode_ticks']} "
-          f"pool_occupancy={st['pool_occupancy']:.3f} "
-          f"preemptions={st['preemptions']} launches={serve_launches}")
-    prof = None
-    if args.profile:
-        prof = profile_serve(torch, cfg, params, ServeEngine, Request)
-        print(f"split [{card}]: {json.dumps(prof['split'])}")
-        print_trace(card, "trace", prof["trace"])
-    plain = compare_plain_paths(torch, cfg, params, MD, reqs)
-    print(f"kernel vs plain path [{card}]: {json.dumps(plain)}")
+    paths = [serve_path(torch, card, arch, ops, MD, ServeEngine, Request,
+                        args.profile)                           # phase 4
+             for arch in (ARCH, HYBRID)]
 
     flash_t = time_flash(torch, FA)                             # phase 5
     mid = [PLEN[0] + (PLEN[1] + GEN[1] - PLEN[0]) * i // SLOTS
            for i in range(SLOTS)]
     paged_t = time_paged(torch, PA, mid)
+    ssd_t = time_ssd(torch, SS)
     for name, t in (("flash_attention", flash_t),
-                    ("paged_attention", paged_t)):
+                    ("paged_attention", paged_t), ("ssd_scan", ssd_t)):
+        lib = ("none" if t["library_ms"] is None else
+               f"{t['library']} {t['library_ms']:.4f} ms")
         print(f"time [{card}] {name} {t['shape']}: kernel {t['ms']:.4f} ms, "
-              f"plain {t['plain_ms']:.4f} ms, {t['library']} "
-              f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
-              f"({t['bound_by']})")
+              f"plain {t['plain_ms']:.4f} ms, library {lib}, "
+              f"bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
     train_cfg = get_config(ARCH)          # bf16, block remat, flags off
+    total, _ = param_count(train_cfg)
     nc_t = time_nc(torch, NC, [d.shape for d in
                                tree_leaves(MD.model_descs(train_cfg))])
     for scope, t in nc_t.items():
@@ -780,10 +964,8 @@ def main(argv=None) -> int:
                   f"plain {k['plain_ms']:.4f} ms, library none, "
                   f"bound {k['bound_ms']:.4f} ms ({k['bound_by']})")
 
-    del params                                                  # phase 6
-    torch.cuda.empty_cache()
     tr = train_phase(torch, train_cfg, ops, NC, profile=args.profile)
-    print(f"train [{card}]: {ARCH} {total / 1e6:.1f}M params bf16, "
+    print(f"train [{card}]: {ARCH} {total / 1e6:.1f}M params bf16, "  # phase 6
           f"remat={train_cfg.remat}, batch {tr['batch']} x seq {tr['seq']}, "
           f"{tr['steps']} timed steps: {tr['ms_per_step']:.1f} ms/step, "
           f"{tr['tok_s']:.0f} tokens/s, peak memory "
@@ -797,10 +979,12 @@ def main(argv=None) -> int:
           f"{json.dumps(tr['grad_range'])}: compressed gradients, params "
           f"and moments bit-identical")
 
-    launches = dict(serve_launches, nc_pack=tr["launches"]["nc_pack"],
-                    nc_unpack=tr["launches"]["nc_unpack"])
+    # launches by path: each counted from zero over its own main-path run
+    by_path = {f"{p['arch']} serve": p["launches"] for p in paths}
+    by_path[f"{ARCH} train"] = {n: tr["launches"][n]
+                                for n in ("nc_pack", "nc_unpack")}
     timing = {"flash_attention": flash_t, "paged_attention": paged_t,
-              "nc_pack": nc_t["embed"]["nc_pack"],
+              "ssd_scan": ssd_t, "nc_pack": nc_t["embed"]["nc_pack"],
               "nc_unpack": nc_t["embed"]["nc_unpack"]}
     kernels = []
     for name, src, replaces in (
@@ -808,24 +992,26 @@ def main(argv=None) -> int:
              "src/repro/kernels/flash_attention.py:77"),
             ("paged_attention", "paged_attention",
              "src/repro/kernels/paged_attention.py:77"),
+            ("ssd_scan", "ssd_scan", "src/repro/kernels/ssd_scan.py:69"),
             ("nc_pack", "nat_compress", "src/repro/kernels/nat_compress.py:56"),
             ("nc_unpack", "nat_compress",
              "src/repro/kernels/nat_compress.py:80")):
         t = timing[name]
+        paths_n = {p: n[name] for p, n in by_path.items() if n.get(name)}
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/csrc/{src}.cu",
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces, "launches": sum(paths_n.values()),
+            "launches_by_path": paths_n,
             "max_abs_err": errs[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
     elapsed = time.perf_counter() - t_start
     result = {"card": card, "build_s": build_s, "elapsed_s": elapsed,
-              "checks": rows, "serve": dict(st, wall_s=wall, tok_s=tps,
-                                            launches=serve_launches),
-              "nc_checks": nc_rows, "profile": prof, "plain_paths": plain,
+              "checks": rows, "serve": paths, "nc_checks": nc_rows,
               "timing": {"flash_attention": flash_t,
-                         "paged_attention": paged_t, "nc": nc_t},
+                         "paged_attention": paged_t, "ssd_scan": ssd_t,
+                         "nc": nc_t},
               "train": tr}
     if args.out:
         os.makedirs(args.out, exist_ok=True)

@@ -35,6 +35,8 @@ SIGNATURES = {
                          _F, _I, _P]},
     "nat_compress": {"nc_pack_fwd": [_P, _P, _P, _L, _I, _P],
                      "nc_unpack_fwd": [_P, _P, _L, _I, _P]},
+    "ssd_scan": {"ssd_scan_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                  _I, _I, _I, _P]},
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

@@ -6,10 +6,10 @@ Each wrapper carries ``launches``, a plain integer that counts kernel
 launches (and nothing else), so a run can show that it went through the
 kernels.
 
-The attention kernels have no backward, as the TPU kernels they replace
-have none (``jax.grad`` through them raises): their wrappers refuse inputs
-that require a gradient while autograd records, on either device, rather
-than return a result cut off from the graph.
+The attention kernels and the SSD scan have no backward, as the TPU
+kernels they replace have none (``jax.grad`` through them raises): their
+wrappers refuse inputs that require a gradient while autograd records, on
+either device, rather than return a result cut off from the graph.
 """
 from __future__ import annotations
 
@@ -21,6 +21,7 @@ from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import nat_compress as _nc
 from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels import ssd_scan as _ssd
 
 # the TPU kernel tiles keys in blocks of 128; non-causal input whose key
 # length does not fill whole blocks is refused there, and here alike
@@ -32,7 +33,7 @@ def _refuse_autograd(name: str, *tensors: torch.Tensor) -> None:
         raise RuntimeError(
             f"{name} has no backward (nor has the TPU kernel it replaces): "
             f"run it under torch.no_grad(), or turn the kernel flag off to "
-            f"differentiate through the plain attention")
+            f"differentiate through the plain version")
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -78,6 +79,22 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
 paged_attention.launches = 0
 
 
+def ssd_scan(xe: torch.Tensor, loga: torch.Tensor, b: torch.Tensor,
+             c: torch.Tensor, *, chunk: int = 128):
+    """Mamba2 SSD chunk scan.  xe (B,S,H,P) dt-scaled input; loga (B,S,H)
+    float32 log decay; b, c (B,S,N).  Q = min(chunk, S) must divide S.
+    Returns (y (B,S,H,P), final state (B,H,N,P)), both float32."""
+    _refuse_autograd("ssd_scan", xe, loga, b, c)
+    if not xe.is_cuda:
+        return _ref.ssd_scan_ref(xe, loga, b, c, chunk)
+    out = _ssd.ssd_scan(xe, loga, b, c, chunk=chunk)
+    ssd_scan.launches += 1
+    return out
+
+
+ssd_scan.launches = 0
+
+
 def nc_pack(x: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     """Natural-compress to the uint8 wire format, with the caller's
     uniforms ``u`` (float32, x's shape) as the rounding noise."""
@@ -115,5 +132,6 @@ def nc_roundtrip(x: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
 def reset_launches() -> None:
     flash_attention.launches = 0
     paged_attention.launches = 0
+    ssd_scan.launches = 0
     nc_pack.launches = 0
     nc_unpack.launches = 0

@@ -1,9 +1,12 @@
-"""Plain PyTorch versions of the kernels (attention, natural compression).
+"""Plain PyTorch versions of the kernels (attention, the SSD chunk scan,
+natural compression).
 
 The same semantics as the JAX package's ``kernels/ref.py`` oracles.
 Attention: scores in fp32, probabilities cast to ``v.dtype`` before the
 PV product, masked scores set to ``NEG_INF`` (so a fully masked row
-averages uniformly, where the kernels emit 0).  Natural compression:
+averages uniformly, where the kernels emit 0).  SSD: ``ssd_ref`` is the
+sequential recurrence, ``ssd_scan_ref`` the chunked form with the
+kernel's contract, all in fp32.  Natural compression:
 exponents read from the float's bit fields and powers of two built from
 them, where the oracles take ``log2`` and ``exp2``.  The CPU path of every wrapper in
 ``kernels.ops`` runs these, and the tests and ``chip_smoke.py`` hold the
@@ -63,6 +66,88 @@ def paged_attention_ref(q: torch.Tensor, k_pool: torch.Tensor,
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgt,btkd->bkgd", probs.to(v.dtype), v)
     return out.reshape(B, Hq, dh).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# SSD (Mamba2) chunk scan
+# ---------------------------------------------------------------------------
+def ssd_ref(xe: torch.Tensor, loga: torch.Tensor, b: torch.Tensor,
+            c: torch.Tensor):
+    """The sequential recurrence that SSD factorizes, step by step in fp32.
+
+    xe (B,S,H,P) dt-scaled inputs; loga (B,S,H) per-step log decay; b, c
+    (B,S,N) shared across heads.
+        state_t = state_{t-1} * exp(loga_t) + b_t (x) xe_t
+        y_t     = c_t . state_t
+    Returns y (B,S,H,P) fp32 and the final state (B,H,N,P) fp32."""
+    B, S, H, P = xe.shape
+    N = b.shape[-1]
+    xe, loga, b, c = xe.float(), loga.float(), b.float(), c.float()
+    state = torch.zeros(B, H, N, P, dtype=torch.float32, device=xe.device)
+    ys = []
+    for t in range(S):
+        upd = torch.einsum("bn,bhp->bhnp", b[:, t], xe[:, t])
+        state = state * loga[:, t].exp()[..., None, None] + upd
+        ys.append(torch.einsum("bn,bhnp->bhp", c[:, t], state))
+    return torch.stack(ys, 1), state
+
+
+def ssd_chunk_len(S: int, chunk: int) -> int:
+    """The chunk length Q = min(chunk, S) that the scan tiles S into; S
+    must be a whole number of chunks, as the JAX package asserts."""
+    Q = min(chunk, S)
+    if Q < 1 or S % Q:
+        raise ValueError(f"SSD scan: sequence length {S} is not a multiple "
+                         f"of ssm_chunk {chunk} (nor shorter than it)")
+    return Q
+
+
+def ssd_scan_ref(xe: torch.Tensor, loga: torch.Tensor, b: torch.Tensor,
+                 c: torch.Tensor, chunk: int = 128):
+    """The SSD chunk scan, the kernel's plain version: the same contract as
+    the CUDA kernel and the Pallas one, without the ``D * x`` skip term.
+
+    xe (B,S,H,P); loga (B,S,H); b, c (B,S,N); Q = min(chunk, S), S % Q
+    refused.  Within a chunk, y = (tril(exp(L_s - L_t)) * (c b^T)) xe with
+    L the cumulative log decay; across chunks an (N,P) fp32 state carries
+    over and adds exp(L_s) * c_s . S_prev.  The exponential is taken only
+    where t <= s (above the diagonal L_s - L_t > 0 and may overflow), so
+    the masked entries are exact zeros with zero gradients.
+
+    L is summed in float64, as in the CUDA kernel, where the JAX package
+    sums it in fp32: at strong decay L reaches ~-100 within a chunk, where
+    fp32 resolves it to ~1e-5, and L_s - L_t near the diagonal cancels two
+    such values (against the float64 recurrence, fp32 L left the scan
+    1.9e-4 off at loga ~ -0.9 a step, float64 L 1.4e-5).  Products and
+    exponentials stay fp32.
+    Returns y (B,S,H,P) fp32 and the final state (B,H,N,P) fp32."""
+    B, S, H, P = xe.shape
+    N = b.shape[-1]
+    Q = ssd_chunk_len(S, chunk)
+    nc = S // Q
+    xc = xe.float().reshape(B, nc, Q, H, P)
+    bc = b.float().reshape(B, nc, Q, N)
+    cc = c.float().reshape(B, nc, Q, N)
+    L = loga.double().reshape(B, nc, Q, H).cumsum(2)  # cumulative log decay
+    diff = L[:, :, :, None] - L[:, :, None]           # (B,nc,Q,Q,H) [s, t]
+    causal = torch.ones(Q, Q, dtype=torch.bool, device=xe.device).tril()
+    att = diff.masked_fill(~causal[:, :, None], float("-inf")).float().exp()
+    scores = torch.einsum("bcqn,bckn->bcqk", cc, bc)
+    y = torch.einsum("bcqkh,bckhp->bcqhp", att * scores[..., None], xc)
+    # each chunk's own state: sum_t exp(L_end - L_t) b_t xe_t^T
+    dec_end = (L[:, :, -1:] - L).float().exp()        # (B,nc,Q,H)
+    states = torch.einsum("bcqn,bcqhp->bchnp", bc,
+                          xc * dec_end[..., None])
+    chunk_decay = L[:, :, -1].float().exp()           # (B,nc,H)
+    carry = torch.zeros(B, H, N, P, dtype=torch.float32, device=xe.device)
+    prev = []
+    for i in range(nc):
+        prev.append(carry)
+        carry = carry * chunk_decay[:, i, :, None, None] + states[:, i]
+    # across chunks: y_t += exp(L_t) c_t . S_prev
+    y = y + torch.einsum("bcqn,bchnp->bcqhp", cc,
+                         torch.stack(prev, 1)) * L.float().exp()[..., None]
+    return y.reshape(B, S, H, P), carry
 
 
 # ---------------------------------------------------------------------------

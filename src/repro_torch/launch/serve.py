@@ -9,8 +9,11 @@ Continuous (--continuous): the `repro_torch.serving.ServeEngine` slot
 pool, dense or paged (--paged), with FIFO admission that backfills a slot
 the moment its request retires.
 
-Runs on the CUDA card (both attention kernels on) unless --device cpu,
-where the kernel wrappers take their plain PyTorch versions.
+Runs on the CUDA card (the attention kernels, and for the hybrid family
+the SSD scan kernel, on) unless --device cpu, where the kernel wrappers
+take their plain PyTorch versions.  The hybrid family (--arch zamba2-1.2b)
+prefills only prompts shorter than its ssm_chunk or a multiple of it, as
+the JAX package: other lengths are refused before any work.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --batch 4 \
@@ -19,6 +22,8 @@ Usage:
       --requests 16 --batch 8 --prompt-len 512 --gen 128
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
       --continuous --requests 6 --batch 2 --prompt-len 16 --gen 8
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b \
+      --continuous --paged --requests 16 --batch 8 --prompt-len 512 --gen 128
 
 Not ported yet: --replicas, --speculative, the transports and tracing.
 """
@@ -86,14 +91,20 @@ def _serve_static(params, cfg, args, device):
     return {"generated": gen, "t_prefill": t_prefill, "t_decode": t_decode}
 
 
+def _stream_lens(args):
+    """(prompt lengths, budgets) the continuous stream draws from."""
+    S, G = args.prompt_len, args.gen
+    plens = sorted({min(S, max(1, S // 2)), min(S, max(1, 3 * S // 4)), S})
+    gens = sorted({max(1, G // 4), max(1, G // 2), G})
+    return plens, gens
+
+
 def _make_stream(cfg, args):
     """Deterministic mixed-length request stream (as the JAX launcher)."""
     from repro_torch.serving import Request
 
     rng = np.random.RandomState(args.seed + 1)
-    S, G = args.prompt_len, args.gen
-    plens = sorted({min(S, max(1, S // 2)), min(S, max(1, 3 * S // 4)), S})
-    gens = sorted({max(1, G // 4), max(1, G // 2), G})
+    plens, gens = _stream_lens(args)
     return [Request(rid=i,
                     prompt=rng.randint(0, cfg.vocab_size,
                                        size=int(rng.choice(plens))),
@@ -163,8 +174,12 @@ def _serve(args) -> dict:
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda: no CUDA device available")
     cfg = get_config(args.arch, smoke=args.smoke)
+    for S in (_stream_lens(args)[0] if args.continuous else
+              [args.prompt_len]):
+        MD.check_prompt_len(cfg, S)
     if device.type == "cuda":
-        cfg = cfg.with_(use_flash_kernel=True, use_paged_kernel=True)
+        cfg = cfg.with_(use_flash_kernel=True, use_paged_kernel=True,
+                        use_ssd_kernel=True)
     else:
         cfg = cfg.with_(param_dtype="float32", compute_dtype="float32")
     gen = torch.Generator(device=device).manual_seed(args.seed)

@@ -107,18 +107,6 @@ def init_kv_cache(cfg: ModelConfig, batch: int, cache_len: int, layers: int,
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
-def init_paged_kv_cache(cfg: ModelConfig, num_pages: int, page_size: int,
-                        layers: int, dtype: torch.dtype,
-                        device: torch.device):
-    """Page pools (layers, num_pages + 1, P, Hk, dh).  The last page is the
-    trash page: no block table names it, and retired slots' decode writes
-    land there instead of being dropped (PyTorch has no drop-mode
-    scatter).  Pages [:num_pages] are the pool proper."""
-    shape = (layers, num_pages + 1, page_size, cfg.num_kv_heads, cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
-
-
 def _paged_gather(pool, bt, C):
     """pool: (Np,P,Hk,dh); bt: (B,n_max) page ids -> (B,C,Hk,dh) view.
     Positions past a row's length read whatever the page holds; callers
@@ -140,7 +128,7 @@ def attention_decode(p, x, cache_k, cache_v, pos, cfg: ModelConfig, *,
     value, and their paged write goes to the trash page.
 
     block_tables: optional (B, n_max) int — PAGED mode: cache_k/v are the
-    shared pool (Np+1, P, Hk, dh) of `init_paged_kv_cache` and row b's
+    shared pool (Np+1, P, Hk, dh) of `model.init_paged_cache` and row b's
     position q lives in pool[block_tables[b, q // P], q % P].  logical_len
     bounds the gathered view (the dense cache_len it replaces).
 

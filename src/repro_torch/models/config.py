@@ -3,8 +3,9 @@
 A copy of the JAX package's ``models/config.py`` (the port imports nothing
 from it): one dataclass covers the six arch types dense / moe / ssm /
 hybrid / vlm / audio.  Fields unused by a family are ignored by its
-builder.  The port runs the dense family so far; ``use_flash_kernel`` and
-``use_paged_kernel`` select the hand-written CUDA kernels.
+builder.  The port runs the dense and hybrid families so far;
+``use_flash_kernel``, ``use_paged_kernel`` and ``use_ssd_kernel`` select
+the hand-written CUDA kernels.
 """
 from __future__ import annotations
 
@@ -66,6 +67,11 @@ class ModelConfig:
     ssm_head_dim: int = 64
     ssm_conv_width: int = 4
     ssm_chunk: int = 128
+    # the prefill's SSD chunk scan through kernels.ops.ssd_scan: the CUDA
+    # kernel for CUDA tensors, its plain version for CPU tensors.  Off, the
+    # plain chunked math runs, as in the JAX model (which never calls its
+    # Pallas ssd_scan).
+    use_ssd_kernel: bool = False
 
     # RWKV6
     rwkv_head_dim: int = 64

@@ -1,9 +1,11 @@
-"""Top-level decoder LM, dense family.
+"""Top-level decoder LM: the dense family, and the hybrid family
+(Zamba2-style Mamba2 layers with one shared attention+MLP block).
 
 The PyTorch counterpart of the JAX package's ``models/model.py``.  Per-layer
 parameters are stacked ``(L, ...)`` leaves as there; the layer
-``lax.scan`` becomes a Python loop over layer slices.  KV caches are
-updated in place where the JAX code donates the cache buffer.
+``lax.scan`` becomes a Python loop over layer slices.  KV caches and
+recurrent states are updated in place where the JAX code donates the cache
+buffer.
 
 Public entry points:
   model_descs / init_model
@@ -22,11 +24,12 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as A
 from repro_torch.models import mlp as M
+from repro_torch.models import ssm as SSM
 from repro_torch.models.common import (ParamDesc, dense, init_params,
                                        rms_norm, torch_dtype, tree_map)
 from repro_torch.models.config import ModelConfig
 
-_PORTED = ("dense",)
+_PORTED = ("dense", "hybrid")
 
 
 def _require_ported(cfg: ModelConfig) -> None:
@@ -55,12 +58,14 @@ def _attn_mlp_block_descs(cfg: ModelConfig):
 
 def block_descs(cfg: ModelConfig) -> Dict[str, Any]:
     _require_ported(cfg)
+    if cfg.arch_type == "hybrid":
+        return {"ln": _norm_desc(cfg), "ssm": SSM.ssm_descs(cfg)}
     return _attn_mlp_block_descs(cfg)
 
 
 def model_descs(cfg: ModelConfig) -> Dict[str, Any]:
     dt = cfg.param_dtype
-    return {
+    descs = {
         "embed": ParamDesc((cfg.vocab_size, cfg.d_model), dt,
                            init="small_normal"),
         "blocks": _stack(block_descs(cfg), cfg.num_layers),
@@ -68,6 +73,11 @@ def model_descs(cfg: ModelConfig) -> Dict[str, Any]:
         "lm_head": ParamDesc((cfg.d_model, cfg.vocab_size), dt,
                              fan_in=cfg.d_model),
     }
+    if cfg.arch_type == "hybrid":
+        # one attention+MLP block, applied after every hybrid_attn_every
+        # layers with the same weights each time (not stacked)
+        descs["shared"] = _attn_mlp_block_descs(cfg)
+    return descs
 
 
 def init_model(cfg: ModelConfig, generator: torch.Generator):
@@ -105,11 +115,36 @@ def _block(p, x, positions, cfg):
     return _apply_attn_mlp(p, x, positions, cfg)[0]
 
 
+def _shared_after(i: int, cfg: ModelConfig) -> bool:
+    """Hybrid: is the shared block applied after layer i?  Its j-th
+    application (j = i // k) owns shared-cache slot j."""
+    return (i + 1) % cfg.hybrid_attn_every == 0
+
+
+def _hybrid_layer(lp, shared, x, positions, cfg, with_shared: bool):
+    """One Mamba2 layer, then the shared block where it applies (the unit
+    that block remat recomputes)."""
+    pre = rms_norm(x, lp["ln"], cfg.norm_eps)
+    x = x + SSM.ssm_block(lp["ssm"], pre, cfg)[0]
+    return _block(shared, x, positions, cfg) if with_shared else x
+
+
+def check_prompt_len(cfg: ModelConfig, S: int) -> None:
+    """Raise before any work for a prefill length the model refuses: the
+    hybrid family's chunked scan takes S < ssm_chunk or a multiple of it
+    (the JAX package asserts the same; padding would change the state)."""
+    if cfg.arch_type == "hybrid" and S > cfg.ssm_chunk and S % cfg.ssm_chunk:
+        raise ValueError(f"prompt length {S}: the hybrid prefill needs a "
+                         f"length below ssm_chunk {cfg.ssm_chunk} or a "
+                         f"multiple of it")
+
+
 def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *,
             extra_embeds=None, return_cache: bool = False,
             cache_len: Optional[int] = None):
     """tokens: (B, S) int.  Returns (logits (B, S, V), aux_loss scalar,
-    cache|None); the cache is {"k", "v"}: (L, B, cache_len, Hk, dh).
+    cache|None); the cache is `init_cache`'s (dense: {"k", "v"}:
+    (L, B, cache_len, Hk, dh)) holding the prefill.
 
     With ``cfg.remat == "block"`` and autograd recording, each layer runs
     under ``torch.utils.checkpoint`` (the JAX package's ``jax.checkpoint``
@@ -119,17 +154,26 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *,
         raise NotImplementedError("modality prefixes are not ported yet "
                                   "(ROADMAP.md queue 1, other families)")
     B, S = tokens.shape
-    cdt = torch_dtype(cfg.compute_dtype)
-    x = params["embed"][tokens.long()].to(cdt)
+    x = params["embed"][tokens.long()].to(torch_dtype(cfg.compute_dtype))
     positions = torch.arange(S, device=x.device)[None].expand(B, S)
     C = cache_len or S
     if C < S:
         raise ValueError(f"cache_len {C} < seq {S}")
-    cache = None
-    if return_cache:
-        cache = A.init_kv_cache(cfg, B, C, cfg.num_layers, cdt, x.device)
     remat = (cfg.remat == "block" and torch.is_grad_enabled()
              and not return_cache)
+    run = _run_hybrid if cfg.arch_type == "hybrid" else _run_dense
+    x, cache = run(params, cfg, x, positions, return_cache, C, remat)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    logits = dense(x, params["lm_head"])
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return logits, aux, cache
+
+
+def _run_dense(params, cfg, x, positions, return_cache, C, remat):
+    B, S, _ = x.shape
+    cache = None
+    if return_cache:
+        cache = A.init_kv_cache(cfg, B, C, cfg.num_layers, x.dtype, x.device)
     for i in range(cfg.num_layers):
         lp = _layer(params["blocks"], i)
         if remat:
@@ -139,10 +183,39 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *,
         if return_cache:
             cache["k"][i, :, :S] = k
             cache["v"][i, :, :S] = v
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = dense(x, params["lm_head"])
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return logits, aux, cache
+    return x, cache
+
+
+def _run_hybrid(params, cfg, x, positions, return_cache, C, remat):
+    """Zamba2-style: the Mamba2 layers in order, the SHARED attention+MLP
+    block (the same weights each time) after every hybrid_attn_every of
+    them.  The cache: "ssm" (L,B,H,N,P) fp32 final states, "conv"
+    {"x","B","C"} (L,B,W-1,.) rings, "sk"/"sv" (L // k, B, C, Hk, dh) the
+    shared block's rope'd K/V, one slot per application."""
+    B, S, _ = x.shape
+    shared = params["shared"]
+    cache = init_cache(cfg, B, C, x.device) if return_cache else None
+    for i in range(cfg.num_layers):
+        lp = _layer(params["blocks"], i)
+        with_shared = _shared_after(i, cfg)
+        if remat:
+            x = checkpoint(_hybrid_layer, lp, shared, x, positions, cfg,
+                           with_shared, use_reentrant=False)
+            continue
+        pre = rms_norm(x, lp["ln"], cfg.norm_eps)
+        y, (st, conv) = SSM.ssm_block(lp["ssm"], pre, cfg)
+        x = x + y
+        if return_cache:
+            cache["ssm"][i] = st
+            for n, ring in conv.items():
+                cache["conv"][n][i] = ring
+        if with_shared:
+            x, (k, v) = _apply_attn_mlp(shared, x, positions, cfg)
+            if return_cache:
+                j = i // cfg.hybrid_attn_every
+                cache["sk"][j, :, :S] = k
+                cache["sv"][j, :, :S] = v
+    return x, cache
 
 
 # ---------------------------------------------------------------------------
@@ -163,6 +236,12 @@ def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor, pos, cache,
     if active is not None and torch.as_tensor(pos).dim() != 1:
         raise ValueError("active mask requires a per-row pos vector")
     x = params["embed"][tokens.long()].to(torch_dtype(cfg.compute_dtype))
+    if cfg.arch_type == "hybrid":
+        x = _decode_hybrid(params, cfg, x, pos, cache, active=active,
+                           block_tables=block_tables,
+                           logical_len=logical_len)
+        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        return dense(x, params["lm_head"]), cache
     for i in range(cfg.num_layers):
         lp = _layer(params["blocks"], i)
         pre = rms_norm(x, lp["ln1"], cfg.norm_eps)
@@ -177,52 +256,124 @@ def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor, pos, cache,
     return dense(x, params["lm_head"]), cache
 
 
+def _decode_hybrid(params, cfg, x, pos, cache, *, active=None,
+                   block_tables=None, logical_len=None):
+    """One token through the hybrid stack, the cache updated in place.
+    Layer i's SSM state and conv ring are cache rows [i]; the shared
+    block's j-th application (after layer i = j*k + k - 1) reads and
+    writes shared-cache slot j only.  Rows whose `active` is False keep
+    their state and ring bit for bit (their KV writes are the attention's
+    own no-ops)."""
+    shared = params["shared"]
+    keep = None if active is None else active.reshape(-1, 1, 1, 1)
+    for i in range(cfg.num_layers):
+        lp = _layer(params["blocks"], i)
+        pre = rms_norm(x, lp["ln"], cfg.norm_eps)
+        rings = {n: r[i] for n, r in cache["conv"].items()}
+        y, (st, new_rings) = SSM.ssm_block(lp["ssm"], pre, cfg,
+                                           state=cache["ssm"][i],
+                                           conv_cache=rings)
+        if keep is not None:
+            st = torch.where(keep, st, cache["ssm"][i])
+            new_rings = {n: torch.where(keep[:, :, :, 0], r, rings[n])
+                         for n, r in new_rings.items()}
+        cache["ssm"][i] = st
+        for n, r in new_rings.items():
+            rings[n].copy_(r)
+        x = x + y
+        if _shared_after(i, cfg):
+            j = i // cfg.hybrid_attn_every
+            pre = rms_norm(x, shared["ln1"], cfg.norm_eps)
+            y, _, _ = A.attention_decode(shared["attn"], pre, cache["sk"][j],
+                                         cache["sv"][j], pos, cfg,
+                                         active=active,
+                                         block_tables=block_tables,
+                                         logical_len=logical_len)
+            x = x + y
+            pre2 = rms_norm(x, shared["ln2"], cfg.norm_eps)
+            x = x + M.mlp(shared["mlp"], pre2, cfg)
+    return x
+
+
 # ---------------------------------------------------------------------------
 # Cache construction (for serving)
 # ---------------------------------------------------------------------------
 def cache_specs(cfg: ModelConfig, batch: int, cache_len: int):
-    """name -> (shape, dtype) of the dense decode cache."""
+    """name -> (shape, dtype) of the dense decode cache; the hybrid's
+    "conv" leaf is itself a dict {"x","B","C"}."""
     _require_ported(cfg)
     if cfg.attention_kind == "sliding_window":
         cache_len = min(cache_len, cfg.sliding_window)
-    shape = (cfg.num_layers, batch, cache_len, cfg.num_kv_heads, cfg.head_dim)
     cdt = torch_dtype(cfg.compute_dtype)
+    kv = (cfg.num_kv_heads, cfg.head_dim)
+    if cfg.arch_type == "hybrid":
+        base = SSM.ssm_state_specs(cfg, batch, cfg.num_layers)
+        shape = (cfg.num_layers // cfg.hybrid_attn_every, batch,
+                 cache_len) + kv
+        return {"ssm": base["state"], "conv": base["conv"],
+                "sk": (shape, cdt), "sv": (shape, cdt)}
+    shape = (cfg.num_layers, batch, cache_len) + kv
     return {"k": (shape, cdt), "v": (shape, cdt)}
+
+
+def _zeros(specs, device: torch.device):
+    return tree_map(lambda s: torch.zeros(s[0], dtype=s[1], device=device),
+                    specs)
 
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
                device: torch.device):
-    return {n: torch.zeros(shape, dtype=dt, device=device)
-            for n, (shape, dt) in cache_specs(cfg, batch, cache_len).items()}
+    return _zeros(cache_specs(cfg, batch, cache_len), device)
 
 
 def paged_leaf_names(cfg: ModelConfig) -> tuple:
-    """Cache leaves that page (position-indexed KV)."""
+    """Cache leaves that page (position-indexed KV); every other leaf (the
+    hybrid's SSM state and conv ring) stays a per-slot batch row."""
     _require_ported(cfg)
-    return ("k", "v")
+    return ("sk", "sv") if cfg.arch_type == "hybrid" else ("k", "v")
 
 
 def init_paged_cache(cfg: ModelConfig, num_slots: int, num_pages: int,
                      page_size: int, device: torch.device):
-    """KV leaves as shared page pools (L, num_pages + 1, P, Hk, dh); the
-    last page is the trash page of `attention.init_paged_kv_cache`.  The
-    dense family has no per-slot leaves, so num_slots sizes nothing."""
+    """KV leaves as shared page pools (stack, num_pages + 1, P, Hk, dh).
+    The last page is the trash page: no block table names it, and retired
+    slots' decode writes land there instead of being dropped (PyTorch has
+    no drop-mode scatter); pages [:num_pages] are the pool proper.
+    Per-slot leaves (the hybrid's SSM state and conv ring) keep num_slots
+    batch rows."""
     if cfg.attention_kind == "sliding_window":
         raise ValueError("paged KV does not support sliding-window caches")
-    paged_leaf_names(cfg)
-    del num_slots
-    return A.init_paged_kv_cache(cfg, num_pages, page_size, cfg.num_layers,
-                                 torch_dtype(cfg.compute_dtype), device)
+    specs = dict(cache_specs(cfg, num_slots, page_size))
+    for name in paged_leaf_names(cfg):
+        (stack, *_), dt = specs[name]
+        specs[name] = ((stack, num_pages + 1, page_size, cfg.num_kv_heads,
+                        cfg.head_dim), dt)
+    return _zeros(specs, device)
+
+
+def _write_rows(pool, one, slot) -> None:
+    """Batch row `slot` of every (stack, batch, ...) leaf of `pool` <- the
+    B=1 `one`, in place (leaves may be nested dicts: the conv ring)."""
+    if isinstance(pool, dict):
+        for n in pool:
+            _write_rows(pool[n], one[n], slot)
+        return
+    pool[:, slot] = one[:, 0].to(pool.dtype)
 
 
 def write_paged_cache(pool_cache, request_cache, slot, page_ids, cfg):
     """Install one request's B=1 prefill cache (prefilled to a page
-    multiple) into the pools, in place: whole pages onto `page_ids`."""
-    del slot  # the dense family has no per-slot leaves
-    page_ids = torch.as_tensor(page_ids, device=pool_cache["k"].device).long()
+    multiple) into the pools, in place: KV leaves as whole pages onto
+    `page_ids`, per-slot leaves into batch row `slot`."""
+    names = paged_leaf_names(cfg)
+    page_ids = torch.as_tensor(page_ids,
+                               device=pool_cache[names[0]].device).long()
     npg = page_ids.shape[0]
-    for name in paged_leaf_names(cfg):
-        pool, one = pool_cache[name], request_cache[name]
+    for name, pool in pool_cache.items():
+        one = request_cache[name]
+        if name not in names:
+            _write_rows(pool, one, slot)
+            continue
         stack, _, P = pool.shape[:3]
         pages = one[:, 0].reshape((stack, npg, P) + tuple(pool.shape[3:]))
         pool[:, page_ids] = pages.to(pool.dtype)
@@ -231,8 +382,7 @@ def write_paged_cache(pool_cache, request_cache, slot, page_ids, cfg):
 
 def write_cache_slot(pool_cache, request_cache, slot):
     """Scatter one request's B=1 cache into batch row `slot`, in place."""
-    for name, pool in pool_cache.items():
-        pool[:, slot] = request_cache[name][:, 0].to(pool.dtype)
+    _write_rows(pool_cache, request_cache, slot)
     return pool_cache
 
 

@@ -39,16 +39,26 @@ def _flat(tree, prefix=""):
             yield prefix + k, v
 
 
+# config fields of the port alone: kernel flags the JAX package lacks
+PORT_ONLY_FIELDS = {"use_ssd_kernel": False}
+
+
 def test_config_copy_matches_jax():
-    """The port's copy of qwen3-0.6b CONFIG and SMOKE equals the JAX one
-    field by field, and param_count agrees."""
+    """The port's copies of CONFIG and SMOKE (qwen3-0.6b, zamba2-1.2b)
+    equal the JAX ones field by field, apart from the port's own kernel
+    flags (off by default), and param_count agrees."""
     from repro.models.config import param_count as jax_count
     from repro_torch.models.config import param_count
-    for smoke in (False, True):
-        j = jax_get_config(ARCH, smoke=smoke)
-        t = torch_get_config(ARCH, smoke=smoke)
-        assert j.__dict__ == t.__dict__
-        assert param_count(t) == jax_count(j)
+    for arch in (ARCH, "zamba2-1.2b"):
+        for smoke in (False, True):
+            j = jax_get_config(arch, smoke=smoke)
+            t = torch_get_config(arch, smoke=smoke)
+            own = {k: v for k, v in t.__dict__.items()
+                   if k not in PORT_ONLY_FIELDS}
+            assert j.__dict__ == own
+            for k, v in PORT_ONLY_FIELDS.items():
+                assert getattr(t, k) == v
+            assert param_count(t) == jax_count(j)
 
 
 def test_params_round_trip_is_exact():

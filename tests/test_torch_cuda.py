@@ -15,6 +15,8 @@ from repro_torch.kernels import flash_attention as FA  # noqa: E402
 from repro_torch.kernels import nat_compress as NC  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import paged_attention as PA  # noqa: E402
+from repro_torch.kernels import ref as TR  # noqa: E402
+from repro_torch.kernels import ssd_scan as SS  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -26,6 +28,7 @@ FA_SHAPES = [
     (1, 128, 384, 4, 4, 128, True, None),    # S < T (suffix)
     (2, 128, 128, 4, 2, 64, False, None),    # non-causal
     (1, 37, 37, 4, 2, 32, True, None),       # tiny, ragged, head_dim 32
+    (1, 384, 384, 32, 32, 64, True, None),   # zamba2-1.2b prefill: G 1
 ]
 PA_SHAPES = [
     # B, Np, P, n_max, Hq, Hk, dh
@@ -33,7 +36,21 @@ PA_SHAPES = [
     (3, 16, 8, 4, 8, 2, 64),
     (2, 16, 4, 4, 4, 4, 32),
     (4, 32, 8, 8, 8, 8, 64),
+    (8, 320, 16, 40, 32, 32, 64),            # zamba2-1.2b decode: G 1
 ]
+SSD_SHAPES = [
+    # B, S, H, P, N, chunk: tests/test_kernels.py's, then zamba2-1.2b's
+    # prefill, a short prompt (S < chunk) and SMOKE's chunk
+    (2, 256, 4, 64, 64, 128),
+    (1, 128, 2, 32, 16, 64),
+    (2, 512, 3, 64, 64, 128),
+    (1, 256, 1, 128, 32, 256),
+    (1, 384, 2, 64, 64, 128),
+    (1, 512, 64, 64, 64, 128),
+    (2, 40, 4, 16, 128, 128),
+    (1, 96, 4, 64, 64, 32),
+]
+SSD_TOL = 1e-4
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 
 
@@ -90,6 +107,97 @@ def test_paged_kernel_matches_plain(B, Np, P, n_max, Hq, Hk, dh, dtype):
     torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
 
 
+def _ssd_case(B, S, H, P, N, dtype, seed=0, decay=0.1):
+    """xe, b, c in `dtype`; loga = -|normal| * decay in float32."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    xe = torch.randn(B, S, H, P, generator=g, device="cuda").to(dtype)
+    loga = -torch.randn(B, S, H, generator=g, device="cuda").abs() * decay
+    b = torch.randn(B, S, N, generator=g, device="cuda").to(dtype)
+    c = torch.randn(B, S, N, generator=g, device="cuda").to(dtype)
+    return xe, loga, b, c
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,H,P,N,chunk", SSD_SHAPES)
+def test_ssd_kernel_matches_plain(B, S, H, P, N, chunk, dtype):
+    """Both versions compute in fp32 from the same (rounded) inputs, so
+    bf16 inputs are held to the fp32 figure too."""
+    _cuda()
+    args = _ssd_case(B, S, H, P, N, getattr(torch, dtype), seed=S + N)
+    y, fin = SS.ssd_scan(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    yr, fr = SS.reference(*args, chunk)
+    assert y.dtype == fin.dtype == torch.float32
+    torch.testing.assert_close(y, yr, rtol=SSD_TOL, atol=SSD_TOL)
+    torch.testing.assert_close(fin, fr, rtol=SSD_TOL, atol=SSD_TOL)
+
+
+def _ssd_f64(xe, loga, b, c):
+    """The sequential recurrence in float64: the exact answer to ~1e-12."""
+    xe, loga, b, c = xe.double(), loga.double(), b.double(), c.double()
+    state = torch.zeros(xe.shape[0], xe.shape[2], b.shape[-1], xe.shape[3],
+                        dtype=torch.float64, device=xe.device)
+    ys = []
+    for t in range(xe.shape[1]):
+        state = (state * loga[:, t].exp()[..., None, None]
+                 + torch.einsum("bn,bhp->bhnp", b[:, t], xe[:, t]))
+        ys.append(torch.einsum("bn,bhnp->bhp", c[:, t], state))
+    return torch.stack(ys, 1), state
+
+
+def test_ssd_kernel_strong_decay_is_finite():
+    """loga ~ -0.8 a step, as zamba2's random weights give: L falls to about
+    -120 over a 128-step chunk, where exp(L_s - L_t) above the diagonal is
+    inf in fp32.  The kernel never takes it there: no NaN, no inf; and it
+    holds to its plain version and to the float64 recurrence."""
+    _cuda()
+    xe, loga, b, c = _ssd_case(1, 512, 64, 64, 64, torch.bfloat16, seed=3,
+                               decay=0.2)
+    loga = loga - 0.8
+    y, fin = SS.ssd_scan(xe, loga, b, c, chunk=128)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(fin).all())
+    for yr, fr in (SS.reference(xe, loga, b, c, 128),
+                   _ssd_f64(xe, loga, b, c)):
+        torch.testing.assert_close(y.double(), yr.double(), rtol=SSD_TOL,
+                                   atol=SSD_TOL)
+        torch.testing.assert_close(fin.double(), fr.double(), rtol=SSD_TOL,
+                                   atol=SSD_TOL)
+
+
+def test_ssd_kernel_matches_sequential_oracle():
+    _cuda()
+    args = _ssd_case(1, 64, 2, 16, 16, torch.float32, seed=5)
+    y, fin = SS.ssd_scan(*args, chunk=32)
+    yr, fr = TR.ssd_ref(*args)
+    torch.testing.assert_close(y, yr, rtol=SSD_TOL, atol=SSD_TOL)
+    torch.testing.assert_close(fin, fr, rtol=SSD_TOL, atol=SSD_TOL)
+
+
+def test_ssd_kernel_refuses_what_it_does_not_take():
+    """The wrapper raises before a launch on shapes the kernel does not
+    take; a launch the kernel itself refuses (a chunk above 256) raises
+    with the CUDA error, and nothing is counted."""
+    _cuda()
+    ops.reset_launches()
+    xe, loga, b, c = _ssd_case(1, 512, 2, 64, 48, torch.float32)
+    with pytest.raises(ValueError, match="state 48"):
+        ops.ssd_scan(xe, loga, b, c)
+    xe, loga, b, c = _ssd_case(1, 512, 2, 64, 64, torch.float32)
+    with pytest.raises(ValueError, match="chunk 512"):
+        ops.ssd_scan(xe, loga, b, c, chunk=512)
+    with pytest.raises(ValueError, match="ssm_chunk"):
+        ops.ssd_scan(xe[:, :500].contiguous(), loga[:, :500].contiguous(),
+                     b[:, :500].contiguous(), c[:, :500].contiguous())
+    with pytest.raises(ValueError, match="dtype"):
+        ops.ssd_scan(xe, loga, b.bfloat16(), c)
+    y = torch.empty_like(xe)
+    fin = torch.empty(1, 2, 64, 64, device="cuda")
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        SS.launch(xe, loga, b, c, y, fin, 512)
+    assert ops.ssd_scan.launches == 0
+
+
 def test_kernels_reject_what_they_do_not_take():
     _cuda()
     q = torch.zeros(1, 8, 4, 48, device="cuda")   # head_dim 48
@@ -109,9 +217,11 @@ def test_wrappers_count_kernel_launches():
     ops.flash_attention(q, k, k)
     ops.paged_attention(*_paged_case(2, 16, 4, 4, 4, 4, 32, torch.float32))
     ops.nc_roundtrip(q, torch.rand_like(q))
+    ops.ssd_scan(*_ssd_case(1, 64, 2, 16, 16, torch.float32), chunk=32)
     torch.cuda.synchronize()
     assert ops.flash_attention.launches == 1
     assert ops.paged_attention.launches == 1
+    assert ops.ssd_scan.launches == 1
     assert ops.nc_pack.launches == 1 and ops.nc_unpack.launches == 1
 
 

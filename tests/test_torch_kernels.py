@@ -1,6 +1,6 @@
-"""Port parity for the attention kernels' plain versions (against the JAX
-Pallas kernels in interpret mode and the JAX oracles) and the CPU dispatch
-of the kernel wrappers.  The CUDA kernels themselves are held against the
+"""Port parity for the attention and SSD scan kernels' plain versions
+(against the JAX Pallas kernels in interpret mode and the JAX oracles) and
+the CPU dispatch of the kernel wrappers.  The CUDA kernels themselves are held against the
 plain versions in tests/test_torch_cuda.py."""
 import pytest
 
@@ -12,6 +12,7 @@ import numpy as np  # noqa: E402
 from repro.kernels import ref as JR  # noqa: E402
 from repro.kernels.flash_attention import flash_attention as jax_flash  # noqa: E402
 from repro.kernels.paged_attention import paged_attention as jax_paged  # noqa: E402
+from repro.kernels.ssd_scan import ssd_scan as jax_ssd  # noqa: E402
 from repro_torch.kernels import flash_attention as FA  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import paged_attention as PA  # noqa: E402
@@ -26,13 +27,24 @@ FA_SHAPES = [
     (2, 256, 256, 8, 4, 64, True, 128),     # sliding window
     (1, 200, 256, 4, 2, 64, True, None),    # unpadded q length
     (2, 128, 128, 4, 2, 64, False, None),   # non-causal (encoder)
+    (1, 96, 96, 8, 8, 64, True, None),      # zamba2's shared block: G 1
 ]
 PA_SHAPES = [
     # B, Np, P, n_max, Hq, Hk, dh
     (3, 16, 8, 4, 8, 2, 64),     # GQA group 4
     (2, 16, 4, 6, 4, 4, 32),     # MHA, small pages
     (4, 32, 8, 8, 8, 8, 64),     # many rows
+    (2, 24, 16, 6, 8, 8, 64),    # zamba2's shared block: G 1, page 16
 ]
+SSD_SHAPES = [
+    # B, S, H, P, N, chunk (a subset of tests/test_kernels.py SSD_SHAPES,
+    # and the SMOKE chunk)
+    (1, 128, 2, 32, 16, 64),
+    (1, 256, 1, 128, 32, 256),   # single chunk
+    (1, 384, 2, 64, 64, 128),    # 3 chunks
+    (2, 96, 3, 16, 32, 32),      # zamba2 SMOKE's chunk
+]
+SSD_TOL = dict(rtol=1e-4, atol=1e-4)   # tests/test_kernels.py's figure
 
 
 def _qkv(B, S, T, Hq, Hk, dh, seed=0):
@@ -63,6 +75,15 @@ def _poison_stale(kp, vp, ids, pos, P):
     kp2, vp2 = kp.copy(), vp.copy()
     kp2[stale], vp2[stale] = 1e9, -1e9
     return kp2, vp2
+
+
+def _ssd_inputs(B, S, H, P, N, seed=0, decay=0.1):
+    """xe, loga = -|normal| * decay, b, c, all float32 (numpy)."""
+    r = np.random.RandomState(seed)
+    return (r.randn(B, S, H, P).astype(np.float32),
+            (-np.abs(r.randn(B, S, H)) * decay).astype(np.float32),
+            r.randn(B, S, N).astype(np.float32),
+            r.randn(B, S, N).astype(np.float32))
 
 
 def _t(*arrays, device="cpu", dtype=None):
@@ -126,6 +147,88 @@ def test_paged_plain_ignores_stale_pages():
                                rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("B,S,H,P,N,chunk", SSD_SHAPES)
+def test_ssd_plain_matches_jax(B, S, H, P, N, chunk):
+    """ssd_scan_ref against the Pallas kernel in interpret mode, the JAX
+    sequential oracle, and the port's own sequential oracle."""
+    args = _ssd_inputs(B, S, H, P, N)
+    y, fin = TR.ssd_scan_ref(*_t(*args), chunk)
+    ys, fs = TR.ssd_ref(*_t(*args))
+    jargs = [jnp.asarray(a) for a in args]
+    jy, jf = jax_ssd(*jargs, chunk=chunk, interpret=True)
+    ry, rf = JR.ssd_ref(*jargs)
+    assert y.dtype == fin.dtype == torch.float32
+    assert tuple(fin.shape) == (B, H, N, P)
+    for got, want in ((y, jy), (fin, jf), (y, ry), (fin, rf),
+                      (ys.numpy(), ry), (fs.numpy(), rf)):
+        np.testing.assert_allclose(np.asarray(got), np.asarray(want),
+                                   **SSD_TOL)
+
+
+def test_ssd_plain_bf16_inputs_widen_exactly():
+    """bf16 xe, b and c are widened to fp32 before any arithmetic: the
+    result is the fp32 scan of the rounded inputs."""
+    args = _t(*_ssd_inputs(1, 64, 2, 16, 16, seed=1))
+    xe, loga, b, c = args
+    low = [t.bfloat16() for t in (xe, b, c)]
+    y, fin = TR.ssd_scan_ref(low[0], loga, low[1], low[2], 32)
+    y32, fin32 = TR.ssd_scan_ref(low[0].float(), loga, low[1].float(),
+                                 low[2].float(), 32)
+    assert torch.equal(y, y32) and torch.equal(fin, fin32)
+
+
+@pytest.mark.parametrize("S", [64, 256])
+def test_ssd_plain_chunk_invariance(S):
+    """The chunk is a tiling choice: 32, 64 and 128 (and one chunk, when
+    S is shorter than the chunk) give the same scan."""
+    args = _t(*_ssd_inputs(1, S, 2, 32, 16, seed=2, decay=0.2))
+    y0, f0 = TR.ssd_scan_ref(*args, 32)
+    for chunk in (64, 128):
+        y, f = TR.ssd_scan_ref(*args, chunk)
+        torch.testing.assert_close(y, y0, **SSD_TOL)
+        torch.testing.assert_close(f, f0, **SSD_TOL)
+
+
+def test_ssd_plain_short_sequence_is_one_chunk():
+    """S < chunk: Q = S, as in the JAX kernel."""
+    args = _ssd_inputs(1, 40, 2, 16, 16, seed=3)
+    y, fin = TR.ssd_scan_ref(*_t(*args), 128)
+    jy, jf = jax_ssd(*[jnp.asarray(a) for a in args], chunk=128,
+                     interpret=True)
+    np.testing.assert_allclose(y.numpy(), np.asarray(jy), **SSD_TOL)
+    np.testing.assert_allclose(fin.numpy(), np.asarray(jf), **SSD_TOL)
+
+
+def test_ssd_refuses_partial_chunks_where_jax_asserts():
+    args = _ssd_inputs(1, 96, 1, 16, 16)
+    with pytest.raises(AssertionError):
+        jax_ssd(*[jnp.asarray(a) for a in args], chunk=64, interpret=True)
+    with pytest.raises(ValueError, match="ssm_chunk"):
+        TR.ssd_scan_ref(*_t(*args), 64)
+    with pytest.raises(ValueError, match="ssm_chunk"):
+        ops.ssd_scan(*_t(*args), chunk=64)
+
+
+def test_ssd_plain_strong_decay_is_finite():
+    """loga ~ -0.8 a step (the serve path's random weights) drives L to
+    about -100 over a 128-step chunk: exp(L_s - L_t) above the diagonal
+    would overflow to inf.  The plain scan never takes it there, stays
+    finite, matches the sequential oracle and has finite gradients."""
+    xe, loga, b, c = _t(*_ssd_inputs(1, 256, 2, 16, 16, seed=4, decay=1.0))
+    loga = loga - 0.8
+    y, fin = TR.ssd_scan_ref(xe, loga, b, c, 128)
+    ys, fs = TR.ssd_ref(xe, loga, b, c)
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(fin).all())
+    torch.testing.assert_close(y, ys, **SSD_TOL)
+    torch.testing.assert_close(fin, fs, **SSD_TOL)
+    xe.requires_grad_()
+    loga.requires_grad_()
+    y, fin = TR.ssd_scan_ref(xe, loga, b, c, 128)
+    (y.sum() + fin.sum()).backward()
+    assert bool(torch.isfinite(xe.grad).all())
+    assert bool(torch.isfinite(loga.grad).all())
+
+
 # ---------------------------------------------------------------------------
 # wrappers: CPU tensors take the plain version and launch nothing
 # ---------------------------------------------------------------------------
@@ -139,6 +242,15 @@ def test_wrappers_take_plain_path_on_cpu():
     assert torch.equal(out, TR.paged_attention_ref(pq, kp, vp, ids, pos))
     assert ops.flash_attention.launches == 0
     assert ops.paged_attention.launches == 0
+
+
+def test_ssd_wrapper_takes_plain_path_on_cpu():
+    ops.reset_launches()
+    args = _t(*_ssd_inputs(1, 64, 2, 16, 16))
+    y, fin = ops.ssd_scan(*args, chunk=32)
+    y0, f0 = TR.ssd_scan_ref(*args, 32)
+    assert torch.equal(y, y0) and torch.equal(fin, f0)
+    assert ops.ssd_scan.launches == 0
 
 
 def test_paged_wrapper_crops_block_table():
@@ -211,3 +323,24 @@ def test_paged_wrapper_refuses_autograd():
     q, kp, vp, ids, pos = _t(*_paged_case(2, 16, 4, 6, 4, 2, 32))
     with pytest.raises(RuntimeError, match="no backward"):
         ops.paged_attention(q.requires_grad_(), kp, vp, ids, pos)
+
+
+def test_jax_cannot_differentiate_through_the_ssd_kernel():
+    import jax
+    from repro.kernels import ops as jax_ops
+    xe, loga, b, c = (jnp.asarray(a) for a in _ssd_inputs(1, 32, 1, 16, 16))
+    with pytest.raises(AssertionError):
+        jax.grad(lambda xe: jax_ops.ssd_scan(xe, loga, b, c,
+                                             chunk=32)[0].sum())(xe)
+
+
+def test_ssd_wrapper_refuses_autograd():
+    ops.reset_launches()
+    xe, loga, b, c = _t(*_ssd_inputs(1, 32, 1, 16, 16))
+    for t in (xe, loga, b, c):
+        args = [u.clone().requires_grad_(u is t) for u in (xe, loga, b, c)]
+        with pytest.raises(RuntimeError, match="no backward"):
+            ops.ssd_scan(*args, chunk=32)
+    with torch.no_grad():
+        ops.ssd_scan(xe.requires_grad_(), loga, b, c, chunk=32)
+    assert ops.ssd_scan.launches == 0

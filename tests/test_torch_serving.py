@@ -2,7 +2,7 @@
 reproduces the JAX ServeEngine's greedy token streams exactly — dense,
 paged, and paged with a tight pool that forces preemption — with the same
 scheduling counters, on the streams of tests/test_serving.py (qwen3-0.6b
-SMOKE, fp32, the same weights).  Every compared token is checked to win
+and zamba2-1.2b SMOKE, fp32, the same weights).  Every compared token is checked to win
 its argmax by more than the cross-package tolerance, so a mismatch means a
 fault, not a tie."""
 import pytest
@@ -30,11 +30,20 @@ def _stream(seed, n, plens, gens, vocab):
 
 # the streams of tests/test_serving.py (2 prompt lengths, then 1)
 STREAMS = {
+    "single": dict(seed=0, n=5, plens=[6, 10], gens=[3, 6]),
     "mixed": dict(seed=4, n=7, plens=[5, 9], gens=[3, 7]),
     "tight": dict(seed=5, n=6, plens=[8], gens=[10]),
 }
 CASES = [
     # stream, engine kwargs
+    ("mixed", dict(num_slots=3, cache_len=20)),
+    ("mixed", dict(num_slots=3, cache_len=20, page_size=4)),
+    ("tight", dict(num_slots=3, cache_len=20, page_size=4, num_pages=9)),
+]
+HYBRID_CASES = [
+    # tests/test_serving.py's hybrid streams: engine vs single requests
+    # (dense), and paged vs dense; then a pool tight enough to preempt
+    ("single", dict(num_slots=2, cache_len=20)),
     ("mixed", dict(num_slots=3, cache_len=20)),
     ("mixed", dict(num_slots=3, cache_len=20, page_size=4)),
     ("tight", dict(num_slots=3, cache_len=20, page_size=4, num_pages=9)),
@@ -64,7 +73,23 @@ def _greedy_with_gaps(tp, tcfg, prompt, gen, cache_len):
 @pytest.mark.parametrize("stream,kw", CASES,
                          ids=["dense", "paged", "paged_tight_pool"])
 def test_engine_matches_jax_engine(stream, kw):
-    jcfg, tcfg = TP.configs()
+    _check_engine_parity(*TP.configs(), stream, kw)
+
+
+@pytest.mark.parametrize("stream,kw", HYBRID_CASES,
+                         ids=["dense_single", "dense", "paged",
+                              "paged_tight_pool"])
+def test_hybrid_engine_matches_jax_engine(stream, kw):
+    """zamba2-1.2b SMOKE: SSM state and conv rings per slot, the shared
+    block's K/V dense or paged; prompts shorter than ssm_chunk."""
+    from repro.configs import get_config as jax_get_config
+    from repro_torch.configs import get_config as torch_get_config
+    _check_engine_parity(jax_get_config("zamba2-1.2b", smoke=True),
+                         torch_get_config("zamba2-1.2b", smoke=True),
+                         stream, kw)
+
+
+def _check_engine_parity(jcfg, tcfg, stream, kw):
     jp, tp = TP.params(jcfg)
     reqs = _stream(vocab=jcfg.vocab_size, **STREAMS[stream])
     jeng = JEngine(jp, jcfg, **kw)
@@ -242,3 +267,31 @@ def test_serve_launcher_on_cpu(mode):
                                                    for f in fins)
     if "--paged" in mode:
         assert out["stats"]["num_pages"] == 2 * 3
+
+
+@pytest.mark.parametrize("mode", [[], ["--continuous", "--paged",
+                                       "--page-size", "4"]],
+                         ids=["static", "paged"])
+def test_serve_launcher_hybrid_on_cpu(mode):
+    from repro_torch.launch.serve import serve
+    out = serve(["--arch", "zamba2-1.2b", "--smoke", "--device", "cpu",
+                 "--batch", "2", "--prompt-len", "16", "--gen", "4",
+                 "--requests", "3", *mode])
+    if not mode:
+        assert out["generated"].shape == (2, 4)
+        return
+    assert [f.rid for f in out["finished"]] == [0, 1, 2]
+    assert out["stats"]["preemptions"] == 0
+
+
+@pytest.mark.parametrize("mode", [[], ["--continuous"]],
+                         ids=["static", "continuous"])
+def test_serve_launcher_refuses_partial_chunks(mode, monkeypatch):
+    """Prompts that the hybrid prefill cannot take (SMOKE's ssm_chunk is
+    32; the continuous stream also draws 3/4 of --prompt-len = 48) are
+    refused before the weights are made."""
+    from repro_torch.launch import serve as SV
+    monkeypatch.setattr(SV.MD, "init_model", None)
+    with pytest.raises(ValueError, match="ssm_chunk"):
+        SV.serve(["--arch", "zamba2-1.2b", "--smoke", "--device", "cpu",
+                  "--prompt-len", "40" if not mode else "64", *mode])
