@@ -12,7 +12,12 @@ Phases (each raises on failure, and then no result is printed):
   3. hold each kernel against its plain PyTorch version on the card: the
      attention kernels in bf16 (2e-2) and fp32 (2e-5, TF32 off) at both
      serve paths' shapes (qwen3-0.6b: dh 128, 16/8 heads; zamba2-1.2b:
-     dh 64, 32/32 heads); the SSD scan in fp32 and bf16 (1e-4: both
+     dh 64, 32/32 heads), at the flash kernel's 64-row / 64-key tile
+     edges, S < T, windows and full masking, and the paged kernel with
+     positions at the edges of its planned splits (and a row at pos -1,
+     which must emit 0), every group and page size, stale pages poisoned
+     (the output must not change by a bit) and each call twice (the two
+     outputs must be bit-identical); the SSD scan in fp32 and bf16 (1e-4: both
      compute in fp32) at the JAX package's test shapes and zamba2's
      prefill, a prompt shorter than the chunk, a strong-decay case that
      must stay finite and hold to the float64 recurrence, and against the
@@ -32,7 +37,10 @@ Phases (each raises on failure, and then no result is printed):
      and the first layer's prefill SSM state against the plain path's;
   5. time each kernel beside its plain version, one PyTorch library call
      where one computes the same function (timed only, never used by the
-     port) and its bound; print tokens/s;
+     port) and its bound, the attention kernels at both serve paths'
+     shapes: card time from CUDA-graph replays (`device_ms`: these
+     kernels take less time than the host needs to issue them), and the
+     eager call time beside it;
   6. train qwen3-0.6b at full width (28 layers, bf16, block remat, AdamW,
      warmup-cosine, natural-compressed gradients, the synthetic bigram
      pipeline) at batch 2 x seq 4096: one warm-up step, then timed steps
@@ -112,6 +120,19 @@ def card_line() -> str:
     return out[0].strip()
 
 
+def kernel_of(line: str) -> str:
+    """A kernel's name and template arguments, as mangled, from ptxas's
+    'Compiling entry function' line."""
+    i = line.find("_kernel")
+    if i < 0:
+        return line.strip()[:60]
+    j = i
+    while j > 0 and not line[j - 1].isdigit():
+        j -= 1
+    end = line.find("EEv", i)
+    return line[j:end + 1] if end > 0 else line[j:i + 7]
+
+
 def cuda_ms(fn, n: int = 20, warmup: int = 3) -> float:
     import torch
     for _ in range(warmup):
@@ -125,6 +146,38 @@ def cuda_ms(fn, n: int = 20, warmup: int = 3) -> float:
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / n
+
+
+def device_ms(fn, n: int = 20, reps: int = 5) -> float:
+    """Card time of one call of fn with the host out of the way: n calls
+    captured in one CUDA graph, the graph replayed `reps` times between
+    CUDA events.  A call whose kernels take less time than the host needs
+    to issue them (the attention kernels at decode and prefill sizes)
+    leaves the card idle between eager calls, and events around
+    back-to-back eager calls then time the host: `cuda_ms` gives that call
+    time beside it."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):          # warm-up off the capture
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(reps):
+        graph.replay()
+    t1.record()
+    torch.cuda.synchronize()
+    del graph
+    return t0.elapsed_time(t1) / (reps * n)
 
 
 def sdpa(q, k, v, **kw):
@@ -153,17 +206,31 @@ def check_close(name, out, ref, tol) -> float:
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
 def flash_cases():
-    # main paths: one request's prefill, causal; qwen3-0.6b Hq=16, Hk=8,
-    # dh=128, zamba2-1.2b's shared block Hq=Hk=32 (G 1), dh=64
-    main = [(1, S, S, 16, 8, 128, True, None) for S in (200, 512, 1024)]
-    main += [(1, S, S, 32, 32, 64, True, None) for S in (128, 512)]
-    return main, [(1, 512, 512, 16, 8, 128, True, 128)]
+    """(qwen3 main, zamba2 main, extra) shapes (B, S, T, Hq, Hk, dh,
+    causal, window).  Main paths: one request's prefill, causal;
+    qwen3-0.6b Hq=16, Hk=8, dh=128; zamba2-1.2b's shared block Hq=Hk=32
+    (G 1), dh=64.  Extra: a window, and the bf16 kernel's 64-row / 64-key
+    tile edges, S < T, full masking, every head dim and group."""
+    qwen = [(1, S, S, 16, 8, 128, True, None) for S in (200, 512, 1024)]
+    zamba = [(1, S, S, 32, 32, 64, True, None) for S in (128, 512)]
+    extra = [(1, 512, 512, 16, 8, 128, True, 128),
+             (1, 1, 64, 4, 4, 64, True, None),
+             (1, 63, 63, 8, 4, 128, True, None),
+             (1, 64, 64, 8, 2, 64, True, None),
+             (1, 65, 65, 4, 4, 32, True, None),
+             (2, 129, 129, 8, 2, 128, True, None),
+             (1, 65, 200, 8, 4, 64, True, None),
+             (1, 129, 129, 8, 2, 32, True, 40),
+             (1, 100, 192, 8, 8, 128, True, 64),
+             (1, 64, 256, 4, 2, 128, False, None),
+             (2, 33, 64, 4, 1, 64, False, None)]
+    return qwen, zamba, extra
 
 
-def paged_case(B, Np, P, n_max, Hq, Hk, dh, dtype, seed):
-    """Scrambled page ids, disjoint across rows.  Returns the inputs with
-    every page outside the rows' live prefixes poisoned with +-1e9, and
-    the clean pools."""
+def paged_case(B, Np, P, n_max, Hq, Hk, dh, dtype, seed, pos=None):
+    """Scrambled page ids, disjoint across rows, positions drawn at random
+    unless given.  Returns the inputs with every page outside the rows'
+    live prefixes poisoned with +-1e9, and the clean pools."""
     import torch
     g = torch.Generator(device="cuda").manual_seed(seed)
     q = torch.randn(B, Hq, dh, generator=g, device="cuda").to(dtype)
@@ -171,9 +238,10 @@ def paged_case(B, Np, P, n_max, Hq, Hk, dh, dtype, seed):
     vp = torch.randn(Np, P, Hk, dh, generator=g, device="cuda").to(dtype)
     perm = torch.randperm(Np, generator=torch.Generator().manual_seed(seed))
     ids = perm[:B * n_max].reshape(B, n_max).to(torch.int32)
-    pos = torch.randint(0, n_max * P, (B,),
-                        generator=torch.Generator().manual_seed(seed + 1),
-                        dtype=torch.int32)
+    if pos is None:
+        pos = torch.randint(0, n_max * P, (B,),
+                            generator=torch.Generator().manual_seed(seed + 1),
+                            dtype=torch.int32)
     live = {int(ids[b, j]) for b in range(B)
             for j in range(int(pos[b]) // P + 1)}
     stale = torch.tensor([p for p in range(Np) if p not in live],
@@ -184,42 +252,89 @@ def paged_case(B, Np, P, n_max, Hq, Hk, dh, dtype, seed):
     return (q, kp2, vp2, ids.cuda(), pos.cuda()), (kp, vp)
 
 
+def split_positions(PA, B, Hk, n_max, P):
+    """Positions at the edges of the planned splits: 0, span-1, span,
+    span+1 (in positions), the last position, -1 (no key), and two more."""
+    _, span = PA.plan_splits(B, Hk, n_max, P)
+    w, last = span * P, n_max * P - 1
+    edges = [0, w - 1, w, w + 1, last, -1, last // 3, 2 * w + 1]
+    if B == 1:
+        return [last]
+    return [min(last, edges[b % len(edges)]) for b in range(B)]
+
+
+def check_paged(torch, PA, name, args, clean_pools, tol):
+    """Poisoned stale pages invisible bit for bit, a second call
+    bit-identical, rows at pos -1 zero, the rest within tol of plain."""
+    out = PA.paged_attention(*args)
+    again = PA.paged_attention(*args)
+    clean = PA.paged_attention(args[0], *clean_pools, *args[3:])
+    torch.cuda.synchronize()
+    if not torch.equal(out, clean):
+        fail(f"{name}: poisoned stale pages changed the output")
+    if not torch.equal(out, again):
+        fail(f"{name}: two identical calls differ")
+    dead = args[4] < 0
+    if not bool((out[dead] == 0).all()):
+        fail(f"{name}: a row with no key did not emit 0")
+    ref = PA.reference(*args)
+    return check_close(name, out[~dead], ref[~dead], tol)
+
+
 def check_kernels(torch, FA, PA, rows):
-    errs = {"flash_attention": 0.0, "paged_attention": 0.0}
-    main, extra = flash_cases()
+    errs = {"flash_attention": 0.0, f"flash_attention@{HYBRID}": 0.0,
+            "paged_attention": 0.0, f"paged_attention@{HYBRID}": 0.0}
+    qwen, zamba, extra = flash_cases()
     for dtype in ("bfloat16", "float32"):
         dt = getattr(torch, dtype)
-        for i, (B, S, T, Hq, Hk, dh, causal, window) in enumerate(main + extra):
+        for i, (B, S, T, Hq, Hk, dh, causal, window) in enumerate(
+                qwen + zamba + extra):
             g = torch.Generator(device="cuda").manual_seed(i)
             q = torch.randn(B, S, Hq, dh, generator=g, device="cuda").to(dt)
             k = torch.randn(B, T, Hk, dh, generator=g, device="cuda").to(dt)
             v = torch.randn(B, T, Hk, dh, generator=g, device="cuda").to(dt)
             out = FA.flash_attention(q, k, v, causal=causal, window=window)
+            again = FA.flash_attention(q, k, v, causal=causal, window=window)
             torch.cuda.synchronize()
+            name = (f"flash {dtype} {(B, S, T, Hq, Hk, dh)} causal={causal} "
+                    f"window={window}")
+            if not torch.equal(out, again):
+                fail(f"{name}: two identical calls differ")
             ref = FA.reference(q, k, v, causal=causal, window=window)
-            e = check_close(f"flash {dtype} S={S} window={window}", out, ref,
-                            TOL[dtype])
+            e = check_close(name, out, ref, TOL[dtype])
             rows.append(["flash_attention", dtype, (B, S, T, Hq, Hk, dh),
-                         window, e])
-            if dtype == "bfloat16" and i < len(main):
-                errs["flash_attention"] = max(errs["flash_attention"], e)
-        # main paths first: 8 slots, P=16; qwen3-0.6b, then zamba2-1.2b
+                         f"causal={causal} window={window}", e])
+            if dtype == "bfloat16" and i < len(qwen) + len(zamba):
+                key = ("flash_attention" if i < len(qwen)
+                       else f"flash_attention@{HYBRID}")
+                errs[key] = max(errs[key], e)
+        # main paths first (8 slots, P=16; qwen3-0.6b, then zamba2-1.2b),
+        # random positions, then positions at the split edges over every
+        # group and page size the path may see
         shapes = [(8, 400, 16, 40, 16, 8, 128), (8, 320, 16, 40, 32, 32, 64),
                   (3, 16, 8, 4, 8, 2, 128), (2, 16, 4, 4, 4, 4, 128),
                   (1, 8, 16, 2, 8, 4, 128), (4, 32, 8, 8, 8, 8, 128)]
-        for i, shp in enumerate(shapes):
-            args, (kp, vp) = paged_case(*shp, dt, seed=10 + i)
-            out = PA.paged_attention(*args)
-            clean = PA.paged_attention(args[0], kp, vp, *args[3:])
-            torch.cuda.synchronize()
-            if not torch.equal(out, clean):
-                fail(f"paged {dtype} {shp}: poisoned stale pages changed "
-                     f"the output")
-            ref = PA.reference(*args)
-            e = check_close(f"paged {dtype} {shp}", out, ref, TOL[dtype])
-            rows.append(["paged_attention", dtype, shp, None, e])
+        edge = [(8, 16, 40, 16, 8, 128), (8, 16, 40, 32, 32, 64),
+                (4, 16, 4, 4, 4, 128), (2, 8, 64, 8, 1, 64),
+                (3, 32, 12, 8, 2, 32), (1, 16, 300, 2, 2, 64),
+                (6, 8, 20, 4, 2, 128)]
+        cases = [(shp, None) for shp in shapes]
+        for B, P, n_max, Hq, Hk, dh in edge:
+            cases.append(((B, B * n_max + 4, P, n_max, Hq, Hk, dh),
+                          torch.tensor(split_positions(PA, B, Hk, n_max, P),
+                                       dtype=torch.int32)))
+        for i, (shp, pos) in enumerate(cases):
+            args, pools = paged_case(*shp, dt, seed=10 + i, pos=pos)
+            n_splits, _ = PA.plan_splits(shp[0], shp[5], shp[3], shp[2])
+            e = check_paged(torch, PA, f"paged {dtype} {shp} splits="
+                            f"{n_splits} pos={args[4].tolist()}", args,
+                            pools, TOL[dtype])
+            rows.append(["paged_attention", dtype, shp,
+                         f"splits={n_splits}", e])
             if dtype == "bfloat16" and i < 2:
-                errs["paged_attention"] = max(errs["paged_attention"], e)
+                key = ("paged_attention" if i == 0
+                       else f"paged_attention@{HYBRID}")
+                errs[key] = max(errs[key], e)
     return errs
 
 
@@ -442,6 +557,11 @@ def serve(torch, cfg, params, ops, ServeEngine, Request):
     return reqs, launches, st, wall
 
 
+# the port's own kernels, by the names of their CUDA functions
+PORT_KERNELS = ("flash_fwd", "paged_decode", "paged_merge", "ssd_scan",
+                "pack_kernel", "unpack_kernel")
+
+
 def _device_us(row) -> float:
     for name in ("self_device_time_total", "self_cuda_time_total"):
         if hasattr(row, name):
@@ -506,6 +626,8 @@ def trace_summary(prof, window_s):
                    if str(getattr(r, "device_type", "")).endswith("CUDA")),
                   key=lambda x: -x[1])
     busy_us = sum(us for _, us, _ in kern)
+    ours = [{"name": k, "ms": us / 1e3, "count": c} for k, us, c in kern
+            if any(n in k for n in PORT_KERNELS)]
     return {
         "window_s": window_s, "kernel_s": busy_us / 1e6,
         "kernel_launches": sum(c for *_, c in kern),
@@ -513,14 +635,19 @@ def trace_summary(prof, window_s):
                        if str(getattr(r, "device_type", "")).endswith("CPU")),
         "busy_share": (busy_us / 1e6 / window_s) if busy_us else None,
         "top_kernels": [{"name": k, "ms": us / 1e3, "count": c}
-                        for k, us, c in kern[:15]]}
+                        for k, us, c in kern[:15]],
+        "port_kernels": ours}
 
 
 def print_trace(card, what, trace):
-    print(f"{what} [{card}]: {json.dumps(dict(trace, top_kernels=None))}")
+    print(f"{what} [{card}]: "
+          f"{json.dumps(dict(trace, top_kernels=None, port_kernels=None))}")
     for k in trace["top_kernels"]:
         print(f"  kernel [{card}] {k['ms']:.3f} ms x{k['count']} "
               f"{k['name'][:100]}")
+    for k in trace["port_kernels"]:
+        print(f"  port kernel [{card}] {k['ms']:.3f} ms x{k['count']} "
+              f"({k['ms'] / k['count']:.4f} ms each) {k['name'][:80]}")
 
 
 def clone_tree(tree):
@@ -599,29 +726,35 @@ def compare_plain_paths(torch, cfg, params, MD, reqs):
 # ---------------------------------------------------------------------------
 # phase 5: times and bounds
 # ---------------------------------------------------------------------------
-def time_flash(torch, FA, S=512):
-    B, Hq, Hk, dh = 1, 16, 8, 128
+# timed shapes (Hq, Hk, dh) of the serve paths' attention
+HEADS = {ARCH: (16, 8, 128), HYBRID: (32, 32, 64)}
+
+
+def time_flash(torch, FA, heads, S=512):
+    B, (Hq, Hk, dh) = 1, heads
     g = torch.Generator(device="cuda").manual_seed(42)
     q = torch.randn(B, S, Hq, dh, generator=g, device="cuda").bfloat16()
     k = torch.randn(B, S, Hk, dh, generator=g, device="cuda").bfloat16()
     v = torch.randn(B, S, Hk, dh, generator=g, device="cuda").bfloat16()
-    ms = cuda_ms(lambda: FA.flash_attention(q, k, v))
-    plain_ms = cuda_ms(lambda: FA.reference(q, k, v), n=10)
+    ms = device_ms(lambda: FA.flash_attention(q, k, v))
+    call_ms = cuda_ms(lambda: FA.flash_attention(q, k, v))
+    plain_ms = device_ms(lambda: FA.reference(q, k, v), n=10)
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    lib_ms = cuda_ms(lambda: sdpa(qt, kt, vt, is_causal=True))
+    lib_ms = device_ms(lambda: sdpa(qt, kt, vt, is_causal=True))
     pairs = S * (S + 1) // 2                      # causal (query, key) pairs
     flops = 4 * B * Hq * dh * pairs
     nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())   # q, k, v, out
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
-    return {"shape": [B, S, Hq, Hk, dh], "ms": ms, "plain_ms": plain_ms,
+    return {"shape": [B, S, Hq, Hk, dh], "ms": ms, "call_ms": call_ms,
+            "plain_ms": plain_ms,
             "library_ms": lib_ms, "library": "scaled_dot_product_attention",
             "bound_ms": 1e3 * max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "flops": flops, "bytes": nbytes}
 
 
-def time_paged(torch, PA, pos_list):
-    B, Hq, Hk, dh, P = len(pos_list), 16, 8, 128, PAGE
+def time_paged(torch, PA, heads, pos_list):
+    (Hq, Hk, dh), B, P = heads, len(pos_list), PAGE
     n_max = -(-(PLEN[1] + GEN[1]) // P)
     Np = B * n_max
     g = torch.Generator(device="cuda").manual_seed(43)
@@ -631,8 +764,9 @@ def time_paged(torch, PA, pos_list):
     bt = torch.randperm(Np, generator=torch.Generator().manual_seed(4)
                         ).reshape(B, n_max).int().cuda()
     pos = torch.tensor(pos_list, dtype=torch.int32, device="cuda")
-    ms = cuda_ms(lambda: PA.paged_attention(q, kp, vp, bt, pos), n=50)
-    plain_ms = cuda_ms(lambda: PA.reference(q, kp, vp, bt, pos), n=10)
+    ms = device_ms(lambda: PA.paged_attention(q, kp, vp, bt, pos), n=50)
+    call_ms = cuda_ms(lambda: PA.paged_attention(q, kp, vp, bt, pos), n=50)
+    plain_ms = device_ms(lambda: PA.reference(q, kp, vp, bt, pos), n=10)
     C = n_max * P
     valid = (torch.arange(C, device="cuda")[None] <= pos[:, None].long())
     mask = valid[:, None, None, :]                 # (B,1,1,C)
@@ -642,14 +776,17 @@ def time_paged(torch, PA, pos_list):
         kg = kp[bt.long()].reshape(B, C, Hk, dh).transpose(1, 2)
         vg = vp[bt.long()].reshape(B, C, Hk, dh).transpose(1, 2)
         return sdpa(qs, kg, vg, attn_mask=mask)
-    lib_ms = cuda_ms(library, n=50)
+    lib_ms = device_ms(library, n=50)
     resident = sum(p + 1 for p in pos_list)        # positions attended
     nbytes = (2 * resident * Hk * dh * 2           # K and V, bf16
               + 2 * 2 * q.numel()                  # q and out
               + 4 * (bt.numel() + B))              # block tables and pos
     flops = 4 * Hq * dh * resident
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+    n_splits, span = PA.plan_splits(B, Hk, n_max, P)
     return {"shape": [B, Hq, Hk, dh, P, n_max], "pos": pos_list, "ms": ms,
+            "call_ms": call_ms,
+            "splits": n_splits, "span": span,
             "plain_ms": plain_ms, "library_ms": lib_ms,
             "library": "gather + scaled_dot_product_attention",
             "bound_ms": 1e3 * max(t_ops, t_bytes),
@@ -665,14 +802,16 @@ def time_ssd(torch, SS, shape=(1, 512, 64, 64, 64, 128)):
     the scan (library none)."""
     B, S, H, P, N, Q = shape
     xe, loga, b, c = ssd_case(torch, B, S, H, P, N, torch.bfloat16, seed=45)
-    ms = cuda_ms(lambda: SS.ssd_scan(xe, loga, b, c, chunk=Q), n=50)
-    plain_ms = cuda_ms(lambda: SS.reference(xe, loga, b, c, Q), n=10)
+    ms = device_ms(lambda: SS.ssd_scan(xe, loga, b, c, chunk=Q), n=50)
+    call_ms = cuda_ms(lambda: SS.ssd_scan(xe, loga, b, c, chunk=Q), n=50)
+    plain_ms = device_ms(lambda: SS.reference(xe, loga, b, c, Q), n=10)
     chunks = B * H * (S // Q)
     flops = 2 * chunks * (Q * (Q + 1) // 2 * (N + P) + 2 * Q * N * P)
     nbytes = (xe.numel() * 2 + loga.numel() * 4 + 2 * b.numel() * 2
               + 4 * xe.numel() + 4 * B * H * N * P)     # + y and final
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
-    return {"shape": list(shape), "ms": ms, "plain_ms": plain_ms,
+    return {"shape": list(shape), "ms": ms, "call_ms": call_ms,
+            "plain_ms": plain_ms,
             "library_ms": None, "library": "none",
             "bound_ms": 1e3 * max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
@@ -919,16 +1058,19 @@ def main(argv=None) -> int:
     build_s = time.perf_counter() - t0
     print(f"build [{card}]: {build_s:.1f} s")
     for name, rep in reports.items():
+        entry = ""
         for line in rep.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas {name}: {line.strip()}")
+            if "Compiling entry function" in line:
+                entry = kernel_of(line)
+            elif "registers" in line or "spill" in line:
+                print(f"  ptxas {name} {entry}: {line.strip()}")
 
     rows = []                                                   # phase 3
     errs = check_kernels(torch, FA, PA, rows)
     errs.update(check_ssd(torch, SS, TR, rows))
     for r in rows:
-        print(f"check [{card}] {r[0]} {r[1]} {r[2]} window={r[3]} "
-              f"max|err|={r[4]:.3g}")
+        print(f"check [{card}] {r[0]} {r[1]} {r[2]} "
+              f"{'' if r[3] is None else r[3] + ' '}max|err|={r[4]:.3g}")
     nc_rows = []
     errs.update(check_nc(torch, NC, nc_rows))
     for r in nc_rows:
@@ -940,16 +1082,23 @@ def main(argv=None) -> int:
                         args.profile)                           # phase 4
              for arch in (ARCH, HYBRID)]
 
-    flash_t = time_flash(torch, FA)                             # phase 5
     mid = [PLEN[0] + (PLEN[1] + GEN[1] - PLEN[0]) * i // SLOTS
            for i in range(SLOTS)]
-    paged_t = time_paged(torch, PA, mid)
-    ssd_t = time_ssd(torch, SS)
-    for name, t in (("flash_attention", flash_t),
-                    ("paged_attention", paged_t), ("ssd_scan", ssd_t)):
+    timing = {}                                                 # phase 5
+    for arch, sfx in ((ARCH, ""), (HYBRID, f"@{HYBRID}")):
+        timing["flash_attention" + sfx] = time_flash(torch, FA, HEADS[arch])
+        timing["paged_attention" + sfx] = time_paged(torch, PA, HEADS[arch],
+                                                     mid)
+    # beyond the serve paths' prompts (at most 512): where flash stands
+    # against SDPA on longer prefills
+    timing["flash_attention S=1024"] = time_flash(torch, FA, HEADS[ARCH],
+                                                  S=1024)
+    timing["ssd_scan"] = time_ssd(torch, SS)
+    for name, t in timing.items():
         lib = ("none" if t["library_ms"] is None else
                f"{t['library']} {t['library_ms']:.4f} ms")
-        print(f"time [{card}] {name} {t['shape']}: kernel {t['ms']:.4f} ms, "
+        print(f"time [{card}] {name} {t['shape']}: kernel {t['ms']:.4f} ms "
+              f"(a call {t['call_ms']:.4f} ms), "
               f"plain {t['plain_ms']:.4f} ms, library {lib}, "
               f"bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
     train_cfg = get_config(ARCH)          # bf16, block remat, flags off
@@ -983,35 +1132,40 @@ def main(argv=None) -> int:
     by_path = {f"{p['arch']} serve": p["launches"] for p in paths}
     by_path[f"{ARCH} train"] = {n: tr["launches"][n]
                                 for n in ("nc_pack", "nc_unpack")}
-    timing = {"flash_attention": flash_t, "paged_attention": paged_t,
-              "ssd_scan": ssd_t, "nc_pack": nc_t["embed"]["nc_pack"],
-              "nc_unpack": nc_t["embed"]["nc_unpack"]}
+    timing.update(nc_pack=nc_t["embed"]["nc_pack"],
+                  nc_unpack=nc_t["embed"]["nc_unpack"])
     kernels = []
     for name, src, replaces in (
             ("flash_attention", "flash_attention",
              "src/repro/kernels/flash_attention.py:77"),
+            (f"flash_attention@{HYBRID}", "flash_attention",
+             "src/repro/kernels/flash_attention.py:77"),
             ("paged_attention", "paged_attention",
+             "src/repro/kernels/paged_attention.py:77"),
+            (f"paged_attention@{HYBRID}", "paged_attention",
              "src/repro/kernels/paged_attention.py:77"),
             ("ssd_scan", "ssd_scan", "src/repro/kernels/ssd_scan.py:69"),
             ("nc_pack", "nat_compress", "src/repro/kernels/nat_compress.py:56"),
             ("nc_unpack", "nat_compress",
              "src/repro/kernels/nat_compress.py:80")):
+        # "kernel@model": the same kernel timed at that model's shapes,
+        # with the launches of that model's serve run
+        kernel, _, at = name.partition("@")
         t = timing[name]
-        paths_n = {p: n[name] for p, n in by_path.items() if n.get(name)}
+        paths_n = {p: n[kernel] for p, n in by_path.items()
+                   if n.get(kernel) and (not at or p.startswith(at))}
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/csrc/{src}.cu",
             "replaces": replaces, "launches": sum(paths_n.values()),
-            "launches_by_path": paths_n,
+            "launches_by_path": paths_n, "shape": t.get("shape"),
             "max_abs_err": errs[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
     elapsed = time.perf_counter() - t_start
     result = {"card": card, "build_s": build_s, "elapsed_s": elapsed,
               "checks": rows, "serve": paths, "nc_checks": nc_rows,
-              "timing": {"flash_attention": flash_t,
-                         "paged_attention": paged_t, "ssd_scan": ssd_t,
-                         "nc": nc_t},
+              "timing": dict(timing, nc=nc_t),
               "train": tr}
     if args.out:
         os.makedirs(args.out, exist_ok=True)

@@ -31,8 +31,8 @@ SIGNATURES = {
                         [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                          _F, _I, _P]},
     "paged_attention": {"paged_attention_fwd":
-                        [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                         _F, _I, _P]},
+                        [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                         _I, _I, _I, _F, _I, _P]},
     "nat_compress": {"nc_pack_fwd": [_P, _P, _P, _L, _I, _P],
                      "nc_unpack_fwd": [_P, _P, _L, _I, _P]},
     "ssd_scan": {"ssd_scan_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,

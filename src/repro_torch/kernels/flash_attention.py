@@ -42,6 +42,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                              f"want float32 or bfloat16, one for all")
         if not t.is_contiguous():
             raise ValueError(f"flash_attention: {name} is not contiguous")
+    if q.dtype == torch.bfloat16:
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            if t.data_ptr() % 16:
+                raise ValueError(f"flash_attention: {name} is not 16-byte "
+                                 f"aligned (the bf16 kernel copies 16 "
+                                 f"bytes at a time)")
     sc = scale if scale is not None else dh ** -0.5
     out = torch.empty_like(q)
     lib = build.load("flash_attention")

@@ -19,6 +19,37 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 128)
 GROUPS = (1, 2, 4, 8)
 _SMEM_LIMIT = 48 * 1024  # static launch limit without an opt-in attribute
+# the kernel's layout (csrc/paged_attention.cu): 4 warps a block, a split
+# takes at most MAX_SPAN pages (their table entries staged in shared memory)
+NUM_WARPS = 4
+MAX_SPAN = 64
+# splits are planned to give at least TARGET_BLOCKS blocks: two for each of
+# the H100's 132 SMs; a split takes at least MIN_SPLIT_POSITIONS positions,
+# so short tables keep one split and no merge pass
+TARGET_BLOCKS = 2 * 132
+MIN_SPLIT_POSITIONS = 64
+
+
+def plan_splits(B: int, Hk: int, n_pages: int, P: int):
+    """(n_splits, span): split each row's n_pages table columns into
+    n_splits runs of `span` pages, one block per (split, kv-head, row).
+    Plain host arithmetic on the shapes: pos stays on the device."""
+    want = -(-TARGET_BLOCKS // (B * Hk))           # splits per (row, head)
+    min_span = max(1, -(-MIN_SPLIT_POSITIONS // P))
+    span = min(MAX_SPAN, max(min_span, -(-n_pages // want)))
+    return -(-n_pages // span), span
+
+
+def smem_bytes(dh: int, G: int) -> int:
+    """Static shared memory of one block: the split's table entries and
+    the warps' partial states (acc[G][dh], m and l per head)."""
+    return 4 * MAX_SPAN + 4 * NUM_WARPS * G * (dh + 2)
+
+
+def workspace_numel(B: int, Hq: int, dh: int, n_splits: int) -> int:
+    """fp32 elements of the splits' partials (acc[dh], m, l per row, q-head
+    and split); none with one split, whose block writes the output."""
+    return 0 if n_splits == 1 else B * Hq * n_splits * (dh + 2)
 
 
 def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
@@ -28,7 +59,7 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
     """Launch the CUDA kernel.  q: (B,Hq,dh); k/v_pool: (Np,P,Hk,dh)
     contiguous; block_tables: (B,n) int32 with unit column stride (a
     column crop of a wider table is fine); pos: (B,) int32.  Page ids are
-    trusted: every id the kernel reads (entries j <= pos[b] // P) must
+    trusted: every id the kernel follows (entries j <= pos[b] // P) must
     name a pool page.  Returns (B,Hq,dh) in q.dtype."""
     B, Hq, dh = q.shape
     if k_pool.dim() != 4 or k_pool.shape != v_pool.shape:
@@ -62,19 +93,28 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
         raise ValueError("paged_attention: block_tables rows / pos must be "
                          "unit-stride")
     G = Hq // Hk
-    smem = 4 * (2 * P * dh + G * dh + G * P)
+    smem = smem_bytes(dh, G)
     if smem > _SMEM_LIMIT:
-        raise ValueError(f"paged_attention: page size {P} needs {smem} B of "
-                         f"shared memory (> {_SMEM_LIMIT})")
+        raise ValueError(f"paged_attention: head_dim {dh}, group {G} needs "
+                         f"{smem} B of shared memory (> {_SMEM_LIMIT})")
+    for name, t in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"paged_attention: {name} is not 16-byte "
+                             f"aligned (the kernel reads 16 bytes a lane)")
+    n_pages = block_tables.shape[1]
+    n_splits, span = plan_splits(B, Hk, n_pages, P)
     sc = scale if scale is not None else dh ** -0.5
     out = torch.empty_like(q)
+    ws = torch.empty(workspace_numel(B, Hq, dh, n_splits),
+                     dtype=torch.float32, device=q.device)
     lib = build.load("paged_attention")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.paged_attention_fwd(
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
             block_tables.data_ptr(), pos.data_ptr(), out.data_ptr(),
-            B, Hq, Hk, dh, P, block_tables.shape[1], block_tables.stride(0),
+            ws.data_ptr() if ws.numel() else None, B, Hq, Hk, dh, P,
+            n_pages, block_tables.stride(0), n_splits, span,
             ctypes.c_float(sc), _DTYPES[q.dtype], stream)
     if err:
         raise RuntimeError(f"paged_attention kernel launch failed: CUDA "

@@ -38,6 +38,32 @@ PA_SHAPES = [
     (4, 32, 8, 8, 8, 8, 64),
     (8, 320, 16, 40, 32, 32, 64),            # zamba2-1.2b decode: G 1
 ]
+# the bf16 kernel's 64-row query and 64-key tiles: S and T at the tile
+# edges, a single query row, S < T, windows and full masking, every head
+# dim and group, in both dtypes
+FA_EDGE_SHAPES = [
+    (1, 1, 64, 4, 4, 64, True, None),        # one query row, G 1
+    (1, 63, 63, 8, 4, 128, True, None),
+    (1, 64, 64, 8, 2, 64, True, None),       # G 4
+    (1, 65, 65, 4, 4, 32, True, None),
+    (2, 129, 129, 8, 2, 128, True, None),
+    (1, 65, 200, 8, 4, 64, True, None),      # S < T, ragged T
+    (1, 129, 129, 8, 2, 32, True, 40),       # window inside a tile
+    (1, 100, 192, 8, 8, 128, True, 64),      # window, S < T
+    (1, 64, 256, 4, 2, 128, False, None),    # non-causal, S < T
+    (2, 33, 64, 4, 1, 64, False, None),      # non-causal, G 4
+]
+# paged: (B, P, n_max, Hq, Hk, dh); plan_splits gives each its split
+# count, and the rows' positions sit at the edges of the splits
+PA_SPLIT_SHAPES = [
+    (8, 16, 40, 16, 8, 128),                 # qwen3-0.6b: 5 splits of 8
+    (8, 16, 40, 32, 32, 64),                 # zamba2-1.2b: 2 splits of 20
+    (4, 16, 4, 4, 4, 128),                   # 64 positions: one split
+    (2, 8, 64, 8, 1, 64),                    # G 8, P 8
+    (3, 32, 12, 8, 2, 32),                   # G 4, P 32
+    (1, 16, 300, 2, 2, 64),                  # many splits of 4 pages
+    (6, 8, 20, 4, 2, 128),                   # G 2, P 8
+]
 SSD_SHAPES = [
     # B, S, H, P, N, chunk: tests/test_kernels.py's, then zamba2-1.2b's
     # prefill, a short prompt (S < chunk) and SMOKE's chunk
@@ -105,6 +131,96 @@ def test_paged_kernel_matches_plain(B, Np, P, n_max, Hq, Hk, dh, dtype):
     torch.cuda.synchronize()
     ref = PA.reference(*args)
     torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,T,Hq,Hk,dh,causal,window", FA_EDGE_SHAPES)
+def test_flash_kernel_tile_edges(B, S, T, Hq, Hk, dh, causal, window,
+                                 dtype):
+    test_flash_kernel_matches_plain(B, S, T, Hq, Hk, dh, causal, window,
+                                    dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dh", [32, 64, 128])
+@pytest.mark.parametrize("G", [1, 2, 4])
+def test_flash_kernel_head_dims_and_groups(dh, G, dtype):
+    test_flash_kernel_matches_plain(1, 129, 129, 2 * G, 2, dh, True, None,
+                                    dtype)
+
+
+def _split_case(B, P, n_max, Hq, Hk, dh, dtype, seed=0):
+    """Rows of very different lengths on scrambled pages, positions at the
+    split edges, one row at pos -1 where there is room; every page outside
+    the live prefixes poisoned with +-1e9.  Returns (args, clean pools)."""
+    r = np.random.RandomState(seed)
+    Np = B * n_max + 4
+    n_splits, span = PA.plan_splits(B, Hk, n_max, P)
+    w = span * P
+    last = n_max * P - 1
+    edges = [0, w - 1, w, w + 1, last, -1, r.randint(0, last + 1),
+             min(last, 2 * w + 1)]
+    pos = np.array([min(last, edges[b % len(edges)]) for b in range(B)],
+                   dtype=np.int32)
+    if B == 1:
+        pos[0] = last
+    q = r.randn(B, Hq, dh).astype(np.float32)
+    kp = r.randn(Np, P, Hk, dh).astype(np.float32)
+    vp = r.randn(Np, P, Hk, dh).astype(np.float32)
+    ids = r.permutation(Np)[:B * n_max].reshape(B, n_max).astype(np.int32)
+    live = {int(ids[b, j]) for b in range(B)
+            for j in range(int(pos[b]) // P + 1)}
+    stale = [p for p in range(Np) if p not in live]
+    kp2, vp2 = kp.copy(), vp.copy()
+    kp2[stale], vp2[stale] = 1e9, -1e9
+    cuda = [torch.from_numpy(a).cuda().to(dtype) for a in (q, kp2, vp2, kp,
+                                                           vp)]
+    ints = [torch.from_numpy(a).cuda() for a in (ids, pos)]
+    return (cuda[0], cuda[1], cuda[2], *ints), (cuda[3], cuda[4]), n_splits
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,P,n_max,Hq,Hk,dh", PA_SPLIT_SHAPES)
+def test_paged_kernel_split_edges(B, P, n_max, Hq, Hk, dh, dtype):
+    """Every split count the planner gives these shapes: positions at the
+    split edges match the plain version, a row at pos -1 emits 0, and the
+    poisoned stale pages leave the output bit for bit unchanged."""
+    _cuda()
+    args, (kp, vp), n_splits = _split_case(B, P, n_max, Hq, Hk, dh,
+                                           getattr(torch, dtype))
+    out = PA.paged_attention(*args)
+    clean = PA.paged_attention(args[0], kp, vp, *args[3:])
+    torch.cuda.synchronize()
+    assert torch.equal(out, clean), f"{n_splits} splits: stale pages leaked"
+    pos = args[4]
+    dead = pos < 0
+    assert bool((out[dead] == 0).all())
+    ref = PA.reference(*args)
+    tol = TOL[dtype]
+    torch.testing.assert_close(out[~dead].float(), ref[~dead].float(),
+                               rtol=tol, atol=tol)
+
+
+def test_attention_kernels_are_deterministic():
+    """Two identical calls give bit-identical outputs: the paged splits
+    merge in a fixed order, without atomics."""
+    _cuda()
+    g = torch.Generator(device="cuda").manual_seed(7)
+    for dtype in (torch.bfloat16, torch.float32):
+        wide = torch.int16 if dtype == torch.bfloat16 else torch.int32
+        q = torch.randn(1, 512, 16, 128, generator=g, device="cuda").to(dtype)
+        k = torch.randn(1, 512, 8, 128, generator=g, device="cuda").to(dtype)
+        v = torch.randn(1, 512, 8, 128, generator=g, device="cuda").to(dtype)
+        a = FA.flash_attention(q, k, v)
+        b = FA.flash_attention(q, k, v)
+        torch.cuda.synchronize()
+        assert torch.equal(a.view(wide), b.view(wide))
+        args, _, n_splits = _split_case(8, 16, 40, 16, 8, 128, dtype)
+        assert n_splits > 1
+        a = PA.paged_attention(*args)
+        b = PA.paged_attention(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(a.view(wide), b.view(wide))
 
 
 def _ssd_case(B, S, H, P, N, dtype, seed=0, decay=0.1):

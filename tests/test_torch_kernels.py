@@ -344,3 +344,66 @@ def test_ssd_wrapper_refuses_autograd():
     with torch.no_grad():
         ops.ssd_scan(xe.requires_grad_(), loga, b, c, chunk=32)
     assert ops.ssd_scan.launches == 0
+
+
+# ---------------------------------------------------------------------------
+# the paged kernel's split plan and sizing: plain host arithmetic
+# ---------------------------------------------------------------------------
+# (B, Hk, n_pages, P) of the serve paths' decode: qwen3-0.6b and
+# zamba2-1.2b, 8 slots, cache_len 640, page 16
+MAIN_DECODE = {"qwen3-0.6b": (8, 8, 40, 16), "zamba2-1.2b": (8, 32, 40, 16)}
+
+
+@pytest.mark.parametrize("arch", sorted(MAIN_DECODE))
+def test_paged_plan_fills_the_card_at_the_main_shapes(arch):
+    B, Hk, n_pages, P = MAIN_DECODE[arch]
+    n_splits, span = PA.plan_splits(B, Hk, n_pages, P)
+    assert n_splits > 1
+    assert n_splits * Hk * B >= PA.TARGET_BLOCKS
+
+
+@pytest.mark.parametrize("B,Hk,n_pages,P", [
+    (8, 8, 40, 16), (8, 32, 40, 16), (1, 1, 1, 16), (1, 2, 300, 16),
+    (3, 2, 12, 32), (2, 1, 64, 8), (64, 8, 40, 16), (1, 1, 5000, 1),
+    (4, 4, 4, 16), (2, 8, 7, 64)])
+def test_paged_plan_covers_every_position_once(B, Hk, n_pages, P):
+    """Split s takes positions [s*span*P, (s+1)*span*P) of the table's
+    n_pages*P: every position is in exactly one split, no split is empty,
+    and a split's table entries fit the kernel's staging."""
+    n_splits, span = PA.plan_splits(B, Hk, n_pages, P)
+    assert 1 <= span <= PA.MAX_SPAN
+    cover = np.zeros(n_pages * P, np.int64)
+    for s in range(n_splits):
+        lo, hi = s * span * P, min((s + 1) * span * P, n_pages * P)
+        assert lo < hi
+        cover[lo:hi] += 1
+    assert (cover == 1).all()
+
+
+@pytest.mark.parametrize("n_pages,P", [(1, 16), (4, 16), (2, 32), (8, 8),
+                                       (64, 1)])
+def test_paged_plan_keeps_short_rows_in_one_split(n_pages, P):
+    """A table of at most MIN_SPLIT_POSITIONS positions is one split, so
+    no merge pass runs, however few blocks that gives."""
+    assert n_pages * P <= PA.MIN_SPLIT_POSITIONS
+    assert PA.plan_splits(1, 1, n_pages, P)[0] == 1
+
+
+@pytest.mark.parametrize("dh", PA.HEAD_DIMS)
+@pytest.mark.parametrize("G", PA.GROUPS)
+@pytest.mark.parametrize("P", [1, 8, 16, 32, 128])
+def test_paged_sizing_fits_every_accepted_shape(dh, G, P):
+    """Every head dim and group the wrapper accepts fits the 48 KB of
+    static shared memory, for any page size (the table staging is sized
+    by MAX_SPAN pages, not by P); the workspace holds acc, m and l for
+    every (row, q-head, split) and is empty with one split."""
+    assert PA.smem_bytes(dh, G) <= PA._SMEM_LIMIT
+    B, Hk = 8, 2
+    n_splits, span = PA.plan_splits(B, Hk, 40, P)
+    Hq = Hk * G
+    n = PA.workspace_numel(B, Hq, dh, n_splits)
+    if n_splits == 1:
+        assert n == 0
+    else:
+        assert n == B * Hq * n_splits * (dh + 2)
+    assert PA.workspace_numel(B, Hq, dh, 1) == 0
