@@ -19,9 +19,10 @@ Phases (each raises on failure, and then no result is printed):
      (the output must not change by a bit) and each call twice (the two
      outputs must be bit-identical); the SSD scan in fp32 and bf16 (1e-4: both
      compute in fp32) at the JAX package's test shapes and zamba2's
-     prefill, a prompt shorter than the chunk, a strong-decay case that
-     must stay finite and hold to the float64 recurrence, and against the
-     sequential oracle; nc_pack /
+     prefill, a prompt shorter than the chunk, ragged last chunks (S 500,
+     130, 17), strong decay at S 512 and 500 that must stay finite and
+     hold to the float64 recurrence, the sequential oracle, and two
+     identical calls bit-identical; nc_pack /
      nc_unpack bit for bit, fp32 and bf16, on ragged sizes with zeros,
      powers of two and their predecessors and values outside the wire's
      range [2^-69, 2^57);
@@ -32,9 +33,16 @@ Phases (each raises on failure, and then no result is printed):
      the kernel path's prefill logits and paged decode logits against the
      plain versions' (flags off); then serve zamba2-1.2b at full width
      (38 Mamba2 layers, the shared attention block after every 6th, bf16)
-     the same way: 38 ssd_scan and 6 flash launches an admit, 6 paged
-     launches a decode tick, no preemption, and the kernel path's logits
-     and the first layer's prefill SSM state against the plain path's;
+     the same way, the same prompt lengths (ragged last chunks): 38
+     ssd_scan and 6 flash launches an admit, 6 paged launches a decode
+     tick, no preemption; the kernel path's logits against the plain
+     path's, and the kernel's y and final state at every Mamba2 layer on
+     the very inputs of the plain path's scan (1e-4 of the largest
+     entry); then the same requests through a second zamba2 engine with
+     half the pages 8 slots need at full length: at least one
+     preemption, a re-admit whose prefill is not a whole number of
+     chunks, every request finished with its full budget, the launch
+     counts exact;
   5. time each kernel beside its plain version, one PyTorch library call
      where one computes the same function (timed only, never used by the
      port) and its bound, the attention kernels at both serve paths'
@@ -95,9 +103,8 @@ ARCH = "qwen3-0.6b"
 HYBRID = "zamba2-1.2b"
 SLOTS, REQUESTS, PAGE = 8, 16, 16
 PLEN, GEN = (256, 512), (32, 128)
-# zamba2's prompts: whole multiples of its ssm_chunk (128), as its
-# prefill requires; the same budgets and cache_len (512 + 128 = 640)
-HYBRID_PLENS = (128, 256, 384, 512)
+# zamba2's tight pool: half the pages of 8 slots at full length (40 each)
+TIGHT_PAGES = 160
 WARMUP_GEN = 4                        # budget of the warm-up batch
 # --profile: engine ticks before / inside the traced window
 WINDOW = {ARCH: (24, 12), HYBRID: (24, 6)}
@@ -366,44 +373,59 @@ def ssd_f64(xe, loga, b, c):
 def check_ssd(torch, SS, TR, rows):
     """The SSD scan against its plain version: the JAX package's test
     shapes, zamba2-1.2b's prefill (first), a prompt shorter than the
-    chunk, SMOKE's chunk; a strong decay (loga ~ -0.8 a step, as zamba2's
-    random weights give: L reaches ~-120 in a chunk) that must stay finite
-    and hold to the plain version and to the float64 recurrence; and the
-    sequential oracle at a small shape."""
+    chunk, SMOKE's chunk, ragged last chunks, P = N = 128 at chunk 256
+    (fp32 inputs take tiles of 32 there); a strong decay (loga ~ -0.8
+    a step, as zamba2's random weights give: L reaches ~-120 in a chunk)
+    at S 512 and 500 that must stay finite and hold to the plain version
+    and to the float64 recurrence; the sequential oracle at a small
+    shape; and every call made twice, the two bit-identical."""
     shapes = [(1, 512, 64, 64, 64, 128),            # zamba2-1.2b prefill
               (2, 256, 4, 64, 64, 128), (1, 128, 2, 32, 16, 64),
               (2, 512, 3, 64, 64, 128), (1, 256, 1, 128, 32, 256),
               (1, 384, 2, 64, 64, 128), (2, 40, 4, 16, 128, 128),
-              (1, 96, 4, 64, 64, 32)]
+              (1, 96, 4, 64, 64, 32),
+              (1, 500, 64, 64, 64, 128),            # ragged last chunks
+              (2, 130, 4, 64, 64, 128), (1, 17, 2, 16, 16, 32),
+              (1, 300, 2, 128, 128, 256)]   # fp32: the kernel tiles by 32
+
+    def scan_twice(name, *args, chunk):
+        y, fin = SS.ssd_scan(*args, chunk=chunk)
+        y2, fin2 = SS.ssd_scan(*args, chunk=chunk)
+        torch.cuda.synchronize()
+        if not (torch.equal(y, y2) and torch.equal(fin, fin2)):
+            fail(f"{name}: two identical calls differ")
+        return y, fin
+
     err = 0.0
     for dtype in (torch.float32, torch.bfloat16):
         for i, (B, S, H, P, N, chunk) in enumerate(shapes):
             args = ssd_case(torch, B, S, H, P, N, dtype, seed=200 + i)
-            y, fin = SS.ssd_scan(*args, chunk=chunk)
-            torch.cuda.synchronize()
-            yr, fr = SS.reference(*args, chunk)
             name = f"ssd {dtype} {(B, S, H, P, N, chunk)}"
+            y, fin = scan_twice(name, *args, chunk=chunk)
+            yr, fr = SS.reference(*args, chunk)
             e = max(check_close(name, y, yr, SSD_TOL),
                     check_close(name + " final", fin, fr, SSD_TOL))
             rows.append(["ssd_scan", str(dtype).split(".")[-1],
                          (B, S, H, P, N, chunk), None, e])
             if i == 0 and dtype == torch.bfloat16:
                 err = e
-        xe, loga, b, c = ssd_case(torch, 1, 512, 64, 64, 64, dtype, seed=300,
-                                  decay=0.2)
-        loga = loga - 0.8
-        y, fin = SS.ssd_scan(xe, loga, b, c, chunk=128)
-        torch.cuda.synchronize()
-        low = float(loga.reshape(1, 4, 128, 64).sum(2).min())
-        name = f"ssd {dtype} strong decay (L down to {low:.1f} in a chunk)"
-        for what, (yr, fr) in (("plain", SS.reference(xe, loga, b, c, 128)),
-                               ("float64 recurrence", ssd_f64(xe, loga, b, c))):
-            e = max(check_close(f"{name} vs {what}", y, yr, SSD_TOL),
-                    check_close(f"{name} vs {what} final", fin, fr,
-                                SSD_TOL))
-            rows.append(["ssd_scan", str(dtype).split(".")[-1],
-                         f"strong decay, loga ~ -0.8 a step, vs {what}",
-                         None, e])
+        for S in (512, 500):
+            xe, loga, b, c = ssd_case(torch, 1, S, 64, 64, 64, dtype,
+                                      seed=300, decay=0.2)
+            loga = loga - 0.8
+            low = float(loga[:, :128].sum(1).min())
+            name = (f"ssd {dtype} S {S} strong decay (L down to {low:.1f} "
+                    f"in a chunk)")
+            y, fin = scan_twice(name, xe, loga, b, c, chunk=128)
+            for what, (yr, fr) in (
+                    ("plain", SS.reference(xe, loga, b, c, 128)),
+                    ("float64 recurrence", ssd_f64(xe, loga, b, c))):
+                e = max(check_close(f"{name} vs {what}", y, yr, SSD_TOL),
+                        check_close(f"{name} vs {what} final", fin, fr,
+                                    SSD_TOL))
+                rows.append(["ssd_scan", str(dtype).split(".")[-1],
+                             f"S {S} strong decay, loga ~ -0.8 a step, vs "
+                             f"{what}", None, e])
     args = ssd_case(torch, 1, 64, 2, 16, 16, torch.float32, seed=301)
     y, fin = SS.ssd_scan(*args, chunk=32)
     yr, fr = TR.ssd_ref(*args)
@@ -490,24 +512,23 @@ def check_nc(torch, NC, rows):
 # phase 4: serve at full width
 # ---------------------------------------------------------------------------
 def make_requests(cfg, Request):
-    """REQUESTS requests, seed 0: prompts of 257-512 tokens (zamba2-1.2b:
-    128, 256, 384 or 512), budgets 33-128."""
+    """REQUESTS requests, seed 0: prompts of 257-512 tokens, budgets
+    33-128."""
     import numpy as np
     rng = np.random.RandomState(0)
     reqs = []
     for i in range(REQUESTS):
-        S = (int(rng.choice(HYBRID_PLENS)) if cfg.arch_type == "hybrid"
-             else int(rng.randint(*PLEN) + 1))
+        S = int(rng.randint(*PLEN) + 1)
         reqs.append(Request(rid=i, prompt=rng.randint(0, cfg.vocab_size,
                                                       size=S),
                             max_new_tokens=int(rng.randint(*GEN) + 1)))
     return reqs
 
 
-def make_engine(cfg, params, ServeEngine):
+def make_engine(cfg, params, ServeEngine, num_pages=None):
     return ServeEngine(params, cfg, num_slots=SLOTS,
                        cache_len=PLEN[1] + GEN[1], page_size=PAGE,
-                       device="cuda")
+                       num_pages=num_pages, device="cuda")
 
 
 def path_layers(cfg):
@@ -517,13 +538,25 @@ def path_layers(cfg):
     return cfg.num_layers, 0
 
 
-def serve(torch, cfg, params, ops, ServeEngine, Request):
+def serve(torch, cfg, params, ops, ServeEngine, Request, num_pages=None):
+    """One warm run of the requests through a fresh paged engine
+    (`num_pages` pages, default every slot at full length), the launch
+    counters zeroed just before and read just after.  Returns the
+    requests, the finished ones, the launches, the engine's stats, the
+    wall time and the prefill lengths of every admit by request id."""
     reqs = make_requests(cfg, Request)
-    eng = make_engine(cfg, params, ServeEngine)
+    eng = make_engine(cfg, params, ServeEngine, num_pages)
     # warm-up: one short batch over every slot, then a fresh pool
     eng.run([Request(rid=r.rid, prompt=r.prompt, max_new_tokens=WARMUP_GEN)
              for r in reqs[:SLOTS]])
     eng.reset()
+    admits = []                       # (rid, prefill length) of each admit
+    admit = eng._admit
+
+    def recording(req, slot):
+        admits.append((req.rid, len(req.prompt)))
+        return admit(req, slot)
+    eng._admit = recording
     torch.cuda.synchronize()
     ops.reset_launches()
     t0 = time.perf_counter()
@@ -549,16 +582,45 @@ def serve(torch, cfg, params, ops, ServeEngine, Request):
         fail(f"{cfg.name} serve run: launches {launches}, want {want} "
              f"({st['prefill_ticks']} admits, {st['decode_ticks']} decode "
              f"ticks)")
-    if cfg.arch_type == "hybrid" and st["preemptions"]:
+    if num_pages is None and st["preemptions"]:
         fail(f"{cfg.name} serve run: {st['preemptions']} preemptions; the "
              f"pool holds every slot at full length")
     if not launches["paged_attention"] or not launches["flash_attention"]:
         fail(f"{cfg.name} serve run: a kernel of the path never launched")
-    return reqs, launches, st, wall
+    return reqs, fins, launches, st, wall, admits
+
+
+def serve_tight(torch, cfg, params, ops, ServeEngine, Request, ample):
+    """The zamba2 requests again on TIGHT_PAGES pages: the pool runs dry
+    while slots grow, the youngest is preempted and re-admitted with
+    prompt + emitted tokens, a prefill length off the chunk multiples.
+    `ample` is the ample-pool run's finished requests: the share of equal
+    tokens is reported, not gated (bf16 logits through 38 layers may tie
+    differently at another batch composition)."""
+    _, fins, launches, st, wall, admits = serve(
+        torch, cfg, params, ops, ServeEngine, Request, TIGHT_PAGES)
+    if not st["preemptions"]:
+        fail(f"{cfg.name} tight pool: no preemption on {TIGHT_PAGES} pages")
+    seen, readmits = set(), []
+    for rid, n in admits:
+        if rid in seen:
+            readmits.append(n)
+        seen.add(rid)
+    if not any(n % cfg.ssm_chunk for n in readmits):
+        fail(f"{cfg.name} tight pool: no re-admit off the chunk multiples "
+             f"({readmits})")
+    same = sum(a == b for f, g in zip(fins, ample)
+               for a, b in zip(f.tokens, g.tokens))
+    return {"num_pages": TIGHT_PAGES, "launches": launches,
+            "stats": dict(st, wall_s=wall,
+                          tok_s=st["generated_tokens"] / wall),
+            "readmit_lens": readmits,
+            "same_token_share": same / sum(len(f.tokens) for f in ample)}
 
 
 # the port's own kernels, by the names of their CUDA functions
-PORT_KERNELS = ("flash_fwd", "paged_decode", "paged_merge", "ssd_scan",
+PORT_KERNELS = ("flash_fwd", "paged_decode", "paged_merge", "ssd_state",
+                "ssd_pass", "ssd_chunk_scan",
                 "pack_kernel", "unpack_kernel")
 
 
@@ -656,18 +718,36 @@ def clone_tree(tree):
     return tree.clone()
 
 
-def compare_plain_paths(torch, cfg, params, MD, reqs):
+def compare_plain_paths(torch, cfg, params, MD, SS, reqs):
     """Prefill (flash, and ssd_scan in the hybrid) and one paged decode
     tick (paged kernel) with the kernel flags on, against the same with
-    them off.  The hybrid's first-layer prefill SSM state, whose inputs
-    the two paths compute alike, is held to SSD_TOL of its largest entry."""
+    them off.  In the hybrid, the plain path's scan is wrapped: at every
+    Mamba2 layer the kernel runs on the very inputs the plain scan got,
+    and its y and final state are held to SSD_TOL of their largest entry
+    (later layers' inputs differ between the two whole paths, so the
+    paths' states tell kernel error and bf16 drift apart only there)."""
+    from repro_torch.models import ssm as SSM
     plain = cfg.with_(use_flash_kernel=False, use_paged_kernel=False,
                       use_ssd_kernel=False)
     res = {}
     prompts = [torch.as_tensor(r.prompt, device="cuda")[None].int()
                for r in reqs[:2]]
+    layer_err = []
+    scan = SSM.ssd_scan_ref
+
+    def held(xe, loga, b, c, chunk):
+        yp, fp = scan(xe, loga, b, c, chunk)
+        yk, fk = SS.ssd_scan(xe.contiguous(), loga.contiguous(),
+                             b.contiguous(), c.contiguous(), chunk=chunk)
+        layer_err.append(max(max_err(yk, yp) / float(yp.abs().max()),
+                             max_err(fk, fp) / float(fp.abs().max())))
+        return yp, fp
     lk, _, ck = MD.forward(params, cfg, prompts[0], return_cache=True)
-    lp, _, cp = MD.forward(params, plain, prompts[0], return_cache=True)
+    SSM.ssd_scan_ref = held
+    try:
+        lp, _, cp = MD.forward(params, plain, prompts[0], return_cache=True)
+    finally:
+        SSM.ssd_scan_ref = scan
     for name, a in (("kernel", lk), ("plain", lp)):
         if not bool(torch.isfinite(a.float()).all()):
             fail(f"prefill logits ({name} path) not finite")
@@ -680,13 +760,19 @@ def compare_plain_paths(torch, cfg, params, MD, reqs):
     res["prefill"] = {"S": prompts[0].shape[1], "max_abs_err": err,
                       "logit_scale": scale, "greedy_same_share": same}
     if cfg.arch_type == "hybrid":
+        if len(layer_err) != cfg.num_layers:
+            fail(f"per-layer scan check: {len(layer_err)} layers held, "
+                 f"want {cfg.num_layers}")
+        worst = max(range(len(layer_err)), key=layer_err.__getitem__)
+        if not layer_err[worst] <= SSD_TOL:
+            fail(f"ssd_scan vs plain on layer {worst}'s inputs: "
+                 f"{layer_err[worst]} of the largest entry (> {SSD_TOL})")
         rel = [max_err(a, b) / float(b.abs().max())
                for a, b in zip(ck["ssm"], cp["ssm"])]
-        if not rel[0] <= SSD_TOL:
-            fail(f"first-layer prefill SSM state: kernel vs plain "
-                 f"{rel[0]} of its largest entry (> {SSD_TOL})")
-        res["prefill"].update(ssm_state_rel_err_layer0=rel[0],
-                              ssm_state_rel_err_max_layer=max(rel))
+        res["prefill"].update(ssd_layers_held=len(layer_err),
+                              ssd_rel_err_worst_layer=worst,
+                              ssd_rel_err_worst=layer_err[worst],
+                              ssm_state_path_rel_err_max=max(rel))
     del ck, cp
 
     # a paged pool holding both prompts on scrambled pages
@@ -796,17 +882,19 @@ def time_paged(torch, PA, heads, pos_list):
 
 def time_ssd(torch, SS, shape=(1, 512, 64, 64, 64, 128)):
     """The SSD scan at zamba2-1.2b's 512-token prefill: xe, b, c bf16 and
-    loga fp32 as the model gives them.  Operations: the causal halves of
-    the (Q,Q) score and score-times-xe products, and the inter-chunk and
-    state products, per chunk and head; no single PyTorch call computes
-    the scan (library none)."""
+    loga fp32 as the model gives them.  Operations, the least the scan
+    needs: the causal half of the (Q,Q) c b^T once per chunk (b and c are
+    shared across heads); per chunk and head the causal half of the
+    scores-times-xe product, the inter-chunk term and the chunk state; no
+    single PyTorch call computes the scan (library none)."""
     B, S, H, P, N, Q = shape
     xe, loga, b, c = ssd_case(torch, B, S, H, P, N, torch.bfloat16, seed=45)
     ms = device_ms(lambda: SS.ssd_scan(xe, loga, b, c, chunk=Q), n=50)
     call_ms = cuda_ms(lambda: SS.ssd_scan(xe, loga, b, c, chunk=Q), n=50)
     plain_ms = device_ms(lambda: SS.reference(xe, loga, b, c, Q), n=10)
-    chunks = B * H * (S // Q)
-    flops = 2 * chunks * (Q * (Q + 1) // 2 * (N + P) + 2 * Q * N * P)
+    nc = -(-S // Q)
+    tri = Q * (Q + 1) // 2
+    flops = 2 * B * nc * (tri * N + H * (tri * P + 2 * Q * N * P))
     nbytes = (xe.numel() * 2 + loga.numel() * 4 + 2 * b.numel() * 2
               + 4 * xe.numel() + 4 * B * H * N * P)     # + y and final
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
@@ -974,18 +1062,19 @@ def train_phase(torch, cfg, ops, NC, profile=False):
             "trace": trace}
 
 
-def serve_path(torch, card, arch, ops, MD, ServeEngine, Request,
+def serve_path(torch, card, arch, ops, MD, SS, ServeEngine, Request,
                profile=False):
     """Phase 4 for one model: the warm serve run with its launch counts,
-    the --profile split and trace, and kernel path vs plain path."""
+    the --profile split and trace, kernel path vs plain path, and for the
+    hybrid the tight-pool run that preempts."""
     from repro_torch.configs import get_config
     from repro_torch.models.config import param_count
     cfg = get_config(arch).with_(use_flash_kernel=True, use_paged_kernel=True,
                                  use_ssd_kernel=True)
     total, _ = param_count(cfg)
     params = MD.init_model(cfg, torch.Generator(device="cuda").manual_seed(0))
-    reqs, launches, st, wall = serve(torch, cfg, params, ops, ServeEngine,
-                                     Request)
+    reqs, fins, launches, st, wall, _ = serve(torch, cfg, params, ops,
+                                              ServeEngine, Request)
     tps = st["generated_tokens"] / wall
     print(f"serve [{card}]: {arch} {total / 1e6:.1f}M params bf16, "
           f"{cfg.num_layers} layers, d_model {cfg.d_model}, "
@@ -1002,13 +1091,25 @@ def serve_path(torch, card, arch, ops, MD, ServeEngine, Request,
         prof = profile_serve(torch, cfg, params, ServeEngine, Request)
         print(f"split [{card}] {arch}: {json.dumps(prof['split'])}")
         print_trace(card, f"trace {arch}", prof["trace"])
-    plain = compare_plain_paths(torch, cfg, params, MD, reqs)
+    plain = compare_plain_paths(torch, cfg, params, MD, SS, reqs)
     print(f"kernel vs plain path [{card}] {arch}: {json.dumps(plain)}")
+    tight = None
+    if cfg.arch_type == "hybrid":
+        tight = serve_tight(torch, cfg, params, ops, ServeEngine, Request,
+                            fins)
+        ts = tight["stats"]
+        print(f"serve tight pool [{card}]: {arch} {TIGHT_PAGES} pages: "
+              f"{ts['generated_tokens']} tokens in {ts['wall_s']:.2f} s = "
+              f"{ts['tok_s']:.1f} tok/s, admits={ts['prefill_ticks']} "
+              f"preemptions={ts['preemptions']} re-admit prefills "
+              f"{tight['readmit_lens']}, tokens equal to the ample run's "
+              f"{tight['same_token_share']:.3f}, "
+              f"launches={tight['launches']}")
     del params
     torch.cuda.empty_cache()
     return {"arch": arch, "params": total, "launches": launches,
             "stats": dict(st, wall_s=wall, tok_s=tps), "profile": prof,
-            "plain_paths": plain}
+            "plain_paths": plain, "tight_pool": tight}
 
 
 def main(argv=None) -> int:
@@ -1078,8 +1179,8 @@ def main(argv=None) -> int:
               f"(below 2^-69: {r['below_range']}, at or above 2^57: "
               f"{r['above_range']}): codes and values bit-identical")
 
-    paths = [serve_path(torch, card, arch, ops, MD, ServeEngine, Request,
-                        args.profile)                           # phase 4
+    paths = [serve_path(torch, card, arch, ops, MD, SS, ServeEngine,
+                        Request, args.profile)                  # phase 4
              for arch in (ARCH, HYBRID)]
 
     mid = [PLEN[0] + (PLEN[1] + GEN[1] - PLEN[0]) * i // SLOTS
@@ -1130,6 +1231,8 @@ def main(argv=None) -> int:
 
     # launches by path: each counted from zero over its own main-path run
     by_path = {f"{p['arch']} serve": p["launches"] for p in paths}
+    by_path.update({f"{p['arch']} serve, tight pool": p["tight_pool"]
+                    ["launches"] for p in paths if p["tight_pool"]})
     by_path[f"{ARCH} train"] = {n: tr["launches"][n]
                                 for n in ("nc_pack", "nc_unpack")}
     timing.update(nc_pack=nc_t["embed"]["nc_pack"],

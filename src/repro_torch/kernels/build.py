@@ -1,8 +1,9 @@
 """Build the CUDA kernels under ``csrc/`` and load them with ctypes.
 
-Each ``csrc/<name>.cu`` exports a plain C interface and is compiled on
-first use by ``nvcc`` for ``sm_90a`` into a shared library under
-``build/repro_torch/`` at the repository root (listed in ``.gitignore``).
+Each ``csrc/<name>.cu`` (with the ``csrc/*.cuh`` headers it includes)
+exports a plain C interface and is compiled on first use by ``nvcc`` for
+``sm_90a`` into a shared library under ``build/repro_torch/`` at the
+repository root (listed in ``.gitignore``).
 The library's file name carries a hash of its source, so an edited
 source is rebuilt and a stale build is never loaded.  Nothing here runs
 at import time: the CPU tests import every module of the port.
@@ -35,8 +36,9 @@ SIGNATURES = {
                          _I, _I, _I, _F, _I, _P]},
     "nat_compress": {"nc_pack_fwd": [_P, _P, _P, _L, _I, _P],
                      "nc_unpack_fwd": [_P, _P, _L, _I, _P]},
-    "ssd_scan": {"ssd_scan_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                  _I, _I, _I, _P]},
+    "ssd_scan": {"ssd_scan_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                  _I, _I, _I, _I, _P],
+                 "ssd_scan_tile": [_I, _I, _I, _I]},
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -54,7 +56,9 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    # the shared headers count too: a source includes any of them
+    src = b"".join(p.read_bytes() for p in
+                   [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))])
     tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{tag[:16]}.so"
 

@@ -82,8 +82,9 @@ paged_attention.launches = 0
 def ssd_scan(xe: torch.Tensor, loga: torch.Tensor, b: torch.Tensor,
              c: torch.Tensor, *, chunk: int = 128):
     """Mamba2 SSD chunk scan.  xe (B,S,H,P) dt-scaled input; loga (B,S,H)
-    float32 log decay; b, c (B,S,N).  Q = min(chunk, S) must divide S.
-    Returns (y (B,S,H,P), final state (B,H,N,P)), both float32."""
+    float32 log decay; b, c (B,S,N).  Q = min(chunk, S); any S (a ragged
+    last chunk is exact, where the JAX package asserts).  Returns
+    (y (B,S,H,P), final state (B,H,N,P)), both float32."""
     _refuse_autograd("ssd_scan", xe, loga, b, c)
     if not xe.is_cuda:
         return _ref.ssd_scan_ref(xe, loga, b, c, chunk)

@@ -17,6 +17,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 
@@ -93,12 +94,13 @@ def ssd_ref(xe: torch.Tensor, loga: torch.Tensor, b: torch.Tensor,
 
 
 def ssd_chunk_len(S: int, chunk: int) -> int:
-    """The chunk length Q = min(chunk, S) that the scan tiles S into; S
-    must be a whole number of chunks, as the JAX package asserts."""
+    """The chunk length Q = min(chunk, S) that the scan tiles S into.  S
+    need not be a whole number of chunks: the last chunk is ragged (the
+    JAX package asserts here; the port pads that chunk exactly)."""
     Q = min(chunk, S)
-    if Q < 1 or S % Q:
-        raise ValueError(f"SSD scan: sequence length {S} is not a multiple "
-                         f"of ssm_chunk {chunk} (nor shorter than it)")
+    if Q < 1:
+        raise ValueError(f"SSD scan: sequence length {S} or chunk {chunk} "
+                         f"below 1")
     return Q
 
 
@@ -107,12 +109,17 @@ def ssd_scan_ref(xe: torch.Tensor, loga: torch.Tensor, b: torch.Tensor,
     """The SSD chunk scan, the kernel's plain version: the same contract as
     the CUDA kernel and the Pallas one, without the ``D * x`` skip term.
 
-    xe (B,S,H,P); loga (B,S,H); b, c (B,S,N); Q = min(chunk, S), S % Q
-    refused.  Within a chunk, y = (tril(exp(L_s - L_t)) * (c b^T)) xe with
-    L the cumulative log decay; across chunks an (N,P) fp32 state carries
-    over and adds exp(L_s) * c_s . S_prev.  The exponential is taken only
+    xe (B,S,H,P); loga (B,S,H); b, c (B,S,N); Q = min(chunk, S), any S.
+    Within a chunk, y = (tril(exp(L_s - L_t)) * (c b^T)) xe with L the
+    cumulative log decay; across chunks an (N,P) fp32 state carries over
+    and adds exp(L_s) * c_s . S_prev.  The exponential is taken only
     where t <= s (above the diagonal L_s - L_t > 0 and may overflow), so
     the masked entries are exact zeros with zero gradients.
+
+    A ragged last chunk is padded up to Q with xe = b = c = 0 and
+    loga = 0, which is exact where the JAX package asserts: each padded
+    step multiplies the state by exp(0) = 1 and adds 0 (x) 0, and a real
+    row s sees only t <= s.  The padded rows of y are dropped.
 
     L is summed in float64, as in the CUDA kernel, where the JAX package
     sums it in fp32: at strong decay L reaches ~-100 within a chunk, where
@@ -124,11 +131,15 @@ def ssd_scan_ref(xe: torch.Tensor, loga: torch.Tensor, b: torch.Tensor,
     B, S, H, P = xe.shape
     N = b.shape[-1]
     Q = ssd_chunk_len(S, chunk)
-    nc = S // Q
-    xc = xe.float().reshape(B, nc, Q, H, P)
-    bc = b.float().reshape(B, nc, Q, N)
-    cc = c.float().reshape(B, nc, Q, N)
-    L = loga.double().reshape(B, nc, Q, H).cumsum(2)  # cumulative log decay
+    nc = -(-S // Q)
+    pad = nc * Q - S                                  # the ragged chunk's
+
+    def padded(t):
+        return F.pad(t, (0, 0) * (t.dim() - 2) + (0, pad))
+    xc = padded(xe.float()).reshape(B, nc, Q, H, P)
+    bc = padded(b.float()).reshape(B, nc, Q, N)
+    cc = padded(c.float()).reshape(B, nc, Q, N)
+    L = padded(loga.double()).reshape(B, nc, Q, H).cumsum(2)  # log decay
     diff = L[:, :, :, None] - L[:, :, None]           # (B,nc,Q,Q,H) [s, t]
     causal = torch.ones(Q, Q, dtype=torch.bool, device=xe.device).tril()
     att = diff.masked_fill(~causal[:, :, None], float("-inf")).float().exp()
@@ -147,7 +158,8 @@ def ssd_scan_ref(xe: torch.Tensor, loga: torch.Tensor, b: torch.Tensor,
     # across chunks: y_t += exp(L_t) c_t . S_prev
     y = y + torch.einsum("bcqn,bchnp->bcqhp", cc,
                          torch.stack(prev, 1)) * L.float().exp()[..., None]
-    return y.reshape(B, S, H, P), carry
+    y = y.reshape(B, nc * Q, H, P)
+    return (y[:, :S].contiguous() if pad else y), carry
 
 
 # ---------------------------------------------------------------------------

@@ -12,8 +12,8 @@ the moment its request retires.
 Runs on the CUDA card (the attention kernels, and for the hybrid family
 the SSD scan kernel, on) unless --device cpu, where the kernel wrappers
 take their plain PyTorch versions.  The hybrid family (--arch zamba2-1.2b)
-prefills only prompts shorter than its ssm_chunk or a multiple of it, as
-the JAX package: other lengths are refused before any work.
+prefills any prompt length: its chunked scan takes a ragged last chunk,
+where the JAX package asserts a whole number of chunks.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --batch 4 \
@@ -174,9 +174,6 @@ def _serve(args) -> dict:
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda: no CUDA device available")
     cfg = get_config(args.arch, smoke=args.smoke)
-    for S in (_stream_lens(args)[0] if args.continuous else
-              [args.prompt_len]):
-        MD.check_prompt_len(cfg, S)
     if device.type == "cuda":
         cfg = cfg.with_(use_flash_kernel=True, use_paged_kernel=True,
                         use_ssd_kernel=True)

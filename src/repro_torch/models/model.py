@@ -129,16 +129,6 @@ def _hybrid_layer(lp, shared, x, positions, cfg, with_shared: bool):
     return _block(shared, x, positions, cfg) if with_shared else x
 
 
-def check_prompt_len(cfg: ModelConfig, S: int) -> None:
-    """Raise before any work for a prefill length the model refuses: the
-    hybrid family's chunked scan takes S < ssm_chunk or a multiple of it
-    (the JAX package asserts the same; padding would change the state)."""
-    if cfg.arch_type == "hybrid" and S > cfg.ssm_chunk and S % cfg.ssm_chunk:
-        raise ValueError(f"prompt length {S}: the hybrid prefill needs a "
-                         f"length below ssm_chunk {cfg.ssm_chunk} or a "
-                         f"multiple of it")
-
-
 def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *,
             extra_embeds=None, return_cache: bool = False,
             cache_len: Optional[int] = None):

@@ -66,10 +66,10 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A_log: torch.Tensor,
     """SSD core.  x: (B,S,H,P); dt: (B,S,H) (post-softplus, fp32); b, c:
     (B,S,N).  The chunk scan runs through ``ops.ssd_scan`` when
     ``use_kernel`` (no autograd there) and its plain version otherwise;
-    then ``+ D * x``.  A sequence that is not a whole number of chunks
-    raises a ValueError naming ``ssm_chunk``, where the JAX package
-    asserts.  Returns y (B,S,H,P) in x.dtype and the final state
-    (B,H,N,P) fp32."""
+    then ``+ D * x``.  Any S: the last chunk may be ragged, where the JAX
+    package asserts a whole number of chunks; the scan pads it exactly
+    (zero inputs, zero log decay).  Returns y (B,S,H,P) in x.dtype and the
+    final state (B,H,N,P) fp32."""
     loga = (-dt * A_log.exp()[None, None]).float()   # (B,S,H)
     xe = (x * dt[..., None]).to(x.dtype)               # dt-scaled input
     if use_kernel:

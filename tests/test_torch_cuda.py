@@ -11,6 +11,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import flash_attention as FA  # noqa: E402
 from repro_torch.kernels import nat_compress as NC  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
@@ -66,7 +67,8 @@ PA_SPLIT_SHAPES = [
 ]
 SSD_SHAPES = [
     # B, S, H, P, N, chunk: tests/test_kernels.py's, then zamba2-1.2b's
-    # prefill, a short prompt (S < chunk) and SMOKE's chunk
+    # prefill, a short prompt (S < chunk), SMOKE's chunk, and ragged last
+    # chunks (a preempted request's re-prefill)
     (2, 256, 4, 64, 64, 128),
     (1, 128, 2, 32, 16, 64),
     (2, 512, 3, 64, 64, 128),
@@ -75,6 +77,9 @@ SSD_SHAPES = [
     (1, 512, 64, 64, 64, 128),
     (2, 40, 4, 16, 128, 128),
     (1, 96, 4, 64, 64, 32),
+    (1, 500, 64, 64, 64, 128),
+    (2, 130, 4, 64, 64, 128),
+    (1, 17, 2, 16, 16, 32),
 ]
 SSD_TOL = 1e-4
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -246,6 +251,35 @@ def test_ssd_kernel_matches_plain(B, S, H, P, N, chunk, dtype):
     assert y.dtype == fin.dtype == torch.float32
     torch.testing.assert_close(y, yr, rtol=SSD_TOL, atol=SSD_TOL)
     torch.testing.assert_close(fin, fr, rtol=SSD_TOL, atol=SSD_TOL)
+    y2, fin2 = SS.ssd_scan(*args, chunk=chunk)   # no atomics: bit-identical
+    assert torch.equal(y, y2) and torch.equal(fin, fin2)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_kernel_tile(dtype):
+    """The kernel picks its own tile: the requested chunk up to 128,
+    halved only where a pass's shared memory would pass the H100's 227 KB
+    (fp32 inputs take three bf16 planes).  At P = N = 128 fp32 inputs scan
+    in tiles of 32, and the result is the scan of the requested chunk."""
+    _cuda()
+    lib = build.load("ssd_scan")
+    code = SS._DTYPES[getattr(torch, dtype)]
+    fp32 = dtype == "float32"
+    assert lib.ssd_scan_tile(40, 16, 128, code) == 40
+    assert lib.ssd_scan_tile(256, 64, 64, code) == 128
+    assert lib.ssd_scan_tile(256, 128, 128, code) == (32 if fp32 else 128)
+    assert lib.ssd_scan_tile(257, 64, 64, code) == 0
+    assert lib.ssd_scan_tile(128, 64, 48, code) == 0
+    for Q in (1, 17, 40, 64, 128, 256):
+        for N in SS.WIDTHS:
+            for P in SS.WIDTHS:
+                assert 1 <= lib.ssd_scan_tile(Q, P, N, code) <= min(Q, 128)
+    args = _ssd_case(1, 300, 2, 128, 128, getattr(torch, dtype), seed=7)
+    y, fin = SS.ssd_scan(*args, chunk=256)
+    torch.cuda.synchronize()
+    yr, fr = SS.reference(*args, 256)
+    torch.testing.assert_close(y, yr, rtol=SSD_TOL, atol=SSD_TOL)
+    torch.testing.assert_close(fin, fr, rtol=SSD_TOL, atol=SSD_TOL)
 
 
 def _ssd_f64(xe, loga, b, c):
@@ -261,13 +295,15 @@ def _ssd_f64(xe, loga, b, c):
     return torch.stack(ys, 1), state
 
 
-def test_ssd_kernel_strong_decay_is_finite():
+@pytest.mark.parametrize("S", [512, 500])
+def test_ssd_kernel_strong_decay_is_finite(S):
     """loga ~ -0.8 a step, as zamba2's random weights give: L falls to about
     -120 over a 128-step chunk, where exp(L_s - L_t) above the diagonal is
     inf in fp32.  The kernel never takes it there: no NaN, no inf; and it
-    holds to its plain version and to the float64 recurrence."""
+    holds to its plain version and to the float64 recurrence, also with a
+    ragged last chunk (S 500)."""
     _cuda()
-    xe, loga, b, c = _ssd_case(1, 512, 64, 64, 64, torch.bfloat16, seed=3,
+    xe, loga, b, c = _ssd_case(1, S, 64, 64, 64, torch.bfloat16, seed=3,
                                decay=0.2)
     loga = loga - 0.8
     y, fin = SS.ssd_scan(xe, loga, b, c, chunk=128)
@@ -292,8 +328,10 @@ def test_ssd_kernel_matches_sequential_oracle():
 
 def test_ssd_kernel_refuses_what_it_does_not_take():
     """The wrapper raises before a launch on shapes the kernel does not
-    take; a launch the kernel itself refuses (a chunk above 256) raises
-    with the CUDA error, and nothing is counted."""
+    take; a bare launch at a chunk the kernel refuses (above 256: its
+    `ssd_scan_tile` gives 0) raises, and nothing is counted.  S 500,
+    which the JAX package refuses at chunk 128, runs (a ragged last
+    chunk)."""
     _cuda()
     ops.reset_launches()
     xe, loga, b, c = _ssd_case(1, 512, 2, 64, 48, torch.float32)
@@ -302,14 +340,16 @@ def test_ssd_kernel_refuses_what_it_does_not_take():
     xe, loga, b, c = _ssd_case(1, 512, 2, 64, 64, torch.float32)
     with pytest.raises(ValueError, match="chunk 512"):
         ops.ssd_scan(xe, loga, b, c, chunk=512)
-    with pytest.raises(ValueError, match="ssm_chunk"):
-        ops.ssd_scan(xe[:, :500].contiguous(), loga[:, :500].contiguous(),
-                     b[:, :500].contiguous(), c[:, :500].contiguous())
+    ragged = [t[:, :500].contiguous() for t in (xe, loga, b, c)]
+    y, fin = SS.ssd_scan(*ragged)      # S 500: a ragged last chunk, taken
+    yr, fr = SS.reference(*ragged)
+    torch.testing.assert_close(y, yr, rtol=SSD_TOL, atol=SSD_TOL)
+    torch.testing.assert_close(fin, fr, rtol=SSD_TOL, atol=SSD_TOL)
     with pytest.raises(ValueError, match="dtype"):
         ops.ssd_scan(xe, loga, b.bfloat16(), c)
     y = torch.empty_like(xe)
     fin = torch.empty(1, 2, 64, 64, device="cuda")
-    with pytest.raises(RuntimeError, match="CUDA error"):
+    with pytest.raises(RuntimeError, match="kernel refuses chunk 512"):
         SS.launch(xe, loga, b, c, y, fin, 512)
     assert ops.ssd_scan.launches == 0
 

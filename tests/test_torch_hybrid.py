@@ -311,19 +311,27 @@ def test_kernel_flags_refuse_autograd():
 
 def test_prompt_length_rule_matches_jax():
     """A prefill that is neither shorter than ssm_chunk nor a multiple of
-    it: JAX asserts, the port raises a ValueError naming ssm_chunk."""
+    it (40 tokens, chunk 32): JAX's forward asserts, the port scans the
+    ragged last chunk.  The oracle is JAX's forward on the first 32 tokens
+    and then decode_step for each of the other 8: last-position logits,
+    every layer's SSM state and conv ring, and the shared block's K/V."""
     jcfg, tcfg = _configs()
     jp, tp = _params(jcfg)
-    toks = _tokens(jcfg.vocab_size, seed=9, n=40)     # chunk 32
+    n, whole, C = 40, 32, 48
+    toks = _tokens(jcfg.vocab_size, seed=9, n=n)
     with pytest.raises(AssertionError):
         JMD.forward(jp, jcfg, jnp.asarray(toks))
-    with pytest.raises(ValueError, match="ssm_chunk"):
-        TMD.forward(tp, tcfg, torch.from_numpy(toks))
-    with pytest.raises(ValueError, match="ssm_chunk"):
-        TMD.check_prompt_len(tcfg, 40)
-    for ok in (31, 32, 64):
-        TMD.check_prompt_len(tcfg, ok)
-    TMD.check_prompt_len(torch_get_config("qwen3-0.6b", smoke=True), 40)
+    jl, _, jc = JMD.forward(jp, jcfg, jnp.asarray(toks[:, :whole]),
+                            return_cache=True, cache_len=C)
+    for t in range(whole, n):
+        jl, jc = JMD.decode_step(jp, jcfg, jnp.asarray(toks[:, t:t + 1]),
+                                 jnp.int32(t), jc)
+    with torch.no_grad():
+        tl, _, tc = TMD.forward(tp, tcfg, torch.from_numpy(toks),
+                                return_cache=True, cache_len=C)
+    np.testing.assert_allclose(tl[:, -1].numpy(), np.asarray(jl)[:, -1],
+                               **TOL)
+    _assert_cache_close(tc, jc)
 
 
 def test_cache_builders_match_jax_layout():

@@ -200,13 +200,31 @@ def test_ssd_plain_short_sequence_is_one_chunk():
 
 
 def test_ssd_refuses_partial_chunks_where_jax_asserts():
+    """S 96 at chunk 64: the Pallas kernel asserts a whole number of
+    chunks; the port scans the ragged last chunk (32 rows), plain and
+    through the wrapper, and matches JAX's sequential oracle."""
     args = _ssd_inputs(1, 96, 1, 16, 16)
     with pytest.raises(AssertionError):
         jax_ssd(*[jnp.asarray(a) for a in args], chunk=64, interpret=True)
-    with pytest.raises(ValueError, match="ssm_chunk"):
-        TR.ssd_scan_ref(*_t(*args), 64)
-    with pytest.raises(ValueError, match="ssm_chunk"):
-        ops.ssd_scan(*_t(*args), chunk=64)
+    ry, rf = JR.ssd_ref(*[jnp.asarray(a) for a in args])
+    for y, fin in (TR.ssd_scan_ref(*_t(*args), 64),
+                   ops.ssd_scan(*_t(*args), chunk=64)):
+        np.testing.assert_allclose(y.numpy(), np.asarray(ry), **SSD_TOL)
+        np.testing.assert_allclose(fin.numpy(), np.asarray(rf), **SSD_TOL)
+
+
+@pytest.mark.parametrize("S", [33, 47, 95, 130])
+@pytest.mark.parametrize("chunk", [32, 64])
+def test_ssd_plain_ragged_last_chunk_matches_jax_oracle(S, chunk):
+    """Any S: the last chunk is S - (nc-1) Q rows, padded exactly (zero
+    inputs, zero log decay); y's real rows and the final state match
+    JAX's sequential recurrence `ref.ssd_ref`, which takes any S."""
+    args = _ssd_inputs(2, S, 3, 16, 32, seed=S, decay=0.3)
+    y, fin = TR.ssd_scan_ref(*_t(*args), chunk)
+    ry, rf = JR.ssd_ref(*[jnp.asarray(a) for a in args])
+    assert tuple(y.shape) == (2, S, 3, 16)
+    np.testing.assert_allclose(y.numpy(), np.asarray(ry), **SSD_TOL)
+    np.testing.assert_allclose(fin.numpy(), np.asarray(rf), **SSD_TOL)
 
 
 def test_ssd_plain_strong_decay_is_finite():

@@ -286,12 +286,58 @@ def test_serve_launcher_hybrid_on_cpu(mode):
 
 @pytest.mark.parametrize("mode", [[], ["--continuous"]],
                          ids=["static", "continuous"])
-def test_serve_launcher_refuses_partial_chunks(mode, monkeypatch):
-    """Prompts that the hybrid prefill cannot take (SMOKE's ssm_chunk is
-    32; the continuous stream also draws 3/4 of --prompt-len = 48) are
-    refused before the weights are made."""
-    from repro_torch.launch import serve as SV
-    monkeypatch.setattr(SV.MD, "init_model", None)
-    with pytest.raises(ValueError, match="ssm_chunk"):
-        SV.serve(["--arch", "zamba2-1.2b", "--smoke", "--device", "cpu",
-                  "--prompt-len", "40" if not mode else "64", *mode])
+def test_serve_launcher_refuses_partial_chunks(mode):
+    """Prompts that are not a whole number of SMOKE's ssm_chunk (32): the
+    JAX package asserts on them, the port's hybrid prefill scans a ragged
+    last chunk, so the launcher serves them (40 tokens static; the
+    continuous stream draws 32, 48 and 64)."""
+    from repro_torch.launch.serve import serve
+    out = serve(["--arch", "zamba2-1.2b", "--smoke", "--device", "cpu",
+                 "--batch", "2", "--gen", "3", "--requests", "3",
+                 "--prompt-len", "40" if not mode else "64", *mode])
+    if not mode:
+        assert out["generated"].shape == (2, 3)
+        return
+    fins = out["finished"]
+    assert [f.rid for f in fins] == [0, 1, 2]
+    assert all(f.finish_reason == "length" and f.tokens for f in fins)
+    assert out["stats"]["generated_tokens"] == sum(len(f.tokens)
+                                                   for f in fins)
+
+
+def test_hybrid_tight_pool_readmits_ragged_prefills():
+    """zamba2-1.2b SMOKE prompts of whole chunks (32 and 64 tokens) on a
+    pool too small for every slot: preempted requests re-prefill
+    prompt + emitted, a length off the chunk rule that JAX's prefill
+    asserts on.  The port's greedy streams equal the JAX engine's on an
+    ample pool, and each request's alone (every token winning its argmax
+    by more than GAP)."""
+    from repro.configs import get_config as jax_get_config
+    from repro_torch.configs import get_config as torch_get_config
+    jcfg = jax_get_config("zamba2-1.2b", smoke=True)
+    tcfg = torch_get_config("zamba2-1.2b", smoke=True)
+    jp, tp = TP.params(jcfg)
+    reqs = _stream(seed=8, n=5, plens=[32, 64], gens=[10, 14],
+                   vocab=jcfg.vocab_size)
+    kw = dict(num_slots=3, cache_len=80, page_size=8)
+    jfin = {f.rid: f for f in JEngine(jp, jcfg, **kw).run(
+        [JRequest(rid=i, prompt=p, max_new_tokens=g) for i, p, g in reqs])}
+    teng = ServeEngine(tp, tcfg, device="cpu", num_pages=10, **kw)
+    lens = []
+    admit = teng.program.admit
+
+    def recording(params, prompt, *a, **k):
+        lens.append(int(prompt.shape[1]))
+        return admit(params, prompt, *a, **k)
+    teng.program.admit = recording
+    tfin = teng.run([Request(rid=i, prompt=p, max_new_tokens=g)
+                     for i, p, g in reqs])
+    assert teng.stats()["preemptions"] >= 1
+    assert any(n % tcfg.ssm_chunk for n in lens), lens
+    assert [f.rid for f in tfin] == sorted(jfin)
+    for f, (i, p, g) in zip(tfin, reqs):
+        assert len(f.tokens) == g
+        assert f.tokens == jfin[i].tokens, f"rid {i}"
+        ref, gap = _greedy_with_gaps(tp, tcfg, p, g, kw["cache_len"])
+        assert f.tokens == ref, f"rid {i}"
+        assert gap > GAP, f"rid {i}: top-2 gap {gap} too close to call"

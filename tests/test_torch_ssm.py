@@ -96,12 +96,42 @@ def test_ssd_chunked_matches_jax(S, chunk, use_kernel):
     np.testing.assert_allclose(tf.numpy(), np.asarray(jf), **CHUNKED_TOL)
 
 
+def _ssd_chunked_oracle(x, dt, A_log, b, c, D):
+    """JAX's sequential recurrence `ref.ssd_ref` on the same dt-scaled
+    input, plus D * x: the oracle for any S."""
+    from repro.kernels import ref as JR
+    loga = -dt * np.exp(A_log)[None, None]
+    xe = x * dt[..., None]
+    y, fin = JR.ssd_ref(*map(jnp.asarray, (xe, loga, b, c)))
+    return np.asarray(y) + D[None, None, :, None] * x, np.asarray(fin)
+
+
 def test_ssd_chunked_refuses_partial_chunks_where_jax_asserts():
+    """S 48 at chunk 32: JAX asserts; the port scans the ragged last
+    chunk and matches the sequential oracle."""
     args = _ssd_inputs(1, 48, 1, 16, 16)
     with pytest.raises(AssertionError):
         JSSM.ssd_chunked(*map(jnp.asarray, args), 32)
-    with pytest.raises(ValueError, match="ssm_chunk"):
-        TSSM.ssd_chunked(*map(torch.from_numpy, args), 32)
+    ty, tf = TSSM.ssd_chunked(*map(torch.from_numpy, args), 32)
+    ry, rf = _ssd_chunked_oracle(*args)
+    np.testing.assert_allclose(ty.numpy(), ry, **TOL)
+    np.testing.assert_allclose(tf.numpy(), rf, **TOL)
+
+
+@pytest.mark.parametrize("use_kernel", [False, True])
+@pytest.mark.parametrize("S", [33, 47, 95, 130])
+def test_ssd_chunked_ragged_matches_jax_oracle(S, use_kernel):
+    """Ragged last chunks (SMOKE's chunk 32) against JAX's `ref.ssd_ref`
+    plus D * x; through the kernel wrapper the CPU path is the plain
+    version and launches nothing."""
+    args = _ssd_inputs(2, S, 3, 16, 32, seed=S)
+    ops.reset_launches()
+    ty, tf = TSSM.ssd_chunked(*map(torch.from_numpy, args), 32,
+                              use_kernel=use_kernel)
+    assert ops.ssd_scan.launches == 0
+    ry, rf = _ssd_chunked_oracle(*args)
+    np.testing.assert_allclose(ty.numpy(), ry, **TOL)
+    np.testing.assert_allclose(tf.numpy(), rf, **TOL)
 
 
 @pytest.mark.parametrize("S", [8, 64])
