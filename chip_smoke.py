@@ -17,7 +17,8 @@ Phases (each raises on failure, and then no result is printed):
      positions at the edges of its planned splits (and a row at pos -1,
      which must emit 0), every group and page size, stale pages poisoned
      (the output must not change by a bit) and each call twice (the two
-     outputs must be bit-identical); the SSD scan in fp32 and bf16 (1e-4: both
+     outputs must be bit-identical), and at the verify shape (8 table rows,
+     each repeated for 4 candidate rows); the SSD scan in fp32 and bf16 (1e-4: both
      compute in fp32) at the JAX package's test shapes and zamba2's
      prefill, a prompt shorter than the chunk, ragged last chunks (S 500,
      130, 17), strong decay at S 512 and 500 that must stay finite and
@@ -43,12 +44,30 @@ Phases (each raises on failure, and then no result is printed):
      preemption, a re-admit whose prefill is not a whole number of
      chunks, every request finished with its full budget, the launch
      counts exact;
+  4b. serve qwen3-1.7b at full width (28 layers, d_model 2048, bf16) on
+     the same stream three times: the plain paged engine, the
+     speculative engine with the n-gram lookup draft (k 3), and with
+     qwen3-0.6b drafting (k 3, its weights from another seed); launch
+     counts exact (an admit: 28 flash, and 28 more for the model draft's
+     prefill; a verify round: 28 paged; the draft's dense decode scan:
+     none), every emitted token a near-argmax of a teacher-forced plain
+     forward of the target over prompt + emitted (within 5e-2 x max(1,
+     max|logit|) of its row's maximum); the share of tokens equal to the
+     plain run's reported, not gated; then qwen3-0.6b drafting for itself
+     on 4 requests, with at least one round that accepts all k.  Then
+     qwen3-0.6b and zamba2-1.2b each serve phase 4's stream, drained after
+     11 ticks, the requests re-admitted through ServingDrainReadmit onto
+     a second engine: every harvested page and row read back bit-equal
+     after its install, migrated_admits equal to the harvested count, no
+     prefill of a harvested prefix, every request at its full budget,
+     launch counts exact (no flash, no ssd_scan for a migrated admit);
   5. time each kernel beside its plain version, one PyTorch library call
      where one computes the same function (timed only, never used by the
      port) and its bound, the attention kernels at both serve paths'
-     shapes: card time from CUDA-graph replays (`device_ms`: these
-     kernels take less time than the host needs to issue them), and the
-     eager call time beside it;
+     shapes, and the paged kernel at the verify shape (8 slots x 4
+     candidate rows of qwen3-1.7b): card time from CUDA-graph replays
+     (`device_ms`: these kernels take less time than the host needs to
+     issue them), and the eager call time beside it;
   6. train qwen3-0.6b at full width (28 layers, bf16, block remat, AdamW,
      warmup-cosine, natural-compressed gradients, the synthetic bigram
      pipeline) at batch 2 x seq 4096: one warm-up step, then timed steps
@@ -101,6 +120,12 @@ LOGIT_TOL = 5e-2
 
 ARCH = "qwen3-0.6b"
 HYBRID = "zamba2-1.2b"
+# phase 4b: qwen3-0.6b drafting for qwen3-1.7b (the JAX package's zoo
+# pairing), the draft's weights from another seed
+TARGET, DRAFT_SEED, SPEC_K = "qwen3-1.7b", 7, 3
+SELF_DRAFT_REQUESTS = 4
+# drain after 8 admits and 3 decode chunks: every slot has emitted
+DRAIN_TICKS = 11
 SLOTS, REQUESTS, PAGE = 8, 16, 16
 PLEN, GEN = (256, 512), (32, 128)
 # zamba2's tight pool: half the pages of 8 slots at full length (40 each)
@@ -198,6 +223,11 @@ def max_err(out, ref) -> float:
     return float((out.float() - ref.float()).abs().max())
 
 
+def bits(torch, t):
+    """t's bits as integers: equal bits, not equal values (-0.0 != 0.0)."""
+    return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+
 def check_close(name, out, ref, tol) -> float:
     import torch
     err = (out.float() - ref.float()).abs()
@@ -257,6 +287,29 @@ def paged_case(B, Np, P, n_max, Hq, Hk, dh, dtype, seed, pos=None):
     kp2[stale.cuda()] = 1e9
     vp2[stale.cuda()] = -1e9
     return (q, kp2, vp2, ids.cuda(), pos.cuda()), (kp, vp)
+
+
+def verify_paged_case(PA, dtype, seed, slots=SLOTS, S=SPEC_K + 1, P=PAGE,
+                      n_max=40, heads=(16, 8, 128)):
+    """The paged kernel as attention_verify launches it: `slots` table
+    rows on scrambled disjoint pages, each repeated for its S candidate
+    rows at positions pos[b] + i, the slots' positions at the edges of
+    the splits planned for slots * S rows; pages outside the live
+    prefixes poisoned.  Returns the inputs and the clean pools."""
+    import torch
+    Hq, Hk, dh = heads
+    _, span = PA.plan_splits(slots * S, Hk, n_max, P)
+    w, last = span * P, n_max * P - S
+    base = [0, w - 3, w - 1, w, w + 1, last, 100, last // 2][:slots]
+    args, pools = paged_case(slots, slots * n_max + 1, P, n_max, Hq, Hk, dh,
+                             dtype, seed, pos=torch.tensor(
+                                 [p + S - 1 for p in base], dtype=torch.int32))
+    q, kp, vp, bt, _ = args
+    g = torch.Generator(device="cuda").manual_seed(seed + 2)
+    qv = torch.randn(slots * S, Hq, dh, generator=g, device="cuda").to(dtype)
+    pos = (torch.tensor(base, dtype=torch.int32, device="cuda")[:, None]
+           + torch.arange(S, dtype=torch.int32, device="cuda")).reshape(-1)
+    return (qv, kp, vp, bt.repeat_interleave(S, dim=0), pos), pools
 
 
 def split_positions(PA, B, Hk, n_max, P):
@@ -342,6 +395,16 @@ def check_kernels(torch, FA, PA, rows):
                 key = ("paged_attention" if i == 0
                        else f"paged_attention@{HYBRID}")
                 errs[key] = max(errs[key], e)
+        # the verify shape: 8 slots x S 4 candidate rows (qwen3-1.7b)
+        args, pools = verify_paged_case(PA, dt, seed=30)
+        n_splits, _ = PA.plan_splits(args[0].shape[0], 8, 40, PAGE)
+        e = check_paged(torch, PA, f"paged verify {dtype} splits={n_splits} "
+                        f"pos={args[4].tolist()}", args, pools, TOL[dtype])
+        rows.append(["paged_attention", dtype, tuple(args[0].shape),
+                     f"verify, {SLOTS} slots x S {SPEC_K + 1}, "
+                     f"splits={n_splits}", e])
+        if dtype == "bfloat16":
+            errs["paged_attention@verify"] = e
     return errs
 
 
@@ -511,6 +574,26 @@ def check_nc(torch, NC, rows):
 # ---------------------------------------------------------------------------
 # phase 4: serve at full width
 # ---------------------------------------------------------------------------
+def kernel_cfg(arch):
+    """The arch at full width, bf16, with every kernel flag on."""
+    from repro_torch.configs import get_config
+    return get_config(arch).with_(use_flash_kernel=True,
+                                  use_paged_kernel=True, use_ssd_kernel=True)
+
+
+def plain_cfg(cfg):
+    """The same model with every kernel flag off: the plain versions."""
+    return cfg.with_(use_flash_kernel=False, use_paged_kernel=False,
+                     use_ssd_kernel=False)
+
+
+def same_share(fins, ref):
+    """Share of `ref`'s tokens that `fins` emits at the same place."""
+    same = sum(a == b for f, g in zip(fins, ref)
+               for a, b in zip(f.tokens, g.tokens))
+    return same / sum(len(f.tokens) for f in ref)
+
+
 def make_requests(cfg, Request):
     """REQUESTS requests, seed 0: prompts of 257-512 tokens, budgets
     33-128."""
@@ -538,14 +621,18 @@ def path_layers(cfg):
     return cfg.num_layers, 0
 
 
-def serve(torch, cfg, params, ops, ServeEngine, Request, num_pages=None):
+def serve(torch, cfg, params, ops, ServeEngine, Request, num_pages=None,
+          engine=None, draft_layers=0, n_requests=REQUESTS):
     """One warm run of the requests through a fresh paged engine
-    (`num_pages` pages, default every slot at full length), the launch
-    counters zeroed just before and read just after.  Returns the
-    requests, the finished ones, the launches, the engine's stats, the
-    wall time and the prefill lengths of every admit by request id."""
-    reqs = make_requests(cfg, Request)
-    eng = make_engine(cfg, params, ServeEngine, num_pages)
+    (`num_pages` pages, default every slot at full length; or the one
+    `engine()` builds), the launch counters zeroed just before and read
+    just after.  A model draft's prefill adds `draft_layers` flash
+    launches to every admit.  Returns the requests, the finished ones, the
+    launches, the engine's stats, the wall time and the prefill lengths
+    of every admit by request id."""
+    reqs = make_requests(cfg, Request)[:n_requests]
+    eng = (engine() if engine else
+           make_engine(cfg, params, ServeEngine, num_pages))
     # warm-up: one short batch over every slot, then a fresh pool
     eng.run([Request(rid=r.rid, prompt=r.prompt, max_new_tokens=WARMUP_GEN)
              for r in reqs[:SLOTS]])
@@ -575,7 +662,7 @@ def serve(torch, cfg, params, ops, ServeEngine, Request, num_pages=None):
             fail(f"request {r.rid}: token out of the vocabulary")
     st = eng.stats()
     attn, ssm = path_layers(cfg)
-    want = {"flash_attention": attn * st["prefill_ticks"],
+    want = {"flash_attention": (attn + draft_layers) * st["prefill_ticks"],
             "paged_attention": attn * st["decode_ticks"],
             "ssd_scan": ssm * st["prefill_ticks"]}
     if launches != want:
@@ -609,13 +696,11 @@ def serve_tight(torch, cfg, params, ops, ServeEngine, Request, ample):
     if not any(n % cfg.ssm_chunk for n in readmits):
         fail(f"{cfg.name} tight pool: no re-admit off the chunk multiples "
              f"({readmits})")
-    same = sum(a == b for f, g in zip(fins, ample)
-               for a, b in zip(f.tokens, g.tokens))
     return {"num_pages": TIGHT_PAGES, "launches": launches,
             "stats": dict(st, wall_s=wall,
                           tok_s=st["generated_tokens"] / wall),
             "readmit_lens": readmits,
-            "same_token_share": same / sum(len(f.tokens) for f in ample)}
+            "same_token_share": same_share(fins, ample)}
 
 
 # the port's own kernels, by the names of their CUDA functions
@@ -727,8 +812,7 @@ def compare_plain_paths(torch, cfg, params, MD, SS, reqs):
     (later layers' inputs differ between the two whole paths, so the
     paths' states tell kernel error and bf16 drift apart only there)."""
     from repro_torch.models import ssm as SSM
-    plain = cfg.with_(use_flash_kernel=False, use_paged_kernel=False,
-                      use_ssd_kernel=False)
+    plain = plain_cfg(cfg)
     res = {}
     prompts = [torch.as_tensor(r.prompt, device="cuda")[None].int()
                for r in reqs[:2]]
@@ -813,7 +897,7 @@ def compare_plain_paths(torch, cfg, params, MD, SS, reqs):
 # phase 5: times and bounds
 # ---------------------------------------------------------------------------
 # timed shapes (Hq, Hk, dh) of the serve paths' attention
-HEADS = {ARCH: (16, 8, 128), HYBRID: (32, 32, 64)}
+HEADS = {ARCH: (16, 8, 128), HYBRID: (32, 32, 64), TARGET: (16, 8, 128)}
 
 
 def time_flash(torch, FA, heads, S=512):
@@ -872,6 +956,56 @@ def time_paged(torch, PA, heads, pos_list):
     n_splits, span = PA.plan_splits(B, Hk, n_max, P)
     return {"shape": [B, Hq, Hk, dh, P, n_max], "pos": pos_list, "ms": ms,
             "call_ms": call_ms,
+            "splits": n_splits, "span": span,
+            "plain_ms": plain_ms, "library_ms": lib_ms,
+            "library": "gather + scaled_dot_product_attention",
+            "bound_ms": 1e3 * max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "flops": flops, "bytes": nbytes}
+
+
+def time_paged_verify(torch, PA, heads, pos_list, S=SPEC_K + 1):
+    """The paged kernel at the verify shape: every slot's S candidate rows
+    as B*S query rows, row (b, i) through table row b at position
+    pos[b] + i (what attention_verify launches).  Library: the slots'
+    K/V gathered once, then one scaled_dot_product_attention of S queries
+    a slot under the candidates' causal mask."""
+    (Hq, Hk, dh), B, P = heads, len(pos_list), PAGE
+    n_max = -(-(PLEN[1] + GEN[1]) // P)
+    Np = B * n_max
+    g = torch.Generator(device="cuda").manual_seed(46)
+    q = torch.randn(B * S, Hq, dh, generator=g, device="cuda").bfloat16()
+    kp = torch.randn(Np + 1, P, Hk, dh, generator=g, device="cuda").bfloat16()
+    vp = torch.randn(Np + 1, P, Hk, dh, generator=g, device="cuda").bfloat16()
+    bt8 = torch.randperm(Np, generator=torch.Generator().manual_seed(5)
+                         ).reshape(B, n_max).int().cuda()
+    bt = bt8.repeat_interleave(S, dim=0)
+    base = torch.tensor(pos_list, dtype=torch.int32, device="cuda")
+    pos = (base[:, None] + torch.arange(S, device="cuda")).reshape(-1).int()
+    ms = device_ms(lambda: PA.paged_attention(q, kp, vp, bt, pos), n=50)
+    call_ms = cuda_ms(lambda: PA.paged_attention(q, kp, vp, bt, pos), n=50)
+    plain_ms = device_ms(lambda: PA.reference(q, kp, vp, bt, pos), n=10)
+    C = n_max * P
+    qpos = pos.reshape(B, S).long()
+    mask = (torch.arange(C, device="cuda")[None, None] <= qpos[:, :, None]
+            )[:, None]                                   # (B,1,S,C)
+    qs = q.reshape(B, S, Hq, dh).transpose(1, 2)         # (B,Hq,S,dh)
+
+    def library():
+        kg = kp[bt8.long()].reshape(B, C, Hk, dh).transpose(1, 2)
+        vg = vp[bt8.long()].reshape(B, C, Hk, dh).transpose(1, 2)
+        return sdpa(qs, kg, vg, attn_mask=mask)
+    lib_ms = device_ms(library, n=50)
+    resident = sum(p + S for p in pos_list)        # positions a slot holds
+    attended = int((pos.long() + 1).sum())         # (query, key) pairs
+    nbytes = (2 * resident * Hk * dh * 2           # K and V, bf16
+              + 2 * 2 * q.numel()                  # q and out
+              + 4 * (bt.numel() + B * S))          # block tables and pos
+    flops = 4 * Hq * dh * attended
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+    n_splits, span = PA.plan_splits(B * S, Hk, n_max, P)
+    return {"shape": [B * S, Hq, Hk, dh, P, n_max], "pos": pos_list,
+            "rows": f"{B} slots x S {S}", "ms": ms, "call_ms": call_ms,
             "splits": n_splits, "span": span,
             "plain_ms": plain_ms, "library_ms": lib_ms,
             "library": "gather + scaled_dot_product_attention",
@@ -961,10 +1095,7 @@ def train_phase(torch, cfg, ops, NC, profile=False):
 
     def same_bits(a, b):
         """Two trees equal bit for bit (-0.0 and 0.0 differ)."""
-        def bits(t):
-            return t.view(torch.int16 if t.dtype == torch.bfloat16
-                          else torch.int32)
-        return all(torch.equal(bits(x), bits(y))
+        return all(torch.equal(bits(torch, x), bits(torch, y))
                    for x, y in zip(tree_leaves(a), tree_leaves(b)))
 
     B, S = TRAIN_BATCH, TRAIN_SEQ
@@ -1067,10 +1198,8 @@ def serve_path(torch, card, arch, ops, MD, SS, ServeEngine, Request,
     """Phase 4 for one model: the warm serve run with its launch counts,
     the --profile split and trace, kernel path vs plain path, and for the
     hybrid the tight-pool run that preempts."""
-    from repro_torch.configs import get_config
     from repro_torch.models.config import param_count
-    cfg = get_config(arch).with_(use_flash_kernel=True, use_paged_kernel=True,
-                                 use_ssd_kernel=True)
+    cfg = kernel_cfg(arch)
     total, _ = param_count(cfg)
     params = MD.init_model(cfg, torch.Generator(device="cuda").manual_seed(0))
     reqs, fins, launches, st, wall, _ = serve(torch, cfg, params, ops,
@@ -1109,7 +1238,223 @@ def serve_path(torch, card, arch, ops, MD, SS, ServeEngine, Request,
     torch.cuda.empty_cache()
     return {"arch": arch, "params": total, "launches": launches,
             "stats": dict(st, wall_s=wall, tok_s=tps), "profile": prof,
-            "plain_paths": plain, "tight_pool": tight}
+            "plain_paths": plain, "tight_pool": tight}, fins
+
+
+# ---------------------------------------------------------------------------
+# phase 4b: speculative decoding, drain and migrate
+# ---------------------------------------------------------------------------
+def near_argmax(torch, MD, cfg, params, reqs, fins):
+    """Each emitted token against a teacher-forced plain-path forward of
+    the target over prompt + emitted: its logit within LOGIT_TOL x
+    max(1, max|logit|) of its row's maximum.  Returns the largest gap,
+    in units of the row's scale."""
+    import numpy as np
+    plain = plain_cfg(cfg)
+    worst = 0.0
+    for r, f in zip(reqs, fins):
+        n, g = len(r.prompt), len(f.tokens)
+        toks = np.concatenate([np.asarray(r.prompt), f.tokens[:-1]])
+        logits, _, _ = MD.forward(params, plain, torch.as_tensor(
+            toks, dtype=torch.int32, device="cuda")[None])
+        rows = logits[0, n - 1:n - 1 + g].float()
+        got = rows.gather(1, torch.as_tensor(f.tokens, device="cuda")
+                          .long()[:, None])[:, 0]
+        scale = rows.abs().max(-1).values.clamp(min=1.0)
+        gap = float(((rows.max(-1).values - got) / scale).max())
+        if not gap <= LOGIT_TOL:
+            fail(f"{cfg.name} request {r.rid}: an emitted token is "
+                 f"{gap:.4f} of its row's scale below the teacher-forced "
+                 f"maximum (> {LOGIT_TOL})")
+        worst = max(worst, gap)
+    return worst
+
+
+
+def spec_phase(torch, card, ops, MD):
+    """qwen3-1.7b at full width through the paged engine three times on
+    phase 4's stream: plain, with the lookup draft (k 3), and with
+    qwen3-0.6b drafting (k 3); then qwen3-0.6b drafting for itself on 4
+    requests, which must accept all k in at least one round."""
+    from repro_torch.models.config import param_count
+    from repro_torch.serving import (LookupDraft, ModelDraft, Request,
+                                     ServeEngine, SpecDecodeEngine)
+    tcfg, dcfg = kernel_cfg(TARGET), kernel_cfg(ARCH)
+    tparams = MD.init_model(tcfg, torch.Generator(device="cuda").manual_seed(0))
+    dparams = MD.init_model(dcfg, torch.Generator(device="cuda").manual_seed(
+        DRAFT_SEED))
+    cache_len = PLEN[1] + GEN[1]
+
+    def spec(params, cfg, draft):
+        return lambda: SpecDecodeEngine(
+            params, cfg, num_slots=SLOTS, cache_len=cache_len + SPEC_K,
+            page_size=PAGE, draft=draft, spec_k=SPEC_K, device="cuda")
+
+    runs = {}
+    plain_fins = None
+    for name, make, dl in (
+            (f"{TARGET} serve", None, 0),
+            (f"{TARGET} spec lookup", spec(tparams, tcfg, LookupDraft()), 0),
+            (f"{TARGET} spec draft {ARCH}",
+             spec(tparams, tcfg, ModelDraft(dparams, dcfg)),
+             dcfg.num_layers)):
+        reqs, fins, launches, st, wall, _ = serve(
+            torch, tcfg, tparams, ops, ServeEngine, Request, engine=make,
+            draft_layers=dl)
+        gap = near_argmax(torch, MD, tcfg, tparams, reqs, fins)
+        plain_fins = plain_fins or fins
+        rec = {"launches": launches, "stats": dict(
+            st, wall_s=wall, tok_s=st["generated_tokens"] / wall),
+            "near_argmax_worst_gap": gap,
+            "same_token_share": same_share(fins, plain_fins)}
+        runs[name] = rec
+        extra = ""
+        if make:
+            extra = (f"rounds={st['spec_rounds']} "
+                     f"accept_rate={st['accept_rate']:.3f} "
+                     f"tokens/round={st['tokens_per_round']:.3f} "
+                     f"full-accept row-rounds={st['spec_full_accepts']} ")
+        print(f"spec [{card}]: {name}: {st['generated_tokens']} "
+              f"tokens in {wall:.2f} s = {st['generated_tokens'] / wall:.1f}"
+              f" tok/s, admits={st['prefill_ticks']} decode "
+              f"{'rounds' if make else 'ticks'}={st['decode_ticks']} "
+              f"{extra}tokens equal to the plain run's "
+              f"{rec['same_token_share']:.3f}, worst near-argmax gap "
+              f"{gap:.4f} (<= {LOGIT_TOL}), launches={launches}")
+    del tparams
+    torch.cuda.empty_cache()
+    # the draft drafting for itself: agrees with every proposal up to
+    # near-ties between its dense plain decode and the paged verify
+    reqs, fins, launches, st, wall, _ = serve(
+        torch, dcfg, dparams, ops, ServeEngine, Request,
+        engine=spec(dparams, dcfg, ModelDraft(dparams, dcfg)),
+        draft_layers=dcfg.num_layers, n_requests=SELF_DRAFT_REQUESTS)
+    if not st["spec_full_accepts"]:
+        fail(f"self-draft: no round accepted all {SPEC_K} proposals "
+             f"({st['spec_rounds']} rounds, accept rate "
+             f"{st['accept_rate']:.3f})")
+    gap = near_argmax(torch, MD, dcfg, dparams, reqs, fins)
+    runs[f"{ARCH} spec self-draft"] = {"launches": launches, "stats": dict(
+        st, wall_s=wall), "near_argmax_worst_gap": gap}
+    print(f"spec [{card}]: {ARCH} drafting for itself, "
+          f"{SELF_DRAFT_REQUESTS} requests: rounds={st['spec_rounds']} "
+          f"accept_rate={st['accept_rate']:.3f} "
+          f"tokens/round={st['tokens_per_round']:.3f} full-accept "
+          f"row-rounds={st['spec_full_accepts']}, worst near-argmax gap "
+          f"{gap:.4f}, launches={launches}")
+    del dparams
+    torch.cuda.empty_cache()
+    total, _ = param_count(tcfg)
+    return {"target": TARGET, "target_params": total, "draft": ARCH,
+            "spec_k": SPEC_K, "runs": runs}
+
+
+def drain_phase(torch, card, arch, ops, MD, ample):
+    """Phase 4's stream on a paged engine, drained after DRAIN_TICKS
+    ticks; the drained requests re-admitted through ServingDrainReadmit
+    onto a second engine, each harvested page and row read back right
+    after its install (bit-equal), the outputs stitched.  `ample` is
+    phase 4's run of the same stream without the drain: the share of
+    equal tokens is reported, not gated (another batch composition may
+    break a bf16 near-tie another way)."""
+    from repro_torch.elastic import ServingDrainReadmit
+    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.serving import Request, ServeEngine
+    cfg = kernel_cfg(arch)
+    params = MD.init_model(cfg, torch.Generator(device="cuda").manual_seed(0))
+    reqs = make_requests(cfg, Request)
+    attn, ssm = path_layers(cfg)
+
+    def counted(run, eng):
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        out = run()
+        torch.cuda.synchronize()
+        got = {n: getattr(ops, n).launches for n in
+               ("flash_attention", "paged_attention", "ssd_scan")}
+        st = eng.stats()
+        want = {"flash_attention": attn * st["prefill_ticks"],
+                "paged_attention": attn * st["decode_ticks"],
+                "ssd_scan": ssm * st["prefill_ticks"]}
+        if got != want:
+            fail(f"{arch} drain: launches {got}, want {want}")
+        if st["preemptions"]:
+            fail(f"{arch} drain: {st['preemptions']} preemptions")
+        return out, got
+
+    a = make_engine(cfg, params, ServeEngine)
+
+    def first():
+        for r in reqs:
+            a.submit(r)
+        for _ in range(DRAIN_TICKS):
+            a.tick()
+        return a.drain()
+    drained, launches_a = counted(first, a)
+    harvested = {d.request.rid for d in drained if d.kv is not None}
+    if len(harvested) < 3:
+        fail(f"{arch} drain: {len(harvested)} slots harvested, want >= 3")
+    policy = ServingDrainReadmit()
+    conts = policy.readmit(drained)
+    b = make_engine(cfg, params, ServeEngine)
+    installed, prefilled = [], []
+    install, admit = b._admit_migrated, b._admit
+
+    def read_back(req, slot):
+        install(req, slot)
+        kv = req.kv_seed
+        n = next(iter(kv.pages.values())).shape[1]
+        ids = torch.as_tensor(b.pages.owned[slot][:n], device="cuda").long()
+        held = {n: b.cache[n][:, ids].cpu() for n in kv.pages}
+        held_rows = {n: tree_map(lambda t: t[:, slot].cpu(), b.cache[n])
+                     for n in kv.rows}
+        for h, k in zip(tree_leaves(held) + tree_leaves(held_rows),
+                        tree_leaves(kv.pages) + tree_leaves(kv.rows)):
+            if not torch.equal(bits(torch, h), bits(torch, k)):
+                fail(f"{arch} request {req.rid}: an installed page or row "
+                     f"differs from its harvest")
+        installed.append(req.rid)
+
+    def recording(req, slot):
+        if req.kv_seed is None:
+            prefilled.append((req.rid, len(req.prompt)))
+        admit(req, slot)
+    b._admit_migrated, b._admit = read_back, recording
+    fins, launches_b = counted(lambda: b.run(conts), b)
+    st = b.stats()
+    if st["migrated_admits"] != len(harvested) or set(installed) != harvested:
+        fail(f"{arch} drain: migrated_admits {st['migrated_admits']}, "
+             f"installs {sorted(installed)}, harvested {sorted(harvested)}")
+    if {rid for rid, _ in prefilled} & harvested:
+        fail(f"{arch} drain: a harvested request was prefilled again")
+    want_prefill = sum(len(c.prompt) for c in conts if c.kv_seed is None)
+    if st["prefill_tokens"] != want_prefill:
+        fail(f"{arch} drain: the second engine prefilled "
+             f"{st['prefill_tokens']} tokens, want {want_prefill}")
+    out = {f.rid: f for f in a.finished}
+    for f in fins:
+        out[f.rid] = policy.stitch(f)
+    stitched = [out[r.rid] for r in reqs]
+    for f, r in zip(stitched, reqs):
+        if len(f.tokens) != r.max_new_tokens:
+            fail(f"{arch} drain: request {r.rid} finished with "
+                 f"{len(f.tokens)} tokens, budget {r.max_new_tokens}")
+    saved = st["migrated_tokens_saved"]
+    share = same_share(stitched, ample)
+    print(f"drain [{card}]: {arch} drained after {DRAIN_TICKS} ticks: "
+          f"{len(harvested)} slots harvested and installed bit-equal, "
+          f"{len(conts) - len(harvested)} re-admitted without KV; second "
+          f"engine migrated_admits={st['migrated_admits']} "
+          f"migrated_tokens_saved={saved} prefill_tokens="
+          f"{st['prefill_tokens']}; every request at its full budget, "
+          f"stitched tokens equal to the run without the drain {share:.3f}; "
+          f"launches before the drain {launches_a}, after {launches_b}")
+    del params
+    torch.cuda.empty_cache()
+    return {"arch": arch, "drain_ticks": DRAIN_TICKS,
+            "harvested": len(harvested), "launches_before": launches_a,
+            "launches_after": launches_b, "stats": st,
+            "same_token_share": share}
 
 
 def main(argv=None) -> int:
@@ -1179,9 +1524,14 @@ def main(argv=None) -> int:
               f"(below 2^-69: {r['below_range']}, at or above 2^57: "
               f"{r['above_range']}): codes and values bit-identical")
 
-    paths = [serve_path(torch, card, arch, ops, MD, SS, ServeEngine,
-                        Request, args.profile)                  # phase 4
-             for arch in (ARCH, HYBRID)]
+    paths, ample = [], {}
+    for arch in (ARCH, HYBRID):                                 # phase 4
+        rec, ample[arch] = serve_path(torch, card, arch, ops, MD, SS,
+                                      ServeEngine, Request, args.profile)
+        paths.append(rec)
+    spec = spec_phase(torch, card, ops, MD)                     # phase 4b
+    drains = [drain_phase(torch, card, arch, ops, MD, ample[arch])
+              for arch in (ARCH, HYBRID)]
 
     mid = [PLEN[0] + (PLEN[1] + GEN[1] - PLEN[0]) * i // SLOTS
            for i in range(SLOTS)]
@@ -1190,6 +1540,8 @@ def main(argv=None) -> int:
         timing["flash_attention" + sfx] = time_flash(torch, FA, HEADS[arch])
         timing["paged_attention" + sfx] = time_paged(torch, PA, HEADS[arch],
                                                      mid)
+    timing["paged_attention@verify"] = time_paged_verify(torch, PA,
+                                                         HEADS[TARGET], mid)
     # beyond the serve paths' prompts (at most 512): where flash stands
     # against SDPA on longer prefills
     timing["flash_attention S=1024"] = time_flash(torch, FA, HEADS[ARCH],
@@ -1233,6 +1585,10 @@ def main(argv=None) -> int:
     by_path = {f"{p['arch']} serve": p["launches"] for p in paths}
     by_path.update({f"{p['arch']} serve, tight pool": p["tight_pool"]
                     ["launches"] for p in paths if p["tight_pool"]})
+    by_path.update({p: run["launches"] for p, run in spec["runs"].items()})
+    for d in drains:
+        by_path[f"{d['arch']} drain"] = d["launches_before"]
+        by_path[f"{d['arch']} migrated"] = d["launches_after"]
     by_path[f"{ARCH} train"] = {n: tr["launches"][n]
                                 for n in ("nc_pack", "nc_unpack")}
     timing.update(nc_pack=nc_t["embed"]["nc_pack"],
@@ -1247,16 +1603,21 @@ def main(argv=None) -> int:
              "src/repro/kernels/paged_attention.py:77"),
             (f"paged_attention@{HYBRID}", "paged_attention",
              "src/repro/kernels/paged_attention.py:77"),
+            ("paged_attention@verify", "paged_attention",
+             "src/repro/kernels/paged_attention.py:77"),
             ("ssd_scan", "ssd_scan", "src/repro/kernels/ssd_scan.py:69"),
             ("nc_pack", "nat_compress", "src/repro/kernels/nat_compress.py:56"),
             ("nc_unpack", "nat_compress",
              "src/repro/kernels/nat_compress.py:80")):
         # "kernel@model": the same kernel timed at that model's shapes,
-        # with the launches of that model's serve run
+        # with the launches of that model's runs; "@verify": at the verify
+        # shape, with the speculative runs' launches
         kernel, _, at = name.partition("@")
         t = timing[name]
         paths_n = {p: n[kernel] for p, n in by_path.items()
-                   if n.get(kernel) and (not at or p.startswith(at))}
+                   if n.get(kernel) and (
+                       not at or p.startswith(at)
+                       or (at == "verify" and " spec " in p))}
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/csrc/{src}.cu",
@@ -1267,7 +1628,8 @@ def main(argv=None) -> int:
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
     elapsed = time.perf_counter() - t_start
     result = {"card": card, "build_s": build_s, "elapsed_s": elapsed,
-              "checks": rows, "serve": paths, "nc_checks": nc_rows,
+              "checks": rows, "serve": paths, "spec": spec,
+              "drain": drains, "nc_checks": nc_rows,
               "timing": dict(timing, nc=nc_t),
               "train": tr}
     if args.out:

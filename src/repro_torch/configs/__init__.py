@@ -13,6 +13,7 @@ from repro_torch.models.config import ModelConfig
 
 _MODULES = {
     "qwen3-0.6b": "qwen3_0p6b",
+    "qwen3-1.7b": "qwen3_1p7b",
     "zamba2-1.2b": "zamba2_1p2b",
 }
 

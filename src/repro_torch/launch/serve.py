@@ -7,7 +7,10 @@ token by token in lockstep behind one scalar position.
 
 Continuous (--continuous): the `repro_torch.serving.ServeEngine` slot
 pool, dense or paged (--paged), with FIFO admission that backfills a slot
-the moment its request retires.
+the moment its request retires.  With --speculative the pool decodes by
+draft-verify rounds (`repro_torch.serving.SpecDecodeEngine`): an n-gram
+lookup draft, or with --draft-arch a smaller model of the same vocabulary
+(weights from --seed + 7).
 
 Runs on the CUDA card (the attention kernels, and for the hybrid family
 the SSD scan kernel, on) unless --device cpu, where the kernel wrappers
@@ -24,8 +27,10 @@ Usage:
       --continuous --requests 6 --batch 2 --prompt-len 16 --gen 8
   PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b \
       --continuous --paged --requests 16 --batch 8 --prompt-len 512 --gen 128
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \
+      --continuous --paged --speculative --draft-arch qwen3-0.6b
 
-Not ported yet: --replicas, --speculative, the transports and tracing.
+Not ported yet: --replicas, --hedged, the transports and tracing.
 """
 from __future__ import annotations
 
@@ -113,14 +118,30 @@ def _make_stream(cfg, args):
 
 
 def _serve_continuous(params, cfg, args, device):
-    from repro_torch.serving import ServeEngine
+    from repro_torch.serving import (LookupDraft, ModelDraft, ServeEngine,
+                                     SpecDecodeEngine)
 
+    # drawn lengths never exceed the CLI bounds: cache_len = S + G must
+    # hold the longest prompt plus the largest generation budget
     S, G = args.prompt_len, args.gen
     reqs = _make_stream(cfg, args)
     paged = dict(page_size=args.page_size,
                  num_pages=args.num_pages) if args.paged else {}
-    engine = ServeEngine(params, cfg, num_slots=args.batch,
-                         cache_len=S + G, device=device, **paged)
+    if args.speculative:
+        if args.draft_arch:
+            dcfg = _device_config(args.draft_arch, args.smoke, device)
+            dparams = MD.init_model(dcfg, torch.Generator(
+                device=device).manual_seed(args.seed + 7))
+            draft = ModelDraft(dparams, dcfg)
+        else:
+            draft = LookupDraft()
+        engine = SpecDecodeEngine(params, cfg, num_slots=args.batch,
+                                  cache_len=S + G + args.spec_k,
+                                  draft=draft, spec_k=args.spec_k,
+                                  device=device, **paged)
+    else:
+        engine = ServeEngine(params, cfg, num_slots=args.batch,
+                             cache_len=S + G, device=device, **paged)
     t0 = time.time()
     finished = engine.run(reqs)
     _sync(device)
@@ -138,6 +159,12 @@ def _serve_continuous(params, cfg, args, device):
               f"pages={engine.num_pages} "
               f"pool_occupancy={st['pool_occupancy']:.2f} "
               f"preemptions={st['preemptions']}")
+    if args.speculative:
+        draft = f"model:{args.draft_arch}" if args.draft_arch else "lookup"
+        print(f"speculative: k={args.spec_k} draft={draft} "
+              f"rounds={st['spec_rounds']} "
+              f"accept_rate={st['accept_rate']:.2f} "
+              f"tokens/round={st['tokens_per_round']:.2f}")
     print("sample generation (first request):", finished[0].tokens[:16])
     return {"finished": finished, "stats": st, "t_total": dt}
 
@@ -164,21 +191,36 @@ def serve(argv=None) -> dict:
     ap.add_argument("--num-pages", type=int, default=None,
                     help="--paged: pool pages (default: worst-case "
                          "slots x ceil(cache_len/page_size))")
+    ap.add_argument("--speculative", action="store_true",
+                    help="--continuous: draft-verify decoding "
+                         "(repro_torch.serving.SpecDecodeEngine); the same "
+                         "greedy stream, fewer target passes")
+    ap.add_argument("--spec-k", type=int, default=3,
+                    help="--speculative: draft tokens per round")
+    ap.add_argument("--draft-arch", default=None,
+                    help="--speculative: ported arch drafting for --arch "
+                         "(e.g. qwen3-0.6b for qwen3-1.7b); default: "
+                         "model-free n-gram lookup draft")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     return _serve(args)
+
+
+def _device_config(arch, smoke, device):
+    """The arch's config for `device`: the kernels on the card, fp32 on
+    the CPU."""
+    cfg = get_config(arch, smoke=smoke)
+    if device.type == "cuda":
+        return cfg.with_(use_flash_kernel=True, use_paged_kernel=True,
+                         use_ssd_kernel=True)
+    return cfg.with_(param_dtype="float32", compute_dtype="float32")
 
 
 def _serve(args) -> dict:
     device = resolve_device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda: no CUDA device available")
-    cfg = get_config(args.arch, smoke=args.smoke)
-    if device.type == "cuda":
-        cfg = cfg.with_(use_flash_kernel=True, use_paged_kernel=True,
-                        use_ssd_kernel=True)
-    else:
-        cfg = cfg.with_(param_dtype="float32", compute_dtype="float32")
+    cfg = _device_config(args.arch, args.smoke, device)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = MD.init_model(cfg, gen)
     if args.continuous:

@@ -2,8 +2,8 @@
 
 The PyTorch counterpart of the JAX package's ``models/attention.py``.
 Projections are stored flattened (d_model, heads*head_dim), as there.
-Cross-attention, the sliding-window ring buffer, the q-chunked path and
-``attention_verify`` are not ported yet (ROADMAP.md, queue 1).
+Cross-attention, the sliding-window ring buffer and the q-chunked path
+are not ported yet (ROADMAP.md, queue 1).
 """
 from __future__ import annotations
 
@@ -196,4 +196,84 @@ def attention_decode(p, x, cache_k, cache_v, pos, cfg: ModelConfig, *,
     probs = torch.softmax(scores, dim=-1)
     out = _gqa_out(probs, v)
     y = dense(out.reshape(B, 1, -1), p["wo"])
+    return y, cache_k, cache_v
+
+
+def attention_verify(p, x, cache_k, cache_v, pos, cfg: ModelConfig, *,
+                     active=None, block_tables=None, logical_len=None):
+    """Draft-verify attention: S candidate tokens per row in one pass.
+
+    x: (B,S,d); row b's candidates sit at positions pos[b] .. pos[b]+S-1
+    (pos: (B,) per-row vector).  All S keys/values are written IN PLACE,
+    as `attention_decode` writes its one, and query i attends the cache
+    plus candidates 0..i: exactly what S sequential decode calls see.
+    Rejected candidates leave stale KV past the accepted prefix, which the
+    next round overwrites before any query can see it.
+
+    Dense cache (B,C,Hk,dh), or paged pool (Np+1,P,Hk,dh) + block_tables
+    as in `attention_decode`.  An inactive row writes its own old value
+    back (dense) or to the trash page (paged); a position past the cache
+    is masked and never written.  In paged mode with cfg.use_paged_kernel
+    the attention reads through the paged kernel: one launch of B*S query
+    rows, row (b, i) at position pos[b] + i through table row b.
+
+    Returns (y (B,S,d), cache_k, cache_v)."""
+    B, S, _ = x.shape
+    paged = block_tables is not None
+    if cfg.attention_kind == "sliding_window":
+        raise ValueError("attention_verify: sliding-window caches "
+                         "unsupported")
+    pos = torch.as_tensor(pos, device=x.device)
+    if pos.dim() != 1:
+        raise ValueError("attention_verify requires a per-row pos vector")
+    qpos = pos.long()[:, None] + torch.arange(S, device=x.device)[None]
+    q, k1, v1 = _project_qkv(p, x, qpos, cfg)
+    if paged:
+        Np, P = cache_k.shape[0] - 1, cache_k.shape[1]   # page Np: trash
+        n_max = block_tables.shape[1]
+        C = logical_len if logical_len is not None else n_max * P
+        j = qpos // P
+        page = block_tables.long().gather(1, j.clamp(max=n_max - 1))
+        keep = j < n_max
+        if active is not None:
+            keep = keep & active[:, None]
+        page = torch.where(keep, page, Np)
+        # distinct (page, offset) targets apart from the trash page, whose
+        # contents nothing reads
+        cache_k[page, qpos % P] = k1.to(cache_k.dtype)
+        cache_v[page, qpos % P] = v1.to(cache_v.dtype)
+        if cfg.use_paged_kernel:
+            from repro_torch.kernels import ops as K
+            # a query past the cache attends every cached position, as
+            # the plain path's mask gives it
+            rows = qpos.clamp(max=C - 1).reshape(-1).int()
+            bt = block_tables.int().repeat_interleave(S, dim=0)
+            out = K.paged_attention(q.reshape(B * S, *q.shape[2:]), cache_k,
+                                    cache_v, bt, rows, logical_len=C)
+            y = dense(out.reshape(B, S, -1), p["wo"])
+            return y, cache_k, cache_v
+        k = _paged_gather(cache_k, block_tables, C)
+        v = _paged_gather(cache_v, block_tables, C)
+    else:
+        C = cache_k.shape[1]
+        rows = torch.arange(B, device=x.device)
+        # candidate by candidate, so that a clamped position past the
+        # cache writes back what an earlier candidate left at C - 1
+        for i in range(S):
+            slot = qpos[:, i].clamp(max=C - 1)
+            keep = qpos[:, i] < C
+            if active is not None:
+                keep = keep & active
+            keep = keep[:, None, None]
+            cache_k[rows, slot] = torch.where(
+                keep, k1[:, i].to(cache_k.dtype), cache_k[rows, slot])
+            cache_v[rows, slot] = torch.where(
+                keep, v1[:, i].to(cache_v.dtype), cache_v[rows, slot])
+        k, v = cache_k, cache_v
+    valid = torch.arange(C, device=x.device)[None, None] <= qpos[:, :, None]
+    scores = _gqa_scores(q, k)  # (B,Hk,G,S,C)
+    scores = torch.where(valid[:, None, None], scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    out = _gqa_out(probs, v)
+    y = dense(out.reshape(B, S, -1), p["wo"])
     return y, cache_k, cache_v

@@ -11,6 +11,7 @@ Public entry points:
   model_descs / init_model
   forward(params, cfg, tokens, ...)           -> (logits, aux, cache|None)
   decode_step(params, cfg, tokens, pos, cache) -> (logits, cache)
+  verify_step(params, cfg, tokens, pos, cache) -> (logits, cache)
   cache_specs / init_cache / write_cache_slot
   paged_leaf_names / init_paged_cache / write_paged_cache
   lm_loss(params, cfg, batch)                 -> scalar loss
@@ -283,6 +284,35 @@ def _decode_hybrid(params, cfg, x, pos, cache, *, active=None,
             pre2 = rms_norm(x, shared["ln2"], cfg.norm_eps)
             x = x + M.mlp(shared["mlp"], pre2, cfg)
     return x
+
+
+def verify_step(params, cfg: ModelConfig, tokens: torch.Tensor, pos, cache,
+                *, active=None, block_tables=None, logical_len=None):
+    """Speculative-decoding verify: score S candidate tokens per row in one
+    pass.  tokens: (B,S) int — row b's candidates occupy positions
+    pos[b] .. pos[b]+S-1; logits[:, i] is the next-token distribution
+    after candidate i, what S sequential `decode_step` calls give.
+
+    The attention-only decoder family only: the recurrent families would
+    need state snapshots to roll back, not just a position register.  The
+    cache is updated in place.  Returns (logits (B,S,V), cache)."""
+    at = cfg.arch_type
+    if at not in ("dense", "vlm", "moe"):
+        raise ValueError(f"verify_step: unsupported arch_type {at}")
+    _require_ported(cfg)
+    x = params["embed"][tokens.long()].to(torch_dtype(cfg.compute_dtype))
+    for i in range(cfg.num_layers):
+        lp = _layer(params["blocks"], i)
+        pre = rms_norm(x, lp["ln1"], cfg.norm_eps)
+        y, _, _ = A.attention_verify(lp["attn"], pre, cache["k"][i],
+                                     cache["v"][i], pos, cfg, active=active,
+                                     block_tables=block_tables,
+                                     logical_len=logical_len)
+        x = x + y
+        pre2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
+        x = x + M.mlp(lp["mlp"], pre2, cfg)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return dense(x, params["lm_head"]), cache
 
 
 # ---------------------------------------------------------------------------

@@ -5,10 +5,17 @@ Public API:
   Request / FinishedRequest             (request.py)
   FifoScheduler / SlotPool / PagePool   (scheduler.py)
   ServeEngine / ServeProgram            (engine.py)
+  MigratedKV / DrainedRequest           (engine.py)
+  LookupDraft / ModelDraft / SpecDecodeEngine   (speculative.py)
 """
-from repro_torch.serving.engine import ServeEngine, ServeProgram
+from repro_torch.serving.engine import (DrainedRequest, MigratedKV,
+                                        ServeEngine, ServeProgram)
 from repro_torch.serving.request import FinishedRequest, Request
 from repro_torch.serving.scheduler import FifoScheduler, PagePool, SlotPool
+from repro_torch.serving.speculative import (LookupDraft, ModelDraft,
+                                             SpecDecodeEngine)
 
 __all__ = ["Request", "FinishedRequest", "FifoScheduler", "SlotPool",
-           "PagePool", "ServeEngine", "ServeProgram"]
+           "PagePool", "ServeEngine", "ServeProgram", "MigratedKV",
+           "DrainedRequest", "LookupDraft", "ModelDraft",
+           "SpecDecodeEngine"]

@@ -20,12 +20,18 @@ decodes.  When the pool runs dry mid-decode the engine preempts the most
 recently admitted slot (youngest first), requeueing it at the head of the
 queue as a prefix continuation, so the oldest work always completes.
 
-Not ported yet (ROADMAP.md): `drain`, `harvest_kv`, migrated-KV install,
-and the obs events.
+Paged mode also migrates KV on drain: `drain()` harvests each live slot's
+pages (and per-slot rows) to the host as a `MigratedKV`, and a paged
+engine that admits a continuation carrying one installs them instead of
+re-prefilling the prefix (`elastic.recovery.ServingDrainReadmit` builds
+such continuations).
+
+Not ported yet (ROADMAP.md): the obs events, `program=` and `chunk_cap=`.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence
+import dataclasses
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -34,12 +40,44 @@ from repro_torch import DeviceLike, resolve_device
 from repro_torch.launch.steps import (make_paged_serve_cb_step,
                                       make_serve_cb_step, sharded_argmax)
 from repro_torch.models import model as MD
+from repro_torch.models.common import tree_map
 from repro_torch.models.config import ModelConfig
 from repro_torch.serving.request import (FinishedRequest, Request,
                                          validate_budget)
 from repro_torch.serving.scheduler import FifoScheduler, PagePool, SlotPool
 
 CHUNK_CAP = 8  # max decode ticks between host syncs (EOS eviction latency)
+
+
+@dataclasses.dataclass
+class MigratedKV:
+    """Host-side harvest of one slot's live KV, taken at a chunk boundary.
+
+    `pos` positions are resident (0 .. pos-1); the last emitted token
+    (`last_token`, position pos) has no cache entry yet, the sequential-
+    decode invariant, so installing this state and ticking once computes
+    what the source engine's next tick would have.  `pages` maps each
+    paged cache leaf to a (stack, n_pages, P, Hk, dh) CPU tensor in the
+    cache's dtype; `rows` carries the per-slot leaves (the hybrid's SSM
+    state and nested conv ring) as (stack, ...) CPU tensors."""
+    pos: int
+    last_token: int
+    page_size: int
+    pages: Dict[str, torch.Tensor]
+    rows: Dict[str, Any]
+
+
+@dataclasses.dataclass
+class DrainedRequest:
+    """Resumable state of one in-flight request pulled off an engine.
+
+    `emitted` is what the host had harvested (and streamed) before the
+    drain; a pending prefill token dies with the engine and is recomputed
+    by the continuation.  `kv` (paged engines only) is the harvested
+    cache: a continuation that carries it re-admits with zero prefill."""
+    request: Request
+    emitted: List[int]
+    kv: Optional[MigratedKV] = None
 
 
 class ServeProgram:
@@ -82,6 +120,29 @@ class ServeProgram:
         regs["maxgen"][slot] = max_new
         regs["eos"][slot] = eos_id
         return first[None]
+
+    def install(self, cache, regs: Dict[str, torch.Tensor], slot: int,
+                page_ids: torch.Tensor, kv: MigratedKV, remaining: int,
+                eos_id: int) -> None:
+        """Migrated admit: write harvested KV pages onto `page_ids` and the
+        per-slot rows into `slot`, and set the lifecycle registers, with
+        no prefill.  gen starts at 0 (nothing emitted by this incarnation
+        yet) and maxgen is the remaining budget, so the device retirement
+        rule sees a fresh continuation."""
+        for name, pages in kv.pages.items():
+            leaf = cache[name]
+            n = pages.shape[1]
+            leaf[:, page_ids[:n]] = torch.as_tensor(pages).to(leaf.device,
+                                                              leaf.dtype)
+        MD.write_cache_slot(
+            {n: cache[n] for n in kv.rows},
+            tree_map(lambda r: torch.as_tensor(r)[:, None], kv.rows), slot)
+        regs["tokens"][slot] = kv.last_token
+        regs["pos"][slot] = kv.pos
+        regs["active"][slot] = True
+        regs["gen"][slot] = 0
+        regs["maxgen"][slot] = remaining
+        regs["eos"][slot] = eos_id
 
     def chunk(self, params, cache, regs: Dict[str, torch.Tensor], k: int,
               block_tables: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -178,6 +239,8 @@ class ServeEngine:
         self.decode_ticks = 0
         self.prefill_ticks = 0
         self.prefill_tokens = 0
+        self.migrated_admits = 0
+        self.migrated_tokens_saved = 0
         self.preemptions = 0
         self._occupied_slot_steps = 0  # active slots summed over decode ticks
         self._page_steps = 0           # pages in use summed over decode ticks
@@ -196,9 +259,9 @@ class ServeEngine:
         return int(self.pool.pos[slot]) + max(0, g - 1)
 
     def _admit(self, req: Request, slot: int) -> None:
-        if req.kv_seed is not None:
-            raise NotImplementedError("migrated-KV admission is not ported "
-                                      "yet (ROADMAP.md queue 1, serving)")
+        if self.paged and req.kv_seed is not None:
+            self._admit_migrated(req, slot)
+            return
         prompt = torch.as_tensor(np.asarray(req.prompt, np.int32),
                                  device=self.device)[None, :]
         start_pos = prompt.shape[1]
@@ -218,6 +281,31 @@ class ServeEngine:
         self._pending_first[slot] = first  # harvested with the next chunk
         self.prefill_ticks += 1
         self.prefill_tokens += int(prompt.shape[1])
+
+    def _admit_migrated(self, req: Request, slot: int) -> None:
+        """Install a continuation's harvested KV onto freshly allocated
+        pages instead of re-prefilling its prefix: the registers take the
+        sequential-decode invariant (last emitted token pending at `pos`)
+        and the next chunk continues from there, with zero prefill."""
+        kv = req.kv_seed
+        if kv.page_size != self.page_size:
+            raise ValueError(f"migrated page size {kv.page_size} != "
+                             f"engine page size {self.page_size}")
+        start_pos = len(np.asarray(req.prompt))
+        if kv.pos != start_pos - 1:
+            raise ValueError(f"request {req.rid}: migrated KV holds "
+                             f"{kv.pos} positions, its prompt {start_pos}")
+        npg = self.pages.pages_for(kv.pos + 1)  # coverage incl. next write
+        got = self.pages.alloc(slot, npg)
+        assert got is not None, "admission gate checked pages"
+        self.block_tables[slot, :npg] = got
+        self.program.install(
+            self.cache, self.regs, slot,
+            torch.as_tensor(got, dtype=torch.long, device=self.device), kv,
+            req.max_new_tokens, -1 if req.eos_id is None else req.eos_id)
+        self.pool.occupy(slot, req, start_pos, self.ticks)
+        self.migrated_admits += 1
+        self.migrated_tokens_saved += int(kv.pos)
 
     # ------------------------------------------------------------------
     def _release_slot(self, slot: int) -> None:
@@ -361,7 +449,10 @@ class ServeEngine:
         if admission is None or not self.paged:
             return admission
         req, slot = admission
-        need = self.pages.pages_for(len(np.asarray(req.prompt)) + 1)
+        if req.kv_seed is not None:
+            need = self.pages.pages_for(req.kv_seed.pos + 1)
+        else:
+            need = self.pages.pages_for(len(np.asarray(req.prompt)) + 1)
         if need > self.pages.num_free:
             self.scheduler.queue.appendleft(req)  # keep head-of-line
             return None
@@ -420,6 +511,50 @@ class ServeEngine:
                 return True
         return False
 
+    def harvest_kv(self, slot: int) -> Optional[MigratedKV]:
+        """Copy one active slot's live KV to the host (paged mode, chunk
+        boundary): ceil(pos/P) owned pages of every paged leaf (never the
+        trash page) and this slot's row of every per-slot leaf.  None when
+        nothing was emitted yet (the continuation re-prefills anyway)."""
+        if not self.paged or not self.pool.generated[slot]:
+            return None
+        pos = self._slot_pos(slot)
+        npg = self.pages.pages_for(pos)
+        ids = torch.as_tensor(self.pages.owned[slot][:npg], dtype=torch.long,
+                              device=self.device)
+        paged_names = set(MD.paged_leaf_names(self.cfg))
+        pages = {n: self.cache[n][:, ids].cpu()
+                 for n in self.cache if n in paged_names}
+        rows = {n: tree_map(lambda t: t[:, slot].to("cpu", copy=True),
+                            self.cache[n])
+                for n in self.cache if n not in paged_names}
+        return MigratedKV(pos=pos,
+                          last_token=int(self.pool.generated[slot][-1]),
+                          page_size=self.page_size, pages=pages, rows=rows)
+
+    def drain(self, migrate_kv: bool = True) -> List[DrainedRequest]:
+        """Pull every in-flight and queued request off the engine in a
+        resumable form, ordered by request id.  Active slots keep their
+        host-harvested tokens; in paged mode (migrate_kv=True) each one's
+        live KV rides along (`DrainedRequest.kv`).  Queued requests come
+        back untouched, a continuation's `kv_seed` kept."""
+        out = []
+        for slot in np.flatnonzero(self.pool.active):
+            slot = int(slot)
+            req = self.pool.request[slot]
+            kv = self.harvest_kv(slot) if migrate_kv else None
+            orig, prefix = self._preempted.pop(req.rid, (req, []))
+            out.append(DrainedRequest(
+                orig, prefix + list(self.pool.generated[slot]), kv))
+            self._release_slot(slot)
+        while self.scheduler.queue:
+            req = self.scheduler.queue.popleft()
+            orig, prefix = self._preempted.pop(req.rid, (req, []))
+            out.append(DrainedRequest(orig, list(prefix), req.kv_seed))
+        self._pending_first = {}
+        self.regs["active"].zero_()
+        return sorted(out, key=lambda d: d.request.rid)
+
     # ------------------------------------------------------------------
     @property
     def occupancy(self) -> float:
@@ -446,5 +581,7 @@ class ServeEngine:
         if self.paged:
             out.update({"pool_occupancy": self.pool_occupancy,
                         "num_pages": self.num_pages,
-                        "preemptions": self.preemptions})
+                        "preemptions": self.preemptions,
+                        "migrated_admits": self.migrated_admits,
+                        "migrated_tokens_saved": self.migrated_tokens_saved})
         return out

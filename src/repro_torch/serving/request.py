@@ -18,9 +18,9 @@ class Request:
     eos_id: stop token; None = run to the budget
     extra_embeds: optional modality-frontend output for vlm/audio backbones,
         batch dim 1: (1, P, 1024) patches or (1, T_enc, d_model) frames
-    kv_seed: optional harvested KV attached by a drain/readmit path (the
-        JAX package's `MigratedKV`); the port's engine does not install
-        migrated KV yet and refuses such a request
+    kv_seed: optional harvested KV (`engine.MigratedKV`) attached by a
+        drain/readmit path; a paged engine installs it instead of
+        re-prefilling the prompt
     """
     rid: int
     prompt: Any

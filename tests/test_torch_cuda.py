@@ -435,3 +435,151 @@ def test_flash_kernel_refuses_autograd_on_the_card():
     with torch.no_grad():
         ops.flash_attention(q, k, k)
     assert ops.flash_attention.launches == 1
+
+
+# ---------------------------------------------------------------------------
+# the serving paths of the speculative and migration slice
+# ---------------------------------------------------------------------------
+def _verify_layer(device, dtype, seed=0):
+    """One attention layer at qwen3-1.7b's heads (16/8 of 128, d_model cut
+    to 256) over a paged pool: 8 rows x S 4 candidates, page 16, 40-page
+    tables on scrambled pages, the rows' positions at the edges of the
+    kernel's splits for 32 query rows (and one row whose last candidates
+    pass the cache); every page outside the rows' live prefixes poisoned
+    with +-1e9.  Returns (cfg, params, x, pos, bt, poisoned, clean)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import attention as A
+    from repro_torch.models.common import init_params
+    from repro_torch.models import model as MD
+    dt = getattr(torch, dtype)
+    cfg = get_config("qwen3-1.7b").with_(
+        d_model=256, num_layers=1, param_dtype=dtype, compute_dtype=dtype)
+    g = torch.Generator(device=device).manual_seed(seed)
+    p = init_params(A.attn_descs(cfg), g, torch.device(device))
+    Bv, S, P, n_max = 8, 4, 16, 40
+    Np = Bv * n_max + 4
+    _, span = PA.plan_splits(Bv * S, cfg.num_kv_heads, n_max, P)
+    w, C = span * P, n_max * P
+    pos = torch.tensor([0, w - 3, w - 1, w, w + 1, C - 4, C - 2, 100],
+                       dtype=torch.int32)
+    r = np.random.RandomState(seed)
+    ids = r.permutation(Np)[:Bv * n_max].reshape(Bv, n_max)
+    pool = MD.init_paged_cache(cfg, Bv, Np, P, device)
+    for n in pool:
+        pool[n].copy_(torch.randn(pool[n].shape, generator=g,
+                                  device=device).to(dt))
+    live = {int(ids[b, j]) for b in range(Bv)
+            for j in range(min(n_max, (int(pos[b]) + S - 1) // P + 1))}
+    stale = [q for q in range(Np) if q not in live]
+    poisoned = {n: t.clone() for n, t in pool.items()}
+    for n, v in (("k", 1e9), ("v", -1e9)):
+        poisoned[n][:, stale] = v
+    x = torch.randn(Bv, S, cfg.d_model, generator=g, device=device).to(dt)
+    bt = torch.from_numpy(ids.astype(np.int32)).to(device)
+    return cfg, p, x, pos.to(device), bt, poisoned, pool
+
+
+def _attention_verify_kernel_vs_plain(device, dtype):
+    from repro_torch.models import attention as A
+    cfg, p, x, pos, bt, poisoned, clean = _verify_layer(device, dtype)
+    C = bt.shape[1] * clean["k"].shape[2]
+    kcfg = cfg.with_(use_paged_kernel=True)
+    ops.reset_launches()
+    outs = {}
+    for name, c, pools in (("kernel", kcfg, poisoned),
+                           ("kernel_clean", kcfg, clean),
+                           ("plain", cfg, {n: t.clone()
+                                           for n, t in clean.items()})):
+        y, nk, nv = A.attention_verify(p, x, pools["k"][0], pools["v"][0],
+                                       pos, c, block_tables=bt,
+                                       logical_len=C)
+        outs[name] = (y, nk, nv)
+    launches = ops.paged_attention.launches
+    # the stale pages are invisible bit for bit; both paths write the same
+    # candidates into the same pages (the trash page, which nothing reads,
+    # apart)
+    assert torch.equal(outs["kernel"][0], outs["kernel_clean"][0])
+    for i in (1, 2):
+        assert torch.equal(outs["kernel_clean"][i][:-1], outs["plain"][i][:-1])
+    return outs["kernel"][0], outs["plain"][0], launches
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_attention_verify_paged_kernel_matches_plain(dtype):
+    """attention_verify through the paged kernel (one launch of 32 query
+    rows) against the plain gather-and-softmax on the same pools."""
+    _cuda()
+    y, ref, launches = _attention_verify_kernel_vs_plain("cuda", dtype)
+    assert launches == 2
+    tol = TOL[dtype] * max(1.0, float(ref.float().abs().max()))
+    torch.testing.assert_close(y.float(), ref.float(), rtol=0, atol=tol)
+
+
+def _harvest_round_trip(arch, device):
+    """A paged engine (bf16 on the card, the kernels on) drained after a
+    few ticks; the continuations installed on a second engine, whose
+    pages and rows are read back right after each install and must equal
+    the harvest bit for bit.  Returns (harvested, installs checked, the
+    second engine, stitched outputs, the requests)."""
+    from repro_torch.configs import get_config
+    from repro_torch.elastic import ServingDrainReadmit
+    from repro_torch.models import model as MD
+    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.serving import Request, ServeEngine
+    cfg = get_config(arch, smoke=True)
+    if device == "cuda":
+        cfg = cfg.with_(param_dtype="bfloat16", compute_dtype="bfloat16",
+                        use_flash_kernel=True, use_paged_kernel=True,
+                        use_ssd_kernel=True)
+    params = MD.init_model(cfg, torch.Generator(device=device).manual_seed(0))
+    rng = np.random.RandomState(5)
+    reqs = [Request(rid=i, prompt=rng.randint(0, cfg.vocab_size, size=n),
+                    max_new_tokens=12) for i, n in enumerate((9, 14, 6, 11))]
+
+    def engine():
+        return ServeEngine(params, cfg, num_slots=2, cache_len=28,
+                           page_size=4, device=device)
+
+    a = engine()
+    for q in reqs:
+        a.submit(q)
+    for _ in range(3):
+        a.tick()
+    drained = a.drain()
+    harvested = [d for d in drained if d.kv is not None]
+    b = engine()
+    checked = []
+    install = b._admit_migrated
+
+    def read_back(req, slot):
+        install(req, slot)
+        kv = req.kv_seed
+        ids = torch.as_tensor(b.pages.owned[slot], dtype=torch.long,
+                              device=b.device)
+        for n, pages in kv.pages.items():
+            held = b.cache[n][:, ids[:pages.shape[1]]].cpu()
+            assert torch.equal(_bits(held), _bits(pages)), (req.rid, n)
+        rows = {n: tree_map(lambda t: t[:, slot].cpu(), b.cache[n])
+                for n in kv.rows}
+        for h, r in zip(tree_leaves(rows), tree_leaves(kv.rows)):
+            assert torch.equal(_bits(h), _bits(r)), req.rid
+        checked.append(req.rid)
+    b._admit_migrated = read_back
+    policy = ServingDrainReadmit()
+    out = {f.rid: f.tokens for f in a.finished}
+    for f in b.run(policy.readmit(drained)):
+        out[f.rid] = policy.stitch(f).tokens
+    return harvested, checked, b, out, reqs
+
+
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "zamba2-1.2b"])
+def test_harvest_install_round_trip_on_card(arch):
+    """Harvested bf16 pages and rows survive the host round trip and the
+    install bit for bit; migrated admits run no prefill; every request
+    finishes with its full budget."""
+    _cuda()
+    harvested, checked, b, out, reqs = _harvest_round_trip(arch, "cuda")
+    assert len(harvested) == 2
+    assert sorted(checked) == sorted(d.request.rid for d in harvested)
+    assert b.migrated_admits == len(harvested)
+    assert all(len(out[r.rid]) == r.max_new_tokens for r in reqs)

@@ -84,6 +84,30 @@ def test_decode_step_matches_jax(per_row):
         pos_j, pos_t = pos_j + 1, pos_t + 1
 
 
+def test_qwen3_1p7b_forward_and_decode_match_jax():
+    """qwen3-1.7b SMOKE (the speculative target): forward logits and the
+    KV cache, then two per-row decode steps, against the JAX package's on
+    the same weights."""
+    from repro.configs import get_config as jax_get_config
+    from repro_torch.configs import get_config as torch_get_config
+    jcfg = jax_get_config("qwen3-1.7b", smoke=True)
+    tcfg = torch_get_config("qwen3-1.7b", smoke=True)
+    jp, tp = TP.params(jcfg)
+    toks = _tokens(jcfg.vocab_size, seed=9)
+    jl, jc, tl, tc = _prefill(jp, tp, jcfg, tcfg, toks)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **ATOL)
+    for n in ("k", "v"):
+        np.testing.assert_allclose(tc[n].numpy(), np.asarray(jc[n]), **ATOL)
+    pos_j = jnp.full((B,), S, jnp.int32)
+    pos_t = torch.full((B,), S, dtype=torch.int32)
+    for step in range(2):
+        tok = toks[:, S + step:S + step + 1]
+        jl, jc = JMD.decode_step(jp, jcfg, jnp.asarray(tok), pos_j, jc)
+        tl, tc = TMD.decode_step(tp, tcfg, torch.from_numpy(tok), pos_t, tc)
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **ATOL)
+        pos_j, pos_t = pos_j + 1, pos_t + 1
+
+
 def test_inactive_rows_are_noops():
     """active=False rows keep their cache row bit-identical; active rows
     update as without the mask; the logits of active rows match JAX."""
