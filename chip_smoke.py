@@ -18,7 +18,11 @@ Phases (each raises on failure, and then no result is printed):
      which must emit 0), every group and page size, stale pages poisoned
      (the output must not change by a bit) and each call twice (the two
      outputs must be bit-identical), and at the verify shape (8 table rows,
-     each repeated for 4 candidate rows); the SSD scan in fp32 and bf16 (1e-4: both
+     each repeated for 4 candidate rows); both attention kernels at
+     phase 4c's shapes (flash at a 512-token prompt, paged at 8 slots on
+     321 pages: qwen3-moe 32/4 heads of 128, G 8; deepseek-7b 32/32, G 1;
+     arctic-480b 56/8, G 7), and the paged kernel's split edges at G 7;
+     the SSD scan in fp32 and bf16 (1e-4: both
      compute in fp32) at the JAX package's test shapes and zamba2's
      prefill, a prompt shorter than the chunk, ragged last chunks (S 500,
      130, 17), strong decay at S 512 and 500 that must stay finite and
@@ -61,11 +65,32 @@ Phases (each raises on failure, and then no result is printed):
      after its install, migrated_admits equal to the harvested count, no
      prefill of a harvested prefix, every request at its full budget,
      launch counts exact (no flash, no ssd_scan for a migrated admit);
+  4c. serve phase 4's stream with qwen3-moe-30b-a3b (48 layers, d_model
+     2048, 128 experts of 768 top-8, bf16: 61.1 GB), deepseek-7b (30
+     layers, d_model 4096, G 1: 13.8 GB) and arctic-480b at its published
+     widths with its depth cut from 35 to 2 layers (d_model 7168, G 7,
+     128 experts of 4864 top-2 and the dense residual: 55.4 GB), one
+     after another, each one's params freed before the next is drawn:
+     launch counts exact (an admit: one flash a layer; a decode tick: one
+     paged a layer), every request at its full budget; tokens/s, ticks,
+     occupancy, peak device memory, ms a decode tick (a synchronize after
+     every admit and decode chunk) beside its bytes bound; the kernel
+     path against the plain path on one admit and one decode tick; for
+     the MoE models the (token, layer) expert choices that differ between
+     the paths (bf16 router near-ties flip) are counted and reported, and
+     the logits of every prefill position and decode row are held against
+     the plain path run with the kernel path's expert choices; at the
+     first layer, where both paths see the same input, the flash output
+     is held to the bf16 tolerance and every flipped token must be a
+     near-tie that its router probabilities' measured change crosses;
+     the plain path with SDPA attention is a control whose flips are
+     reported beside the kernel path's;
   5. time each kernel beside its plain version, one PyTorch library call
      where one computes the same function (timed only, never used by the
      port) and its bound, the attention kernels at both serve paths'
      shapes, and the paged kernel at the verify shape (8 slots x 4
-     candidate rows of qwen3-1.7b): card time from CUDA-graph replays
+     candidate rows of qwen3-1.7b), both attention kernels also at phase
+     4c's three head layouts: card time from CUDA-graph replays
      (`device_ms`: these kernels take less time than the host needs to
      issue them), and the eager call time beside it;
   6. train qwen3-0.6b at full width (28 layers, bf16, block remat, AdamW,
@@ -130,9 +155,16 @@ SLOTS, REQUESTS, PAGE = 8, 16, 16
 PLEN, GEN = (256, 512), (32, 128)
 # zamba2's tight pool: half the pages of 8 slots at full length (40 each)
 TIGHT_PAGES = 160
+# phase 4c: the MoE family and the last dense config of one card, one
+# after another on phase 4's stream, at full width; arctic-480b's 476.9B
+# params do not fit one card, so its depth is cut (35 -> 2 layers)
+MOE, DENSE7B, ARCTIC = "qwen3-moe-30b-a3b", "deepseek-7b", "arctic-480b"
+FAMILY = ((MOE, None), (DENSE7B, None), (ARCTIC, 2))
+
 WARMUP_GEN = 4                        # budget of the warm-up batch
 # --profile: engine ticks before / inside the traced window
-WINDOW = {ARCH: (24, 12), HYBRID: (24, 6)}
+WINDOW = {ARCH: (24, 12), HYBRID: (24, 6), MOE: (24, 4), DENSE7B: (24, 6),
+          ARCTIC: (24, 6)}
 # train phase: train_4k's sequence length, its global batch of 256 cut to
 # 2 sequences on one card; one warm-up step, then TRAIN_STEPS timed
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_WARMUP = 2, 4096, 10, 20
@@ -247,7 +279,8 @@ def flash_cases():
     causal, window).  Main paths: one request's prefill, causal;
     qwen3-0.6b Hq=16, Hk=8, dh=128; zamba2-1.2b's shared block Hq=Hk=32
     (G 1), dh=64.  Extra: a window, and the bf16 kernel's 64-row / 64-key
-    tile edges, S < T, full masking, every head dim and group."""
+    tile edges, S < T, full masking, every head dim and group.  Phase
+    4c's main paths are in FAMILY_FLASH."""
     qwen = [(1, S, S, 16, 8, 128, True, None) for S in (200, 512, 1024)]
     zamba = [(1, S, S, 32, 32, 64, True, None) for S in (128, 512)]
     extra = [(1, 512, 512, 16, 8, 128, True, 128),
@@ -260,8 +293,20 @@ def flash_cases():
              (1, 129, 129, 8, 2, 32, True, 40),
              (1, 100, 192, 8, 8, 128, True, 64),
              (1, 64, 256, 4, 2, 128, False, None),
-             (2, 33, 64, 4, 1, 64, False, None)]
+             (2, 33, 64, 4, 1, 64, False, None),
+             (1, 65, 130, 14, 2, 64, True, None)]        # G 7, S < T
     return qwen, zamba, extra
+
+
+# phase 4c's prefill and decode shapes: the flash kernel at a 512-token
+# prompt, the paged kernel at 8 slots on 321 pages (the qwen3 case's
+# positions: the same seed, table width and page size)
+FAMILY_FLASH = {MOE: (1, 512, 512, 32, 4, 128, True, None),
+                DENSE7B: (1, 512, 512, 32, 32, 128, True, None),
+                ARCTIC: (1, 512, 512, 56, 8, 128, True, None)}
+FAMILY_PAGED = {MOE: (8, 321, 16, 40, 32, 4, 128),
+                DENSE7B: (8, 321, 16, 40, 32, 32, 128),
+                ARCTIC: (8, 321, 16, 40, 56, 8, 128)}
 
 
 def paged_case(B, Np, P, n_max, Hq, Hk, dh, dtype, seed, pos=None):
@@ -345,10 +390,11 @@ def check_kernels(torch, FA, PA, rows):
     errs = {"flash_attention": 0.0, f"flash_attention@{HYBRID}": 0.0,
             "paged_attention": 0.0, f"paged_attention@{HYBRID}": 0.0}
     qwen, zamba, extra = flash_cases()
+    family = list(FAMILY_FLASH.values())
     for dtype in ("bfloat16", "float32"):
         dt = getattr(torch, dtype)
         for i, (B, S, T, Hq, Hk, dh, causal, window) in enumerate(
-                qwen + zamba + extra):
+                qwen + zamba + extra + family):
             g = torch.Generator(device="cuda").manual_seed(i)
             q = torch.randn(B, S, Hq, dh, generator=g, device="cuda").to(dt)
             k = torch.randn(B, T, Hk, dh, generator=g, device="cuda").to(dt)
@@ -368,6 +414,10 @@ def check_kernels(torch, FA, PA, rows):
                 key = ("flash_attention" if i < len(qwen)
                        else f"flash_attention@{HYBRID}")
                 errs[key] = max(errs[key], e)
+            for arch, shp in FAMILY_FLASH.items():
+                if dtype == "bfloat16" and (B, S, T, Hq, Hk, dh, causal,
+                                            window) == shp:
+                    errs[f"flash_attention@{arch}"] = e
         # main paths first (8 slots, P=16; qwen3-0.6b, then zamba2-1.2b),
         # random positions, then positions at the split edges over every
         # group and page size the path may see
@@ -377,7 +427,8 @@ def check_kernels(torch, FA, PA, rows):
         edge = [(8, 16, 40, 16, 8, 128), (8, 16, 40, 32, 32, 64),
                 (4, 16, 4, 4, 4, 128), (2, 8, 64, 8, 1, 64),
                 (3, 32, 12, 8, 2, 32), (1, 16, 300, 2, 2, 64),
-                (6, 8, 20, 4, 2, 128)]
+                (6, 8, 20, 4, 2, 128), (8, 16, 40, 56, 8, 128),
+                (3, 8, 24, 7, 1, 32)]
         cases = [(shp, None) for shp in shapes]
         for B, P, n_max, Hq, Hk, dh in edge:
             cases.append(((B, B * n_max + 4, P, n_max, Hq, Hk, dh),
@@ -395,6 +446,17 @@ def check_kernels(torch, FA, PA, rows):
                 key = ("paged_attention" if i == 0
                        else f"paged_attention@{HYBRID}")
                 errs[key] = max(errs[key], e)
+        # phase 4c's decode shapes, at the qwen3 case's positions (seed 10)
+        for arch, shp in FAMILY_PAGED.items():
+            args, pools = paged_case(*shp, dt, seed=10)
+            n_splits, _ = PA.plan_splits(shp[0], shp[5], shp[3], shp[2])
+            e = check_paged(torch, PA, f"paged {dtype} {shp} ({arch}) "
+                            f"splits={n_splits} pos={args[4].tolist()}",
+                            args, pools, TOL[dtype])
+            rows.append(["paged_attention", dtype, shp,
+                         f"{arch}, splits={n_splits}", e])
+            if dtype == "bfloat16":
+                errs[f"paged_attention@{arch}"] = e
         # the verify shape: 8 slots x S 4 candidate rows (qwen3-1.7b)
         args, pools = verify_paged_case(PA, dt, seed=30)
         n_splits, _ = PA.plan_splits(args[0].shape[0], 8, 40, PAGE)
@@ -622,14 +684,17 @@ def path_layers(cfg):
 
 
 def serve(torch, cfg, params, ops, ServeEngine, Request, num_pages=None,
-          engine=None, draft_layers=0, n_requests=REQUESTS):
+          engine=None, draft_layers=0, n_requests=REQUESTS,
+          split_ticks=False):
     """One warm run of the requests through a fresh paged engine
     (`num_pages` pages, default every slot at full length; or the one
     `engine()` builds), the launch counters zeroed just before and read
     just after.  A model draft's prefill adds `draft_layers` flash
     launches to every admit.  Returns the requests, the finished ones, the
-    launches, the engine's stats, the wall time and the prefill lengths
-    of every admit by request id."""
+    launches, the engine's stats (with the run's peak device memory, and
+    with `split_ticks` the seconds of its admits and decode chunks, a
+    synchronize after each), the wall time and the prefill lengths of
+    every admit by request id."""
     reqs = make_requests(cfg, Request)[:n_requests]
     eng = (engine() if engine else
            make_engine(cfg, params, ServeEngine, num_pages))
@@ -644,12 +709,25 @@ def serve(torch, cfg, params, ops, ServeEngine, Request, num_pages=None,
         admits.append((req.rid, len(req.prompt)))
         return admit(req, slot)
     eng._admit = recording
+    tick_s = {}
+    if split_ticks:
+        tick = eng.tick
+
+        def timed():
+            t = time.perf_counter()
+            kind = tick()
+            torch.cuda.synchronize()
+            tick_s[kind] = tick_s.get(kind, 0.0) + time.perf_counter() - t
+            return kind
+        eng.tick = timed
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
     t0 = time.perf_counter()
     fins = eng.run(reqs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
     launches = {n: getattr(ops, n).launches for n in
                 ("flash_attention", "paged_attention", "ssd_scan")}
     if len(fins) != len(reqs):
@@ -660,7 +738,9 @@ def serve(torch, cfg, params, ops, ServeEngine, Request, num_pages=None,
                  f"{r.max_new_tokens}")
         if not all(0 <= t < cfg.vocab_size for t in f.tokens):
             fail(f"request {r.rid}: token out of the vocabulary")
-    st = eng.stats()
+    st = dict(eng.stats(), peak_mem_gb=peak / 1e9)
+    if split_ticks:
+        st["tick_s"] = tick_s
     attn, ssm = path_layers(cfg)
     want = {"flash_attention": (attn + draft_layers) * st["prefill_ticks"],
             "paged_attention": attn * st["decode_ticks"],
@@ -803,16 +883,145 @@ def clone_tree(tree):
     return tree.clone()
 
 
+def routed(M, cfg, fn, force=None):
+    """fn() with every MoE layer's routing recorded: (fn's result, the
+    experts each layer chose, (G, n, k) a layer, each token's choices as
+    sorted (expert, kept) codes, (tokens, k) a layer, and the router's
+    probabilities, (G, n, E) a layer).  With `force` (the experts of
+    another run, a list of one tensor a layer) every layer takes those
+    experts instead of its own top-k, gated by its own router's
+    probabilities.  The lists stay empty without MoE."""
+    chosen, codes, probs_of = [], [], []
+    top_k, slots = M.top_k, M.moe_slots
+
+    def pick(probs, k):
+        if force is None:
+            gates, idx = top_k(probs, k)
+        else:
+            idx = force[len(chosen)]
+            gates = probs.gather(-1, idx)
+        chosen.append(idx)
+        probs_of.append(probs)
+        return gates, idx
+
+    def record(eidx, E, C):
+        rows, s2s = slots(eidx, E, C)
+        code = eidx * 2 + (rows < E * C).long()
+        codes.append(code.reshape(-1, cfg.top_k).sort(-1).values)
+        return rows, s2s
+    M.top_k, M.moe_slots = pick, record
+    try:
+        out = fn()
+    finally:
+        M.top_k, M.moe_slots = top_k, slots
+    return out, chosen, codes, probs_of
+
+
+def attended(A, fn, attend=None):
+    """fn() with the first layer's prefill attention output kept: (fn's
+    result, that output).  With `attend`, every layer's prefill attention
+    runs it in place of the model's own."""
+    own, first = A.gqa_attend, []
+
+    def keep(*a, **kw):
+        out = (attend or own)(*a, **kw)
+        if not first:
+            first.append(out)
+        return out
+    A.gqa_attend = keep
+    try:
+        out = fn()
+    finally:
+        A.gqa_attend = own
+    return out, first[0]
+
+
+def sdpa_attend(q, k, v, cfg, *, causal=True, window=None):
+    """The prefill attention as torch's scaled_dot_product_attention: a
+    third correct bf16 attention, for the routing control."""
+    if window is not None:
+        raise ValueError("the routing control takes no window")
+    out = sdpa(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+               is_causal=causal)
+    return out.transpose(1, 2)
+
+
+def layer0_flips(torch, cfg, kchosen, pchosen, kprobs, pprobs):
+    """The first MoE layer's routing, two paths on the same layer input:
+    the tokens whose expert sets differ, each with the plain path's gap
+    between its k-th and (k+1)-th router probability and the largest
+    change of any of its probabilities between the paths.  A flip needs
+    gap <= 2 x that change (the two swapped experts' probabilities cross);
+    the change comes from the attention difference held before it."""
+    k = cfg.top_k
+    kc = kchosen[0].reshape(-1, k).sort(-1).values
+    pc = pchosen[0].reshape(-1, k).sort(-1).values
+    pp = pprobs[0].reshape(kc.shape[0], -1)
+    change = (kprobs[0].reshape(pp.shape) - pp).abs().max(-1).values
+    top = pp.topk(k + 1, dim=-1).values
+    gap = top[:, k - 1] - top[:, k]
+    flip = (kc != pc).any(-1)
+    g, c = gap[flip], change[flip]
+    ratio = float((g / (2 * c).clamp(min=1e-30)).max()) if len(g) else 0.0
+    return {"tokens": kc.shape[0], "flipped": int(flip.sum()),
+            "gap_flipped_max": float(g.max()) if len(g) else None,
+            "gap_over_2change_max": ratio,
+            "gap_all_median": float(gap.median()),
+            "change_all_median": float(change.median()),
+            "change_all_max": float(change.max())}
+
+
+def route_agreement(torch, a, b):
+    """Two paths' recorded choices: {(token, layer) pairs, the pairs
+    whose choices differ, tokens, tokens that differ at some layer, and
+    by layer the tokens whose choices first differ there}."""
+    diff = torch.stack([(x != y).any(-1) for x, y in zip(a, b)])
+    anyd = diff.any(0)
+    first = diff.int().argmax(0)[anyd].tolist()
+    return {"pairs": diff.numel(), "differ": int(diff.sum()),
+            "tokens": diff.shape[1], "tokens_differ": int(anyd.sum()),
+            "first_differ_by_layer": {l: first.count(l)
+                                      for l in sorted(set(first))}}
+
+
+def hold_logits(what, lk, lp):
+    """Kernel-path logits lk against plain-path lp, every row: max |diff|
+    within LOGIT_TOL x max(1, max|plain logit|).  Returns (err, scale)."""
+    a, b = lk.float(), lp.float()
+    scale = max(1.0, float(b.abs().max()))
+    err = max_err(a, b)
+    if err > LOGIT_TOL * scale:
+        fail(f"{what} logits differ by {err} (> {LOGIT_TOL} x {scale})")
+    return err, scale
+
+
 def compare_plain_paths(torch, cfg, params, MD, SS, reqs):
     """Prefill (flash, and ssd_scan in the hybrid) and one paged decode
     tick (paged kernel) with the kernel flags on, against the same with
-    them off.  In the hybrid, the plain path's scan is wrapped: at every
-    Mamba2 layer the kernel runs on the very inputs the plain scan got,
-    and its y and final state are held to SSD_TOL of their largest entry
-    (later layers' inputs differ between the two whole paths, so the
-    paths' states tell kernel error and bf16 drift apart only there)."""
+    them off: the last prefill position's logits and the decode rows'.
+    In the hybrid, the plain path's scan is wrapped: at every Mamba2
+    layer the kernel runs on the very inputs the plain scan got, and its
+    y and final state are held to SSD_TOL of their largest entry (later
+    layers' inputs differ between the two whole paths, so the paths'
+    states tell kernel error and bf16 drift apart only there).
+    In a MoE model the bf16 difference between the attention paths flips
+    router near-ties (top-8 of 128 at qwen3-moe's width: about one token
+    in twenty at the first layer), and a flip swaps an expert's whole
+    contribution, so the token's later layers route apart too.  The plain
+    path runs three times: on its own routing, where the (token, layer)
+    choices that differ from the kernel path's are counted and reported;
+    with the kernel path's expert choices, where every prefill position's
+    and every decode row's logits are held; and with SDPA for its prefill
+    attention, a control whose flips against the plain path are reported
+    beside the kernel's.  At the first layer both paths see the same
+    input: there the flash output is held to the bf16 kernel tolerance,
+    and every flipped token must be a near-tie the measured change of
+    its router probabilities crosses (`layer0_flips`)."""
+    from repro_torch.models import attention as A
+    from repro_torch.models import mlp as M
     from repro_torch.models import ssm as SSM
     plain = plain_cfg(cfg)
+    moe = cfg.arch_type == "moe"
     res = {}
     prompts = [torch.as_tensor(r.prompt, device="cuda")[None].int()
                for r in reqs[:2]]
@@ -826,21 +1035,39 @@ def compare_plain_paths(torch, cfg, params, MD, SS, reqs):
         layer_err.append(max(max_err(yk, yp) / float(yp.abs().max()),
                              max_err(fk, fp) / float(fp.abs().max())))
         return yp, fp
-    lk, _, ck = MD.forward(params, cfg, prompts[0], return_cache=True)
+
+    def prefill(c, force=None, attend=None):
+        return attended(A, lambda: routed(M, cfg, lambda: MD.forward(
+            params, c, prompts[0], return_cache=True), force), attend)
+    ((lk, _, ck), kchosen, kcodes, kprobs), katt = prefill(cfg)
     SSM.ssd_scan_ref = held
     try:
-        lp, _, cp = MD.forward(params, plain, prompts[0], return_cache=True)
+        ((lp, _, cp), pchosen, pcodes, pprobs), patt = prefill(plain)
     finally:
         SSM.ssd_scan_ref = scan
     for name, a in (("kernel", lk), ("plain", lp)):
         if not bool(torch.isfinite(a.float()).all()):
             fail(f"prefill logits ({name} path) not finite")
-    scale = max(1.0, float(lp[0, -1].float().abs().max()))
-    err = max_err(lk[0, -1], lp[0, -1])
-    if err > LOGIT_TOL * scale:
-        fail(f"prefill last-position logits differ by {err} "
-             f"(> {LOGIT_TOL} x {scale})")
     same = float((lk.argmax(-1) == lp.argmax(-1)).float().mean())
+    if moe:                     # every position, the same experts
+        ref = prefill(plain, kchosen)[0][0][0]
+        err, scale = hold_logits("prefill", lk[0], ref[0])
+        att_err = check_close("layer-0 attention, kernel vs plain path",
+                              katt, patt, TOL["bfloat16"])
+        flips = layer0_flips(torch, cfg, kchosen, pchosen, kprobs, pprobs)
+        if not flips["gap_over_2change_max"] <= 1.0:
+            fail(f"layer-0 routing: a flipped token's top-k gap is "
+                 f"{flips['gap_over_2change_max']} x twice its router "
+                 f"probabilities' change: not a near-tie")
+        (_, schosen, scodes, sprobs), _ = prefill(plain,
+                                                  attend=sdpa_attend)
+        control = route_agreement(torch, scodes, pcodes)
+        control["layer0"] = layer0_flips(torch, cfg, schosen, pchosen,
+                                         sprobs, pprobs)
+        del schosen, scodes, sprobs
+    else:
+        err, scale = hold_logits("prefill last-position", lk[0, -1],
+                                 lp[0, -1])
     res["prefill"] = {"S": prompts[0].shape[1], "max_abs_err": err,
                       "logit_scale": scale, "greedy_same_share": same}
     if cfg.arch_type == "hybrid":
@@ -877,19 +1104,31 @@ def compare_plain_paths(torch, cfg, params, MD, SS, reqs):
     tok = torch.tensor(toks, device="cuda", dtype=torch.int32)[:, None]
     pos = torch.tensor(pos, device="cuda", dtype=torch.int32)
     active = torch.ones(2, dtype=torch.bool, device="cuda")
-    pool2 = clone_tree(pool)
-    dk, _ = MD.decode_step(params, cfg, tok, pos, pool, active=active,
-                           block_tables=ids, logical_len=n_max * PAGE)
-    dp, _ = MD.decode_step(params, plain, tok, pos, pool2, active=active,
-                           block_tables=ids, logical_len=n_max * PAGE)
-    scale = max(1.0, float(dp.float().abs().max()))
-    err = max_err(dk, dp)
-    if err > LOGIT_TOL * scale:
-        fail(f"paged decode logits differ by {err} "
-             f"(> {LOGIT_TOL} x {scale})")
+    pools = [clone_tree(pool) for _ in range(2 if moe else 1)]
+
+    def decode(c, cache, force=None):
+        return routed(M, cfg, lambda: MD.decode_step(
+            params, c, tok, pos, cache, active=active, block_tables=ids,
+            logical_len=n_max * PAGE), force)
+    (dk, _), dchosen, dkcodes, _ = decode(cfg, pool)
+    (dp, _), _, dpcodes, _ = decode(plain, pools[0])
+    ref = decode(plain, pools[1], dchosen)[0][0] if moe else dp
+    err, scale = hold_logits("paged decode", dk, ref)
     same = float((dk.argmax(-1) == dp.argmax(-1)).float().mean())
     res["decode"] = {"B": 2, "max_abs_err": err, "logit_scale": scale,
                      "greedy_same_share": same}
+    if moe:
+        pre = route_agreement(torch, kcodes, pcodes)
+        dec = route_agreement(torch, dkcodes, dpcodes)
+        res["routing"] = {
+            "pairs": pre["pairs"] + dec["pairs"],
+            "differ": pre["differ"] + dec["differ"],
+            "share": ((pre["differ"] + dec["differ"])
+                      / (pre["pairs"] + dec["pairs"])),
+            "prefill": pre, "decode": dec,
+            "layer0": dict(flips, attention_max_abs_err=att_err,
+                           attention_max_abs=float(patt.float().abs().max())),
+            "sdpa_control": control}
     return res
 
 
@@ -897,7 +1136,8 @@ def compare_plain_paths(torch, cfg, params, MD, SS, reqs):
 # phase 5: times and bounds
 # ---------------------------------------------------------------------------
 # timed shapes (Hq, Hk, dh) of the serve paths' attention
-HEADS = {ARCH: (16, 8, 128), HYBRID: (32, 32, 64), TARGET: (16, 8, 128)}
+HEADS = {ARCH: (16, 8, 128), HYBRID: (32, 32, 64), TARGET: (16, 8, 128),
+         MOE: (32, 4, 128), DENSE7B: (32, 32, 128), ARCTIC: (56, 8, 128)}
 
 
 def time_flash(torch, FA, heads, S=512):
@@ -1457,6 +1697,138 @@ def drain_phase(torch, card, arch, ops, MD, ample):
             "same_token_share": share}
 
 
+# ---------------------------------------------------------------------------
+# phase 4c: the MoE family and deepseek-7b
+# ---------------------------------------------------------------------------
+def tick_bytes(cfg, params, st):
+    """Bytes a decode tick must move at least: every weight once (all
+    experts: at decode the capacity dispatch runs every expert's C slots,
+    routed or not), the embedding's SLOTS rows rather than its table, and
+    the K/V of the pages in use at the run's mean pool occupancy."""
+    from repro_torch.models.common import tree_leaves
+    emb = params["embed"]
+    weights = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    weights += (SLOTS - emb.shape[0]) * emb.shape[1] * emb.element_size()
+    kv = (st["pool_occupancy"] * st["num_pages"] * PAGE * cfg.num_layers
+          * 2 * cfg.num_kv_heads * cfg.head_dim * 2)
+    return weights, kv
+
+
+def family_phase(torch, card, ops, MD, SS, ServeEngine, Request,
+                 profile=False):
+    """qwen3-moe-30b-a3b and deepseek-7b at full width, then arctic-480b
+    at its published widths with its depth cut, one after another (each
+    one's params freed before the next is drawn), each serving phase 4's
+    stream through the paged engine with the kernels on: launch counts
+    exact, every request at its full budget, tokens/s, ticks, occupancy,
+    peak device memory, ms a decode tick against its bytes bound (a
+    synchronize after every admit and decode chunk); then the kernel path
+    against the plain path (routing flips counted for the MoE models, the
+    logits held on the kernel path's expert choices)."""
+    import gc
+    from repro_torch.models.config import param_count
+    out = []
+    t_phase = time.perf_counter()
+    # earlier phases' engines sit in reference cycles (their wrapped
+    # admits) with their models' params: free them first, so that the
+    # peak memory below is this phase's own
+    gc.collect()
+    torch.cuda.empty_cache()
+    for arch, depth in FAMILY:
+        t_model = time.perf_counter()
+        cfg = kernel_cfg(arch)
+        full_layers, (full, _) = cfg.num_layers, param_count(cfg)
+        if depth:
+            cfg = cfg.with_(num_layers=depth)
+        total, active = param_count(cfg)
+        t0 = time.perf_counter()
+        params = MD.init_model(cfg, torch.Generator(device="cuda")
+                               .manual_seed(0))
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        reqs, fins, launches, st, wall, _ = serve(
+            torch, cfg, params, ops, ServeEngine, Request, split_ticks=True)
+        weights, kv = tick_bytes(cfg, params, st)
+        bound_ms = 1e3 * (weights + kv) / PEAK_BYTES
+        tick_ms = 1e3 * st["tick_s"].get("decode", 0.0) / st["decode_ticks"]
+        admit_ms = (1e3 * st["tick_s"].get("prefill", 0.0)
+                    / st["prefill_ticks"])
+        tps = st["generated_tokens"] / wall
+        cut = (f", depth cut to {depth} of {full_layers} layers (its "
+               f"{full / 1e9:.1f}B params at full depth do not fit one "
+               f"card)" if depth else "")
+        moe = (f", {cfg.num_experts} experts of {cfg.expert_d_ff} top-"
+               f"{cfg.top_k} cf {cfg.capacity_factor}"
+               + (f" + dense residual {cfg.dense_residual_d_ff}"
+                  if cfg.moe_dense_residual else "")
+               if cfg.arch_type == "moe" else f", d_ff {cfg.d_ff}")
+        print(f"family serve [{card}]: {arch} {total / 1e9:.2f}B params "
+              f"({active / 1e9:.2f}B active) bf16, {cfg.num_layers} layers"
+              f"{cut}, d_model {cfg.d_model}, {cfg.num_heads}/"
+              f"{cfg.num_kv_heads} heads of {cfg.head_dim} (G "
+              f"{cfg.num_heads // cfg.num_kv_heads}){moe}; params drawn in "
+              f"{init_s:.1f} s; {SLOTS} slots, {REQUESTS} requests: "
+              f"{st['generated_tokens']} tokens in {wall:.2f} s = "
+              f"{tps:.1f} tok/s, admits={st['prefill_ticks']} "
+              f"decode_ticks={st['decode_ticks']} "
+              f"occupancy={st['occupancy']:.3f} "
+              f"pool_occupancy={st['pool_occupancy']:.3f}, peak memory "
+              f"{st['peak_mem_gb']:.2f} GB; a decode tick {tick_ms:.2f} ms "
+              f"(bound {bound_ms:.2f} ms: {weights / 1e9:.2f} GB of "
+              f"weights + {kv / 1e9:.3f} GB of K/V at "
+              f"{PEAK_BYTES / 1e12:.2f} TB/s), an admit {admit_ms:.2f} ms; "
+              f"launches={launches}")
+        prof = None
+        if profile:
+            prof = profile_serve(torch, cfg, params, ServeEngine, Request)
+            print(f"split [{card}] {arch}: {json.dumps(prof['split'])}")
+            print_trace(card, f"trace {arch}", prof["trace"])
+        plain = compare_plain_paths(torch, cfg, params, MD, SS, reqs)
+        print(f"kernel vs plain path [{card}] {arch}: {json.dumps(plain)}")
+        if "routing" in plain:
+            r = plain["routing"]
+            print(f"routing [{card}] {arch}: {r['differ']} of {r['pairs']} "
+                  f"(token, layer) expert choices differ between the kernel "
+                  f"and plain paths ({r['share']:.4f}); prefill tokens "
+                  f"routed apart at some layer {r['prefill']['tokens_differ']}"
+                  f" of {r['prefill']['tokens']}, first at layers "
+                  f"{r['prefill']['first_differ_by_layer']}; logits held "
+                  f"on the kernel path's choices")
+            z, c = r["layer0"], r["sdpa_control"]
+            print(f"routing [{card}] {arch} layer 0 (same input on both "
+                  f"paths): flash vs plain attention max|err| "
+                  f"{z['attention_max_abs_err']:.3g} (of max "
+                  f"{z['attention_max_abs']:.3g}); {z['flipped']} of "
+                  f"{z['tokens']} tokens flipped, their top-k gap at most "
+                  f"{z['gap_flipped_max']} ({z['gap_over_2change_max']:.3f}"
+                  f" x twice their probabilities' change; all tokens' "
+                  f"median gap {z['gap_all_median']:.3g}, median change "
+                  f"{z['change_all_median']:.3g}); control, plain path "
+                  f"with SDPA against the plain path: {c['differ']} of "
+                  f"{c['pairs']} prefill choices differ "
+                  f"({c['differ'] / c['pairs']:.4f}, kernel "
+                  f"{r['prefill']['differ'] / r['prefill']['pairs']:.4f}), "
+                  f"{c['layer0']['flipped']} tokens flipped at layer 0")
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        secs = time.perf_counter() - t_model
+        out.append({"arch": arch, "layers": cfg.num_layers,
+                    "full_layers": full_layers, "params": total,
+                    "active_params": active, "full_depth_params": full,
+                    "launches": launches, "init_s": init_s,
+                    "stats": dict(st, wall_s=wall, tok_s=tps),
+                    "decode_tick_ms": tick_ms, "admit_ms": admit_ms,
+                    "tick_bound_ms": bound_ms, "tick_weight_bytes": weights,
+                    "tick_kv_bytes": kv, "plain_paths": plain,
+                    "profile": prof,
+                    "seconds": secs})
+        print(f"family [{card}]: {arch} took {secs:.1f} s")
+    print(f"family [{card}]: phase 4c took "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
@@ -1532,6 +1904,8 @@ def main(argv=None) -> int:
     spec = spec_phase(torch, card, ops, MD)                     # phase 4b
     drains = [drain_phase(torch, card, arch, ops, MD, ample[arch])
               for arch in (ARCH, HYBRID)]
+    family = family_phase(torch, card, ops, MD, SS, ServeEngine,  # 4c
+                          Request, args.profile)
 
     mid = [PLEN[0] + (PLEN[1] + GEN[1] - PLEN[0]) * i // SLOTS
            for i in range(SLOTS)]
@@ -1542,6 +1916,11 @@ def main(argv=None) -> int:
                                                      mid)
     timing["paged_attention@verify"] = time_paged_verify(torch, PA,
                                                          HEADS[TARGET], mid)
+    for arch, _ in FAMILY:
+        timing[f"flash_attention@{arch}"] = time_flash(torch, FA,
+                                                       HEADS[arch])
+        timing[f"paged_attention@{arch}"] = time_paged(torch, PA,
+                                                       HEADS[arch], mid)
     # beyond the serve paths' prompts (at most 512): where flash stands
     # against SDPA on longer prefills
     timing["flash_attention S=1024"] = time_flash(torch, FA, HEADS[ARCH],
@@ -1582,7 +1961,7 @@ def main(argv=None) -> int:
           f"and moments bit-identical")
 
     # launches by path: each counted from zero over its own main-path run
-    by_path = {f"{p['arch']} serve": p["launches"] for p in paths}
+    by_path = {f"{p['arch']} serve": p["launches"] for p in paths + family}
     by_path.update({f"{p['arch']} serve, tight pool": p["tight_pool"]
                     ["launches"] for p in paths if p["tight_pool"]})
     by_path.update({p: run["launches"] for p, run in spec["runs"].items()})
@@ -1605,6 +1984,9 @@ def main(argv=None) -> int:
              "src/repro/kernels/paged_attention.py:77"),
             ("paged_attention@verify", "paged_attention",
              "src/repro/kernels/paged_attention.py:77"),
+            *((f"{k}@{arch}", k, f"src/repro/kernels/{k}.py:77")
+              for arch, _ in FAMILY
+              for k in ("flash_attention", "paged_attention")),
             ("ssd_scan", "ssd_scan", "src/repro/kernels/ssd_scan.py:69"),
             ("nc_pack", "nat_compress", "src/repro/kernels/nat_compress.py:56"),
             ("nc_unpack", "nat_compress",
@@ -1629,6 +2011,7 @@ def main(argv=None) -> int:
     elapsed = time.perf_counter() - t_start
     result = {"card": card, "build_s": build_s, "elapsed_s": elapsed,
               "checks": rows, "serve": paths, "spec": spec,
+              "family": family,
               "drain": drains, "nc_checks": nc_rows,
               "timing": dict(timing, nc=nc_t),
               "train": tr}

@@ -15,6 +15,11 @@ import torch
 
 from repro_torch import DeviceLike, resolve_device
 
+# leaves the port's descriptors keep fp32 whatever the param dtype (the
+# MoE router, `models/mlp.py::moe_descs`; the Mamba2 scalars,
+# `models/ssm.py`): a cast leaves them fp32
+FP32_LEAVES = frozenset({"router", "A_log", "D", "dt_bias"})
+
 
 def _leaf_to_torch(a, device: torch.device,
                    dtype: Optional[torch.dtype]) -> torch.Tensor:
@@ -29,10 +34,14 @@ def _leaf_to_torch(a, device: torch.device,
 def params_from_numpy(tree: Any, device: DeviceLike = None,
                       dtype: Optional[torch.dtype] = None) -> Any:
     """Nested dict of numpy arrays -> the same dict of tensors on `device`
-    (the CUDA card unless given), cast to `dtype` when given."""
+    (the CUDA card unless given), cast to `dtype` when given, apart from
+    the leaves named in FP32_LEAVES, which become fp32."""
     dev = resolve_device(device)
     if isinstance(tree, dict):
-        return {k: params_from_numpy(v, dev, dtype) for k, v in tree.items()}
+        return {k: (_leaf_to_torch(v, dev, torch.float32)
+                    if dtype is not None and k in FP32_LEAVES
+                    else params_from_numpy(v, dev, dtype))
+                for k, v in tree.items()}
     return _leaf_to_torch(tree, dev, dtype)
 
 

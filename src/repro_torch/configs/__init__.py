@@ -14,6 +14,9 @@ from repro_torch.models.config import ModelConfig
 _MODULES = {
     "qwen3-0.6b": "qwen3_0p6b",
     "qwen3-1.7b": "qwen3_1p7b",
+    "deepseek-7b": "deepseek_7b",
+    "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
+    "arctic-480b": "arctic_480b",
     "zamba2-1.2b": "zamba2_1p2b",
 }
 

@@ -339,6 +339,9 @@ int dispatch_g(const void* q, const void* kp, const void* vp, const int* bt,
     case 4:
       return launch<T, DH, 4>(q, kp, vp, bt, pos, o, ws, B, Hk, P, n_pages,
                               bt_stride, n_splits, span, scale, st);
+    case 7:                            // 56/8 heads (arctic-480b)
+      return launch<T, DH, 7>(q, kp, vp, bt, pos, o, ws, B, Hk, P, n_pages,
+                              bt_stride, n_splits, span, scale, st);
     case 8:
       return launch<T, DH, 8>(q, kp, vp, bt, pos, o, ws, B, Hk, P, n_pages,
                               bt_stride, n_splits, span, scale, st);

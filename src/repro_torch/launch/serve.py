@@ -14,7 +14,10 @@ lookup draft, or with --draft-arch a smaller model of the same vocabulary
 
 Runs on the CUDA card (the attention kernels, and for the hybrid family
 the SSD scan kernel, on) unless --device cpu, where the kernel wrappers
-take their plain PyTorch versions.  The hybrid family (--arch zamba2-1.2b)
+take their plain PyTorch versions.  --arch takes the ported configs:
+qwen3-0.6b, qwen3-1.7b, deepseek-7b (dense), qwen3-moe-30b-a3b,
+arctic-480b (MoE; arctic's 476.9B params need more than one card) and
+zamba2-1.2b (hybrid).  The hybrid family
 prefills any prompt length: its chunked scan takes a ragged last chunk,
 where the JAX package asserts a whole number of chunks.
 
@@ -29,6 +32,8 @@ Usage:
       --continuous --paged --requests 16 --batch 8 --prompt-len 512 --gen 128
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \
       --continuous --paged --speculative --draft-arch qwen3-0.6b
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch qwen3-moe-30b-a3b --continuous --paged --requests 16 --batch 8
 
 Not ported yet: --replicas, --hedged, the transports and tracing.
 """

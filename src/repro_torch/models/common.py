@@ -33,6 +33,10 @@ class ParamDesc:
     fan_in: Optional[int] = None  # for 'normal': scale = 1/sqrt(fan_in)
 
 
+# elements drawn in one piece (4 GiB of fp32)
+DRAW_CHUNK = 1 << 30
+
+
 def _materialize(desc: ParamDesc, generator: torch.Generator,
                  device: torch.device) -> torch.Tensor:
     dtype = torch_dtype(desc.dtype)
@@ -46,9 +50,18 @@ def _materialize(desc: ParamDesc, generator: torch.Generator,
     scale = 1.0 / math.sqrt(max(fan_in, 1))
     if desc.init == "small_normal":
         scale = 0.02
-    x = torch.randn(desc.shape, generator=generator, dtype=torch.float32,
-                    device=device)
-    return (x * scale).to(dtype)
+    # drawn in fp32 chunks straight into the leaf's dtype, so a stacked
+    # expert leaf at full width needs no full fp32 temporary; a leaf of
+    # one chunk draws the same stream as one randn of its whole shape
+    numel = math.prod(desc.shape)
+    out = torch.empty(desc.shape, dtype=dtype, device=device)
+    flat = out.view(-1)
+    for i in range(0, numel, DRAW_CHUNK):
+        m = min(DRAW_CHUNK, numel - i)
+        x = torch.randn(m, generator=generator, dtype=torch.float32,
+                        device=device)
+        flat[i:i + m] = x.mul_(scale)
+    return out
 
 
 def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:

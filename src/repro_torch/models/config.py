@@ -3,7 +3,7 @@
 A copy of the JAX package's ``models/config.py`` (the port imports nothing
 from it): one dataclass covers the six arch types dense / moe / ssm /
 hybrid / vlm / audio.  Fields unused by a family are ignored by its
-builder.  The port runs the dense and hybrid families so far;
+builder.  The port runs the dense, MoE and hybrid families so far;
 ``use_flash_kernel``, ``use_paged_kernel`` and ``use_ssd_kernel`` select
 the hand-written CUDA kernels.
 """

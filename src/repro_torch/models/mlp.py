@@ -1,7 +1,12 @@
-"""Dense MLP (swiglu / squared_relu / gelu).
+"""Dense MLP (swiglu / squared_relu / gelu) and GShard-style
+Mixture-of-Experts with capacity routing.
 
-The PyTorch counterpart of the dense half of the JAX package's
-``models/mlp.py``; Mixture-of-Experts is not ported yet (ROADMAP.md).
+The PyTorch counterpart of the JAX package's ``models/mlp.py``.  The MoE
+layer keeps the reference's semantics step by step: group-wise routing,
+an fp32 router, top-k with renormalised gates, the Switch load-balance
+loss, sort-based position-in-expert, capacity C = max(int(cf*n*k/E), k)
+with dropped choices sent to a trash row, and dispatch / combine as
+batched gathers around the expert products.
 """
 from __future__ import annotations
 
@@ -36,3 +41,125 @@ def mlp(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
         # jax.nn.gelu defaults to the tanh approximation
         h = F.gelu(dense(x, p["w1"]), approximate="tanh")
     return dense(h, p["w2"])
+
+
+# --------------------------------------------------------------------------
+# Mixture of Experts
+# --------------------------------------------------------------------------
+def moe_descs(cfg: ModelConfig,
+              dtype: Optional[str] = None) -> Dict[str, ParamDesc]:
+    dt = dtype or cfg.param_dtype
+    d, E, ffe = cfg.d_model, cfg.num_experts, cfg.expert_d_ff
+    descs = {
+        # the router stays fp32 in a bf16 model, as in the reference
+        "router": ParamDesc((d, E), "float32", fan_in=d),
+        "w1": ParamDesc((E, d, ffe), dt, fan_in=d),
+        "w2": ParamDesc((E, ffe, d), dt, fan_in=ffe),
+    }
+    if cfg.activation == "swiglu":
+        descs["w3"] = ParamDesc((E, d, ffe), dt, fan_in=d)
+    if cfg.moe_dense_residual:
+        descs["dense"] = mlp_descs(cfg, cfg.dense_residual_d_ff, dt)
+    return descs
+
+
+def moe_capacity(cfg: ModelConfig, num_tokens: int) -> int:
+    cap = int(cfg.capacity_factor * num_tokens * cfg.top_k / cfg.num_experts)
+    return max(cap, cfg.top_k)
+
+
+def top_k(x: torch.Tensor, k: int):
+    """jax.lax.top_k over the last dim: values descending, ties to the
+    lower index (a stable descending sort)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def moe_slots(eidx: torch.Tensor, num_experts: int, capacity: int):
+    """Capacity slots of every (token, choice), per group.  eidx: (G, n*k)
+    expert ids in (token, choice) order.  A stable sort groups the choices
+    by expert in token order, so position-in-expert = rank - segment
+    start; a choice at position >= C is dropped to the trash row E*C.
+    Returns (rows (G, n*k): the slot of each choice, slot_to_src
+    (G, E*C + 1): the choice each slot holds, n*k where none does)."""
+    G, nk = eidx.shape
+    E, C = num_experts, capacity
+    order = torch.sort(eidx, dim=1, stable=True).indices
+    sorted_e = eidx.gather(1, order)
+    iota = torch.arange(nk, device=eidx.device).expand(G, nk)
+    is_start = torch.ones_like(sorted_e, dtype=torch.bool)
+    is_start[:, 1:] = sorted_e[:, 1:] != sorted_e[:, :-1]
+    seg_start = torch.cummax(torch.where(is_start, iota, 0), dim=1).values
+    pos = torch.empty_like(eidx).scatter_(1, order, iota - seg_start)
+    rows = torch.where(pos < C, eidx * C + pos, E * C)
+    # kept choices own distinct slots; only the trash slot E*C is written
+    # more than once, and it is sliced off, so a nondeterministic scatter
+    # cannot change a kept slot
+    slot_to_src = torch.full((G, E * C + 1), nk, dtype=eidx.dtype,
+                             device=eidx.device)
+    slot_to_src.scatter_(1, rows, iota)
+    return rows, slot_to_src
+
+
+def _experts(p, eb: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The expert products, batched over experts.  eb: (G, E, C, d) ->
+    (G, E, C, d): gecd,edf->gecf then gecf,efd->gecd as (E, G*C, .)
+    batched matrix products over the stacked (E, ...) weights."""
+    G, E, C, d = eb.shape
+    xe = eb.transpose(0, 1).reshape(E, G * C, d)
+    dt = eb.dtype
+    h = torch.bmm(xe, p["w1"].to(dt))
+    if cfg.activation == "swiglu":
+        h = F.silu(h) * torch.bmm(xe, p["w3"].to(dt))
+    else:
+        h = F.relu(h).square()
+    out = torch.bmm(h, p["w2"].to(dt))
+    return out.reshape(E, G, C, d).transpose(0, 1)
+
+
+def moe(p, x: torch.Tensor, cfg: ModelConfig, groups: Optional[int] = None):
+    """x: (B,S,d) -> (y, aux_loss).  GShard-style GROUP-WISE routing:
+    tokens are routed within independent groups (default: one group per
+    sequence when S > 1, else all B rows one group; cfg.moe_groups
+    overrides), each with its own capacity C = max(int(cf*n*k/E), k)."""
+    B, S, d = x.shape
+    E, k = cfg.num_experts, cfg.top_k
+    N = B * S
+    if groups is None:
+        groups = cfg.moe_groups or None
+    G = groups if groups is not None else (B if S > 1 else 1)
+    if N % G:
+        raise ValueError(f"moe: {N} tokens do not split into {G} groups")
+    n = N // G
+    C = moe_capacity(cfg, n)
+    xg = x.reshape(G, n, d)
+
+    logits = xg.float() @ p["router"].float()
+    probs = torch.softmax(logits, dim=-1)
+    gate, idx = top_k(probs, k)                          # (G, n, k)
+    gate = gate / gate.sum(-1, keepdim=True).clamp(min=1e-9)
+
+    # Switch-style load-balance auxiliary loss (global statistics)
+    density = F.one_hot(idx[..., 0], E).float().mean(dim=(0, 1))
+    aux = E * torch.sum(density * probs.mean(dim=(0, 1)))
+
+    rows, slot_to_src = moe_slots(idx.reshape(G, n * k), E, C)
+    # dispatch: slot <- its choice's token (choice j of token t is source
+    # t*k + j, as in the reference's token-repeated rows); empty slots
+    # read the zero row n
+    src = slot_to_src[:, :E * C]
+    tok = torch.where(src < n * k, src // k, n)
+    xpad = torch.cat([xg, xg.new_zeros(G, 1, d)], dim=1)
+    eb = xpad.gather(1, tok[:, :, None].expand(G, E * C, d))
+    out = _experts(p, eb.reshape(G, E, C, d), cfg)
+
+    # combine: each choice reads its slot (dropped ones the zero row E*C)
+    flat = torch.cat([out.reshape(G, E * C, d), out.new_zeros(G, 1, d)],
+                     dim=1)
+    gathered = flat.gather(1, rows[:, :, None].expand(G, n * k, d))
+    gathered = gathered.reshape(G, n, k, d)
+    y = torch.sum(gathered * gate[..., None].to(out.dtype), dim=2)
+    y = y.reshape(B, S, d)
+    if cfg.moe_dense_residual:
+        y = y + mlp(p["dense"], x, cfg)
+    return y, aux

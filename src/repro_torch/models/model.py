@@ -1,4 +1,4 @@
-"""Top-level decoder LM: the dense family, and the hybrid family
+"""Top-level decoder LM: the dense and MoE families, and the hybrid family
 (Zamba2-style Mamba2 layers with one shared attention+MLP block).
 
 The PyTorch counterpart of the JAX package's ``models/model.py``.  Per-layer
@@ -30,7 +30,7 @@ from repro_torch.models.common import (ParamDesc, dense, init_params,
                                        rms_norm, torch_dtype, tree_map)
 from repro_torch.models.config import ModelConfig
 
-_PORTED = ("dense", "hybrid")
+_PORTED = ("dense", "moe", "hybrid")
 
 
 def _require_ported(cfg: ModelConfig) -> None:
@@ -61,6 +61,9 @@ def block_descs(cfg: ModelConfig) -> Dict[str, Any]:
     _require_ported(cfg)
     if cfg.arch_type == "hybrid":
         return {"ln": _norm_desc(cfg), "ssm": SSM.ssm_descs(cfg)}
+    if cfg.arch_type == "moe":
+        return {"ln1": _norm_desc(cfg), "attn": A.attn_descs(cfg),
+                "ln2": _norm_desc(cfg), "moe": M.moe_descs(cfg)}
     return _attn_mlp_block_descs(cfg)
 
 
@@ -106,14 +109,25 @@ def _attn_sublayer(p, x, positions, cfg):
     return x + y, (k, v)
 
 
+def _ffn(p, h, cfg):
+    """The layer's feed-forward half on the normed h: (y, aux) -- the MoE
+    layer with its load-balance loss, or the dense MLP (aux None)."""
+    if "moe" in p:
+        return M.moe(p["moe"], h, cfg)
+    return M.mlp(p["mlp"], h, cfg), None
+
+
 def _apply_attn_mlp(p, x, positions, cfg):
+    """(x, (k, v), aux) of one attention + feed-forward layer."""
     x, kv = _attn_sublayer(p, x, positions, cfg)
-    h = rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + M.mlp(p["mlp"], h, cfg), kv
+    y, aux = _ffn(p, rms_norm(x, p["ln2"], cfg.norm_eps), cfg)
+    return x + y, kv, aux
 
 
 def _block(p, x, positions, cfg):
-    return _apply_attn_mlp(p, x, positions, cfg)[0]
+    """(x, aux): the unit that block remat recomputes."""
+    x, _, aux = _apply_attn_mlp(p, x, positions, cfg)
+    return x, aux
 
 
 def _shared_after(i: int, cfg: ModelConfig) -> bool:
@@ -127,7 +141,7 @@ def _hybrid_layer(lp, shared, x, positions, cfg, with_shared: bool):
     that block remat recomputes)."""
     pre = rms_norm(x, lp["ln"], cfg.norm_eps)
     x = x + SSM.ssm_block(lp["ssm"], pre, cfg)[0]
-    return _block(shared, x, positions, cfg) if with_shared else x
+    return _block(shared, x, positions, cfg)[0] if with_shared else x
 
 
 def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *,
@@ -153,28 +167,32 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *,
     remat = (cfg.remat == "block" and torch.is_grad_enabled()
              and not return_cache)
     run = _run_hybrid if cfg.arch_type == "hybrid" else _run_dense
-    x, cache = run(params, cfg, x, positions, return_cache, C, remat)
+    x, aux, cache = run(params, cfg, x, positions, return_cache, C, remat)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = dense(x, params["lm_head"])
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return logits, aux, cache
 
 
 def _run_dense(params, cfg, x, positions, return_cache, C, remat):
+    """The dense and MoE stacks; aux sums the MoE layers' losses."""
     B, S, _ = x.shape
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     cache = None
     if return_cache:
         cache = A.init_kv_cache(cfg, B, C, cfg.num_layers, x.dtype, x.device)
     for i in range(cfg.num_layers):
         lp = _layer(params["blocks"], i)
         if remat:
-            x = checkpoint(_block, lp, x, positions, cfg, use_reentrant=False)
-            continue
-        x, (k, v) = _apply_attn_mlp(lp, x, positions, cfg)
-        if return_cache:
-            cache["k"][i, :, :S] = k
-            cache["v"][i, :, :S] = v
-    return x, cache
+            x, a = checkpoint(_block, lp, x, positions, cfg,
+                              use_reentrant=False)
+        else:
+            x, (k, v), a = _apply_attn_mlp(lp, x, positions, cfg)
+            if return_cache:
+                cache["k"][i, :, :S] = k
+                cache["v"][i, :, :S] = v
+        if a is not None:
+            aux = aux + a
+    return x, aux, cache
 
 
 def _run_hybrid(params, cfg, x, positions, return_cache, C, remat):
@@ -201,12 +219,12 @@ def _run_hybrid(params, cfg, x, positions, return_cache, C, remat):
             for n, ring in conv.items():
                 cache["conv"][n][i] = ring
         if with_shared:
-            x, (k, v) = _apply_attn_mlp(shared, x, positions, cfg)
+            x, (k, v), _ = _apply_attn_mlp(shared, x, positions, cfg)
             if return_cache:
                 j = i // cfg.hybrid_attn_every
                 cache["sk"][j, :, :S] = k
                 cache["sv"][j, :, :S] = v
-    return x, cache
+    return x, torch.zeros((), dtype=torch.float32, device=x.device), cache
 
 
 # ---------------------------------------------------------------------------
@@ -242,7 +260,7 @@ def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor, pos, cache,
                                      logical_len=logical_len)
         x = x + y
         pre2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
-        x = x + M.mlp(lp["mlp"], pre2, cfg)
+        x = x + _ffn(lp, pre2, cfg)[0]
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return dense(x, params["lm_head"]), cache
 
@@ -310,7 +328,7 @@ def verify_step(params, cfg: ModelConfig, tokens: torch.Tensor, pos, cache,
                                      logical_len=logical_len)
         x = x + y
         pre2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
-        x = x + M.mlp(lp["mlp"], pre2, cfg)
+        x = x + _ffn(lp, pre2, cfg)[0]
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return dense(x, params["lm_head"]), cache
 

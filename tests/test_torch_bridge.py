@@ -44,12 +44,13 @@ PORT_ONLY_FIELDS = {"use_ssd_kernel": False}
 
 
 def test_config_copy_matches_jax():
-    """The port's copies of CONFIG and SMOKE (qwen3-0.6b, qwen3-1.7b,
-    zamba2-1.2b) equal the JAX ones field by field, apart from the port's
-    own kernel flags (off by default), and param_count agrees."""
+    """The port's copies of CONFIG and SMOKE (every ported arch) equal
+    the JAX ones field by field, apart from the port's own kernel flags
+    (off by default), and param_count agrees."""
     from repro.models.config import param_count as jax_count
+    from repro_torch.configs import ARCH_IDS
     from repro_torch.models.config import param_count
-    for arch in (ARCH, "qwen3-1.7b", "zamba2-1.2b"):
+    for arch in ARCH_IDS:
         for smoke in (False, True):
             j = jax_get_config(arch, smoke=smoke)
             t = torch_get_config(arch, smoke=smoke)

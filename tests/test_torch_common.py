@@ -105,3 +105,66 @@ def test_init_mirrors_materialize():
     assert torch.equal(p["final_norm"], torch.ones(d))
     assert torch.equal(p["blocks"]["attn"]["q_scale"],
                        torch.ones(tcfg.num_layers, tcfg.head_dim))
+
+
+def _materialize_before(desc, generator):
+    """The initialiser as it drew every leaf before chunked draws: one
+    fp32 randn of the whole shape, scaled, cast."""
+    import math
+    dtype = TC.torch_dtype(desc.dtype)
+    if desc.init == "zeros":
+        return torch.zeros(desc.shape, dtype=dtype)
+    if desc.init == "ones":
+        return torch.ones(desc.shape, dtype=dtype)
+    fan_in = desc.fan_in
+    if fan_in is None:
+        fan_in = desc.shape[-2] if len(desc.shape) >= 2 else desc.shape[-1]
+    scale = 1.0 / math.sqrt(max(fan_in, 1))
+    if desc.init == "small_normal":
+        scale = 0.02
+    x = torch.randn(desc.shape, generator=generator, dtype=torch.float32)
+    return (x * scale).to(dtype)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "qwen3-1.7b", "zamba2-1.2b"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_materialize_leaves_under_the_chunk_draw_as_before(arch, dtype):
+    """Leaves at or under DRAW_CHUNK elements draw bit-identically to the
+    whole-shape draw, in the same generator order; every leaf of the
+    earlier configs at full width is such a leaf, so their seeded weights
+    are unchanged."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.common import tree_leaves
+    full = TMD.model_descs(get_config(arch))
+    assert max(TC.math.prod(d.shape) for d in tree_leaves(full)) \
+        <= TC.DRAW_CHUNK
+    cfg = get_config(arch, smoke=True).with_(param_dtype=dtype)
+    got = TMD.init_model(cfg, torch.Generator().manual_seed(5))
+    gen = torch.Generator().manual_seed(5)
+    want = TC.tree_map(lambda d: _materialize_before(d, gen),
+                       TMD.model_descs(cfg))
+    for a, b in zip(tree_leaves(got), tree_leaves(want)):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_materialize_chunks_large_leaves(monkeypatch, dtype):
+    """A leaf above DRAW_CHUNK elements draws chunk by chunk into its own
+    dtype: the leaf's shape and dtype, mean 0 and std 1/sqrt(fan_in), no
+    chunk repeating another, one seed one tensor."""
+    monkeypatch.setattr(TC, "DRAW_CHUNK", 4096)
+    desc = TC.ParamDesc((3, 64, 100), dtype, fan_in=64)   # 19200 elements
+    a = TC._materialize(desc, torch.Generator().manual_seed(1), "cpu")
+    b = TC._materialize(desc, torch.Generator().manual_seed(1), "cpu")
+    assert tuple(a.shape) == desc.shape and a.dtype == TC.torch_dtype(dtype)
+    assert torch.equal(a, b)
+    x = a.float().reshape(-1)
+    assert abs(float(x.mean())) < 0.01
+    assert abs(float(x.std()) - 64 ** -0.5) < 0.005
+    chunks = x[:4 * 4096].reshape(4, 4096)
+    for i in range(4):
+        for j in range(i):
+            assert not torch.equal(chunks[i], chunks[j])
+    small = TC._materialize(TC.ParamDesc((4096,), dtype, fan_in=64),
+                            torch.Generator().manual_seed(1), "cpu")
+    assert torch.equal(small, a.reshape(-1)[:4096])

@@ -30,6 +30,10 @@ FA_SHAPES = [
     (2, 128, 128, 4, 2, 64, False, None),    # non-causal
     (1, 37, 37, 4, 2, 32, True, None),       # tiny, ragged, head_dim 32
     (1, 384, 384, 32, 32, 64, True, None),   # zamba2-1.2b prefill: G 1
+    (1, 300, 300, 32, 4, 128, True, None),   # qwen3-moe-30b-a3b: G 8
+    (1, 257, 257, 32, 32, 128, True, None),  # deepseek-7b: G 1, dh 128
+    (1, 512, 512, 56, 8, 128, True, None),   # arctic-480b: G 7
+    (1, 65, 130, 14, 2, 64, True, None),     # G 7, S < T, ragged tiles
 ]
 PA_SHAPES = [
     # B, Np, P, n_max, Hq, Hk, dh
@@ -38,6 +42,10 @@ PA_SHAPES = [
     (2, 16, 4, 4, 4, 4, 32),
     (4, 32, 8, 8, 8, 8, 64),
     (8, 320, 16, 40, 32, 32, 64),            # zamba2-1.2b decode: G 1
+    (8, 321, 16, 40, 32, 4, 128),            # qwen3-moe-30b-a3b: G 8
+    (8, 321, 16, 40, 32, 32, 128),           # deepseek-7b: G 1, dh 128
+    (8, 321, 16, 40, 56, 8, 128),            # arctic-480b: G 7
+    (3, 40, 8, 12, 14, 2, 64),               # G 7, dh 64
 ]
 # the bf16 kernel's 64-row query and 64-key tiles: S and T at the tile
 # edges, a single query row, S < T, windows and full masking, every head
@@ -64,6 +72,8 @@ PA_SPLIT_SHAPES = [
     (3, 32, 12, 8, 2, 32),                   # G 4, P 32
     (1, 16, 300, 2, 2, 64),                  # many splits of 4 pages
     (6, 8, 20, 4, 2, 128),                   # G 2, P 8
+    (8, 16, 40, 56, 8, 128),                 # arctic-480b: G 7
+    (3, 8, 24, 7, 1, 32),                    # G 7, dh 32, P 8
 ]
 SSD_SHAPES = [
     # B, S, H, P, N, chunk: tests/test_kernels.py's, then zamba2-1.2b's
@@ -148,7 +158,7 @@ def test_flash_kernel_tile_edges(B, S, T, Hq, Hk, dh, causal, window,
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("dh", [32, 64, 128])
-@pytest.mark.parametrize("G", [1, 2, 4])
+@pytest.mark.parametrize("G", [1, 2, 4, 7, 8])
 def test_flash_kernel_head_dims_and_groups(dh, G, dtype):
     test_flash_kernel_matches_plain(1, 129, 129, 2 * G, 2, dh, True, None,
                                     dtype)
@@ -440,10 +450,11 @@ def test_flash_kernel_refuses_autograd_on_the_card():
 # ---------------------------------------------------------------------------
 # the serving paths of the speculative and migration slice
 # ---------------------------------------------------------------------------
-def _verify_layer(device, dtype, seed=0):
-    """One attention layer at qwen3-1.7b's heads (16/8 of 128, d_model cut
-    to 256) over a paged pool: 8 rows x S 4 candidates, page 16, 40-page
-    tables on scrambled pages, the rows' positions at the edges of the
+def _verify_layer(device, dtype, seed=0, arch="qwen3-1.7b"):
+    """One attention layer at `arch`'s heads (qwen3-1.7b: 16/8 of 128;
+    arctic-480b: 56/8 of 128, G 7), d_model cut to 256, over a paged
+    pool: 8 rows x S 4 candidates, page 16, 40-page tables on scrambled
+    pages, the rows' positions at the edges of the
     kernel's splits for 32 query rows (and one row whose last candidates
     pass the cache); every page outside the rows' live prefixes poisoned
     with +-1e9.  Returns (cfg, params, x, pos, bt, poisoned, clean)."""
@@ -452,7 +463,7 @@ def _verify_layer(device, dtype, seed=0):
     from repro_torch.models.common import init_params
     from repro_torch.models import model as MD
     dt = getattr(torch, dtype)
-    cfg = get_config("qwen3-1.7b").with_(
+    cfg = get_config(arch).with_(
         d_model=256, num_layers=1, param_dtype=dtype, compute_dtype=dtype)
     g = torch.Generator(device=device).manual_seed(seed)
     p = init_params(A.attn_descs(cfg), g, torch.device(device))
@@ -479,9 +490,10 @@ def _verify_layer(device, dtype, seed=0):
     return cfg, p, x, pos.to(device), bt, poisoned, pool
 
 
-def _attention_verify_kernel_vs_plain(device, dtype):
+def _attention_verify_kernel_vs_plain(device, dtype, arch="qwen3-1.7b"):
     from repro_torch.models import attention as A
-    cfg, p, x, pos, bt, poisoned, clean = _verify_layer(device, dtype)
+    cfg, p, x, pos, bt, poisoned, clean = _verify_layer(device, dtype,
+                                                        arch=arch)
     C = bt.shape[1] * clean["k"].shape[2]
     kcfg = cfg.with_(use_paged_kernel=True)
     ops.reset_launches()
@@ -510,6 +522,17 @@ def test_attention_verify_paged_kernel_matches_plain(dtype):
     rows) against the plain gather-and-softmax on the same pools."""
     _cuda()
     y, ref, launches = _attention_verify_kernel_vs_plain("cuda", dtype)
+    assert launches == 2
+    tol = TOL[dtype] * max(1.0, float(ref.float().abs().max()))
+    torch.testing.assert_close(y.float(), ref.float(), rtol=0, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_attention_verify_paged_kernel_at_group_7(dtype):
+    """The same at arctic-480b's heads (56/8, G 7): 32 verify rows."""
+    _cuda()
+    y, ref, launches = _attention_verify_kernel_vs_plain(
+        "cuda", dtype, arch="arctic-480b")
     assert launches == 2
     tol = TOL[dtype] * max(1.0, float(ref.float().abs().max()))
     torch.testing.assert_close(y.float(), ref.float(), rtol=0, atol=tol)
@@ -583,3 +606,89 @@ def test_harvest_install_round_trip_on_card(arch):
     assert sorted(checked) == sorted(d.request.rid for d in harvested)
     assert b.migrated_admits == len(harvested)
     assert all(len(out[r.rid]) == r.max_new_tokens for r in reqs)
+
+
+# ---------------------------------------------------------------------------
+# the MoE family
+# ---------------------------------------------------------------------------
+def _routed(M, fn, force=None):
+    """fn() with each MoE layer's chosen experts recorded; with `force`
+    (another run's choices) every layer takes those experts instead,
+    gated by its own router."""
+    chosen = []
+    top_k = M.top_k
+
+    def pick(probs, k):
+        if force is None:
+            gates, idx = top_k(probs, k)
+        else:
+            idx = force[len(chosen)]
+            gates = probs.gather(-1, idx)
+        chosen.append(idx)
+        return gates, idx
+    M.top_k = pick
+    try:
+        return fn(), chosen
+    finally:
+        M.top_k = top_k
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "arctic-480b"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_moe_decode_tick_kernel_path_matches_plain(arch, dtype):
+    """A MoE SMOKE model on the card: two prompts prefilled onto scrambled
+    pages (the flash kernel, one launch a layer), then one paged decode
+    tick (the paged kernel, one launch a layer), against the same with
+    the kernel flags off and the kernel path's expert choices (a bf16
+    router near-tie may flip a choice, which is no kernel error): logits
+    within the tolerance of their dtype times max(1, max|logit|).  In
+    fp32 the plain path's own routing is the kernel path's."""
+    _cuda()
+    from repro_torch.configs import get_config
+    from repro_torch.models import mlp as M
+    from repro_torch.models import model as MD
+    plain = get_config(arch, smoke=True).with_(param_dtype=dtype,
+                                               compute_dtype=dtype)
+    kern = plain.with_(use_flash_kernel=True, use_paged_kernel=True)
+    params = MD.init_model(plain, torch.Generator(device="cuda")
+                           .manual_seed(0))
+    r = np.random.RandomState(1)
+    P, n_max = 4, 8
+    ids = torch.from_numpy(r.permutation(2 * n_max).reshape(2, n_max)
+                           .astype(np.int32)).cuda()
+    prompts = [r.randint(0, plain.vocab_size, size=n) for n in (13, 21)]
+    pool = MD.init_paged_cache(kern, 2, 2 * n_max, P, "cuda")
+    toks, pos = [], []
+    ops.reset_launches()
+    for b, pr in enumerate(prompts):
+        npg = -(-(len(pr) + 1) // P)
+        lg, _, c = MD.forward(params, kern, torch.from_numpy(pr).cuda()[None],
+                              return_cache=True, cache_len=npg * P)
+        MD.write_paged_cache(pool, c, b, ids[b, :npg], kern)
+        toks.append(int(lg[0, -1].argmax()))
+        pos.append(len(pr))
+    pools = [{n: t.clone() for n, t in pool.items()} for _ in range(2)]
+
+    def decode(cfg, cache, force=None):
+        return _routed(M, lambda: MD.decode_step(
+            params, cfg, torch.tensor(toks, device="cuda",
+                                      dtype=torch.int32)[:, None],
+            torch.tensor(pos, device="cuda", dtype=torch.int32), cache,
+            active=torch.ones(2, dtype=torch.bool, device="cuda"),
+            block_tables=ids, logical_len=n_max * P)[0], force)
+    lk, chosen = decode(kern, pool)
+    torch.cuda.synchronize()
+    L = plain.num_layers
+    assert (ops.flash_attention.launches, ops.paged_attention.launches) \
+        == (2 * L, L)
+    lp, own = decode(plain, pools[0])
+    lf, _ = decode(plain, pools[1], chosen)
+    assert (ops.flash_attention.launches, ops.paged_attention.launches) \
+        == (2 * L, L)
+    assert len(chosen) == len(own) == L
+    if dtype == "float32":
+        assert all(torch.equal(a, b) for a, b in zip(chosen, own))
+        assert torch.equal(lp, lf)
+    scale = max(1.0, float(lf.float().abs().max()))
+    torch.testing.assert_close(lk.float(), lf.float(), rtol=0,
+                               atol=TOL[dtype] * scale)

@@ -88,10 +88,20 @@ def test_qwen3_1p7b_forward_and_decode_match_jax():
     """qwen3-1.7b SMOKE (the speculative target): forward logits and the
     KV cache, then two per-row decode steps, against the JAX package's on
     the same weights."""
+    _check_arch_forward_and_decode("qwen3-1.7b")
+
+
+def test_deepseek_7b_forward_and_decode_match_jax():
+    """deepseek-7b SMOKE: llama-style, no qk-norm, Hq == Hk (G 1); the
+    same checks as qwen3-1.7b's."""
+    _check_arch_forward_and_decode("deepseek-7b")
+
+
+def _check_arch_forward_and_decode(arch):
     from repro.configs import get_config as jax_get_config
     from repro_torch.configs import get_config as torch_get_config
-    jcfg = jax_get_config("qwen3-1.7b", smoke=True)
-    tcfg = torch_get_config("qwen3-1.7b", smoke=True)
+    jcfg = jax_get_config(arch, smoke=True)
+    tcfg = torch_get_config(arch, smoke=True)
     jp, tp = TP.params(jcfg)
     toks = _tokens(jcfg.vocab_size, seed=9)
     jl, jc, tl, tc = _prefill(jp, tp, jcfg, tcfg, toks)
@@ -245,4 +255,4 @@ def test_paged_decode_matches_jax():
 def test_unported_family_raises():
     _, tcfg = TP.configs()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TMD.model_descs(tcfg.with_(arch_type="moe"))
+        TMD.model_descs(tcfg.with_(arch_type="ssm"))
