@@ -22,6 +22,12 @@ Phases (each raises on failure, and then no result is printed):
      phase 4c's shapes (flash at a 512-token prompt, paged at 8 slots on
      321 pages: qwen3-moe 32/4 heads of 128, G 8; deepseek-7b 32/32, G 1;
      arctic-480b 56/8, G 7), and the paged kernel's split edges at G 7;
+     both at phase 4d's shapes (flash: whisper-tiny's encoder, S = T =
+     1500 non-causal, and its cross-attention prefill, 320 x 1500;
+     phi-3-vision's 576 patches + 512 tokens at dh 96; nemotron-4-340b's
+     512 tokens at dh 192, G 12; the -swa prefill of 6144 tokens with
+     window 4096; paged: each model's pool at 8 slots), and the split
+     edges at dh 96, dh 192 and G 12;
      the SSD scan in fp32 and bf16 (1e-4: both
      compute in fp32) at the JAX package's test shapes and zamba2's
      prefill, a prompt shorter than the chunk, ragged last chunks (S 500,
@@ -85,12 +91,28 @@ Phases (each raises on failure, and then no result is printed):
      near-tie that its router probabilities' measured change crosses;
      the plain path with SDPA attention is a control whose flips are
      reported beside the kernel path's;
+  4d. the last families, as 4c: rwkv6-1.6b (24 layers, d_model 2048:
+     2.97 GB; the dense engine, no kernel; its gate the prefill's
+     recurrent state and last logits against the same prompt fed token
+     by token), whisper-tiny (4 + 4 layers over 1500 frames a request
+     drawn from a seed, its stream cut to the 448-token decoder: prompts
+     64-320; launches exact: 12 flash an admit, 4 encoder, 4 self, 4
+     cross, and 4 paged a tick), phi-3-vision-4.2b (32 layers, dh 96,
+     576 patches a request drawn from a seed, cache 640 + 576: 7.64 GB)
+     and nemotron-4-340b at its published widths cut from 96 to 4 layers
+     (d_model 18432, 96/8 heads of 192, G 12, d_ff 73728: 46.5 GB);
+     then qwen3-0.6b-swa (window 4096): a 6144-token prompt prefilled
+     through flash, the ring of 4096 slots built from its cache, 64
+     decode steps on the ring, each step's logits held against the plain
+     path's windowed forward of all 6208 tokens;
   5. time each kernel beside its plain version, one PyTorch library call
      where one computes the same function (timed only, never used by the
      port) and its bound, the attention kernels at both serve paths'
      shapes, and the paged kernel at the verify shape (8 slots x 4
      candidate rows of qwen3-1.7b), both attention kernels also at phase
-     4c's three head layouts: card time from CUDA-graph replays
+     4c's three head layouts and 4d's (whisper's encoder and a 192-token
+     cross read, phi-3's 1088-token prefill, nemotron's dh 192 at G 12;
+     paged at each model's pool): card time from CUDA-graph replays
      (`device_ms`: these kernels take less time than the host needs to
      issue them), and the eager call time beside it;
   6. train qwen3-0.6b at full width (28 layers, bf16, block remat, AdamW,
@@ -142,6 +164,9 @@ SSD_TOL = 1e-4
 # serve-path logits, kernel path vs plain path, bf16 through 28 layers:
 # |diff| <= LOGIT_TOL * max(1, max|plain logit|)
 LOGIT_TOL = 5e-2
+# rwkv6's recurrent state after a prompt, prefill vs token by token
+# through all 24 layers, of each layer's largest entry (rwkv_state_check)
+RWKV_PATH_TOL = 1e-1
 
 ARCH = "qwen3-0.6b"
 HYBRID = "zamba2-1.2b"
@@ -160,11 +185,23 @@ TIGHT_PAGES = 160
 # params do not fit one card, so its depth is cut (35 -> 2 layers)
 MOE, DENSE7B, ARCTIC = "qwen3-moe-30b-a3b", "deepseek-7b", "arctic-480b"
 FAMILY = ((MOE, None), (DENSE7B, None), (ARCTIC, 2))
+# phase 4d: the last families the same way; nemotron-4-340b's 341.0B
+# params do not fit one card, so its depth is cut (96 -> 4 layers)
+RWKV, WHISPER, VLM, NEMOTRON = ("rwkv6-1.6b", "whisper-tiny",
+                                "phi-3-vision-4.2b", "nemotron-4-340b")
+LAST = ((RWKV, None), (WHISPER, None), (VLM, None), (NEMOTRON, 4))
+# whisper's decoder context is 448 tokens (the shape plan's docstring):
+# its prompts 64-320, budgets as phase 4's
+WHISPER_PLEN = (63, 320)
+# the -swa variant of qwen3-0.6b (shape_plan's long_500k, window 4096):
+# one prompt past the window, then decode steps on the ring
+SWA_PROMPT, SWA_STEPS = 6144, 64
 
 WARMUP_GEN = 4                        # budget of the warm-up batch
 # --profile: engine ticks before / inside the traced window
 WINDOW = {ARCH: (24, 12), HYBRID: (24, 6), MOE: (24, 4), DENSE7B: (24, 6),
-          ARCTIC: (24, 6)}
+          ARCTIC: (24, 6), RWKV: (24, 6), WHISPER: (24, 12), VLM: (24, 6),
+          NEMOTRON: (24, 6)}
 # train phase: train_4k's sequence length, its global batch of 256 cut to
 # 2 sequences on one card; one warm-up step, then TRAIN_STEPS timed
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_WARMUP = 2, 4096, 10, 20
@@ -307,6 +344,20 @@ FAMILY_FLASH = {MOE: (1, 512, 512, 32, 4, 128, True, None),
 FAMILY_PAGED = {MOE: (8, 321, 16, 40, 32, 4, 128),
                 DENSE7B: (8, 321, 16, 40, 32, 32, 128),
                 ARCTIC: (8, 321, 16, 40, 56, 8, 128)}
+# phase 4d's, by kernel row: whisper's encoder (1500 frames, full
+# attention, a ragged last tile) and its cross-attention prefill at the
+# longest prompt (S != T, non-causal), phi-3's 576 patches + 512 tokens
+# (dh 96), nemotron's dh 192 at G 12; the paged kernel at 8 slots on
+# each model's pool (whisper 28 pages a slot, phi-3 76); the -swa
+# prefill is held too (window 4096), but has no row of its own
+LAST_FLASH = {WHISPER: (1, 1500, 1500, 6, 6, 64, False, None),
+              f"{WHISPER}:cross": (1, 320, 1500, 6, 6, 64, False, None),
+              VLM: (1, 1088, 1088, 32, 32, 96, True, None),
+              NEMOTRON: (1, 512, 512, 96, 8, 192, True, None),
+              "swa": (1, SWA_PROMPT, SWA_PROMPT, 16, 8, 128, True, 4096)}
+LAST_PAGED = {WHISPER: (8, 8 * 28 + 1, 16, 28, 6, 6, 64),
+              VLM: (8, 8 * 76 + 1, 16, 76, 32, 32, 96),
+              NEMOTRON: (8, 321, 16, 40, 96, 8, 192)}
 
 
 def paged_case(B, Np, P, n_max, Hq, Hk, dh, dtype, seed, pos=None):
@@ -390,7 +441,7 @@ def check_kernels(torch, FA, PA, rows):
     errs = {"flash_attention": 0.0, f"flash_attention@{HYBRID}": 0.0,
             "paged_attention": 0.0, f"paged_attention@{HYBRID}": 0.0}
     qwen, zamba, extra = flash_cases()
-    family = list(FAMILY_FLASH.values())
+    family = list(FAMILY_FLASH.values()) + list(LAST_FLASH.values())
     for dtype in ("bfloat16", "float32"):
         dt = getattr(torch, dtype)
         for i, (B, S, T, Hq, Hk, dh, causal, window) in enumerate(
@@ -414,7 +465,7 @@ def check_kernels(torch, FA, PA, rows):
                 key = ("flash_attention" if i < len(qwen)
                        else f"flash_attention@{HYBRID}")
                 errs[key] = max(errs[key], e)
-            for arch, shp in FAMILY_FLASH.items():
+            for arch, shp in (*FAMILY_FLASH.items(), *LAST_FLASH.items()):
                 if dtype == "bfloat16" and (B, S, T, Hq, Hk, dh, causal,
                                             window) == shp:
                     errs[f"flash_attention@{arch}"] = e
@@ -428,7 +479,9 @@ def check_kernels(torch, FA, PA, rows):
                 (4, 16, 4, 4, 4, 128), (2, 8, 64, 8, 1, 64),
                 (3, 32, 12, 8, 2, 32), (1, 16, 300, 2, 2, 64),
                 (6, 8, 20, 4, 2, 128), (8, 16, 40, 56, 8, 128),
-                (3, 8, 24, 7, 1, 32)]
+                (3, 8, 24, 7, 1, 32), (8, 16, 76, 32, 32, 96),
+                (8, 16, 40, 96, 8, 192), (3, 8, 24, 12, 1, 96),
+                (8, 16, 28, 6, 6, 64)]
         cases = [(shp, None) for shp in shapes]
         for B, P, n_max, Hq, Hk, dh in edge:
             cases.append(((B, B * n_max + 4, P, n_max, Hq, Hk, dh),
@@ -446,8 +499,8 @@ def check_kernels(torch, FA, PA, rows):
                 key = ("paged_attention" if i == 0
                        else f"paged_attention@{HYBRID}")
                 errs[key] = max(errs[key], e)
-        # phase 4c's decode shapes, at the qwen3 case's positions (seed 10)
-        for arch, shp in FAMILY_PAGED.items():
+        # phase 4c's and 4d's decode shapes, at random positions
+        for arch, shp in (*FAMILY_PAGED.items(), *LAST_PAGED.items()):
             args, pools = paged_case(*shp, dt, seed=10)
             n_splits, _ = PA.plan_splits(shp[0], shp[5], shp[3], shp[2])
             e = check_paged(torch, PA, f"paged {dtype} {shp} ({arch}) "
@@ -656,31 +709,80 @@ def same_share(fins, ref):
     return same / sum(len(f.tokens) for f in ref)
 
 
+def stream_plen(cfg):
+    """Prompt lengths of phase 4's stream for cfg: 257-512 tokens, or
+    64-320 for whisper's 448-token decoder."""
+    return WHISPER_PLEN if cfg.arch_type == "audio" else PLEN
+
+
+def stream_cache_len(cfg):
+    from repro_torch.models.model import n_prefix
+    return stream_plen(cfg)[1] + GEN[1] + n_prefix(cfg)
+
+
+def modality_input(cfg, i):
+    """Request i's frontend output, drawn from seed 1000 + i on the card
+    in bf16: vlm patches (1, 576, 1024), audio frames (1, 1500, 384);
+    None for the text families."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(1000 + i)
+    if cfg.arch_type == "vlm":
+        shape = (1, cfg.num_patches, 1024)
+    elif cfg.arch_type == "audio":
+        shape = (1, cfg.encoder_seq, cfg.d_model)
+    else:
+        return None
+    return torch.randn(shape, generator=g, device="cuda").bfloat16()
+
+
 def make_requests(cfg, Request):
-    """REQUESTS requests, seed 0: prompts of 257-512 tokens, budgets
-    33-128."""
+    """REQUESTS requests, seed 0: prompts of 257-512 tokens (whisper:
+    64-320), budgets 33-128, and each its modality input."""
     import numpy as np
     rng = np.random.RandomState(0)
+    plen = stream_plen(cfg)
     reqs = []
     for i in range(REQUESTS):
-        S = int(rng.randint(*PLEN) + 1)
+        S = int(rng.randint(*plen) + 1)
         reqs.append(Request(rid=i, prompt=rng.randint(0, cfg.vocab_size,
                                                       size=S),
-                            max_new_tokens=int(rng.randint(*GEN) + 1)))
+                            max_new_tokens=int(rng.randint(*GEN) + 1),
+                            extra_embeds=modality_input(cfg, i)))
     return reqs
 
 
 def make_engine(cfg, params, ServeEngine, num_pages=None):
+    """The paged engine (the dense one for the ssm family, which has no
+    K/V to page), its cache long enough for the stream."""
+    paged = cfg.arch_type != "ssm"
     return ServeEngine(params, cfg, num_slots=SLOTS,
-                       cache_len=PLEN[1] + GEN[1], page_size=PAGE,
+                       cache_len=stream_cache_len(cfg),
+                       page_size=PAGE if paged else None,
                        num_pages=num_pages, device="cuda")
 
 
-def path_layers(cfg):
-    """(attention layers, Mamba2 layers) one token passes through."""
+def path_launches(cfg):
+    """Kernel launches the path makes: flash an admit, paged a decode
+    tick, ssd_scan an admit."""
+    L = cfg.num_layers
     if cfg.arch_type == "hybrid":
-        return cfg.num_layers // cfg.hybrid_attn_every, cfg.num_layers
-    return cfg.num_layers, 0
+        return {"flash_attention": L // cfg.hybrid_attn_every,
+                "paged_attention": L // cfg.hybrid_attn_every,
+                "ssd_scan": L}
+    if cfg.arch_type == "ssm":
+        return {"flash_attention": 0, "paged_attention": 0, "ssd_scan": 0}
+    # audio: the encoder's self-attention and each decoder layer's cross-
+    # attention prefill go through flash too
+    enc = L + cfg.num_encoder_layers if cfg.arch_type == "audio" else 0
+    return {"flash_attention": L + enc, "paged_attention": L, "ssd_scan": 0}
+
+
+def want_launches(cfg, st, draft_layers=0):
+    per = path_launches(cfg)
+    return {"flash_attention": ((per["flash_attention"] + draft_layers)
+                                * st["prefill_ticks"]),
+            "paged_attention": per["paged_attention"] * st["decode_ticks"],
+            "ssd_scan": per["ssd_scan"] * st["prefill_ticks"]}
 
 
 def serve(torch, cfg, params, ops, ServeEngine, Request, num_pages=None,
@@ -699,8 +801,8 @@ def serve(torch, cfg, params, ops, ServeEngine, Request, num_pages=None,
     eng = (engine() if engine else
            make_engine(cfg, params, ServeEngine, num_pages))
     # warm-up: one short batch over every slot, then a fresh pool
-    eng.run([Request(rid=r.rid, prompt=r.prompt, max_new_tokens=WARMUP_GEN)
-             for r in reqs[:SLOTS]])
+    eng.run([Request(rid=r.rid, prompt=r.prompt, max_new_tokens=WARMUP_GEN,
+                     extra_embeds=r.extra_embeds) for r in reqs[:SLOTS]])
     eng.reset()
     admits = []                       # (rid, prefill length) of each admit
     admit = eng._admit
@@ -741,18 +843,15 @@ def serve(torch, cfg, params, ops, ServeEngine, Request, num_pages=None,
     st = dict(eng.stats(), peak_mem_gb=peak / 1e9)
     if split_ticks:
         st["tick_s"] = tick_s
-    attn, ssm = path_layers(cfg)
-    want = {"flash_attention": (attn + draft_layers) * st["prefill_ticks"],
-            "paged_attention": attn * st["decode_ticks"],
-            "ssd_scan": ssm * st["prefill_ticks"]}
+    want = want_launches(cfg, st, draft_layers)
     if launches != want:
         fail(f"{cfg.name} serve run: launches {launches}, want {want} "
              f"({st['prefill_ticks']} admits, {st['decode_ticks']} decode "
              f"ticks)")
-    if num_pages is None and st["preemptions"]:
+    if num_pages is None and st.get("preemptions"):
         fail(f"{cfg.name} serve run: {st['preemptions']} preemptions; the "
              f"pool holds every slot at full length")
-    if not launches["paged_attention"] or not launches["flash_attention"]:
+    if any(n and not launches[k] for k, n in path_launches(cfg).items()):
         fail(f"{cfg.name} serve run: a kernel of the path never launched")
     return reqs, fins, launches, st, wall, admits
 
@@ -1025,6 +1124,7 @@ def compare_plain_paths(torch, cfg, params, MD, SS, reqs):
     res = {}
     prompts = [torch.as_tensor(r.prompt, device="cuda")[None].int()
                for r in reqs[:2]]
+    extras = [r.extra_embeds for r in reqs[:2]]
     layer_err = []
     scan = SSM.ssd_scan_ref
 
@@ -1038,7 +1138,8 @@ def compare_plain_paths(torch, cfg, params, MD, SS, reqs):
 
     def prefill(c, force=None, attend=None):
         return attended(A, lambda: routed(M, cfg, lambda: MD.forward(
-            params, c, prompts[0], return_cache=True), force), attend)
+            params, c, prompts[0], extra_embeds=extras[0],
+            return_cache=True), force), attend)
     ((lk, _, ck), kchosen, kcodes, kprobs), katt = prefill(cfg)
     SSM.ssd_scan_ref = held
     try:
@@ -1086,18 +1187,19 @@ def compare_plain_paths(torch, cfg, params, MD, SS, reqs):
                               ssm_state_path_rel_err_max=max(rel))
     del ck, cp
 
-    # a paged pool holding both prompts on scrambled pages
-    n_max = -(-(PLEN[1] + GEN[1]) // PAGE)
+    # a paged pool holding both prompts on scrambled pages (a vlm's
+    # patches before its prompt; audio's cross-K/V as the slots' rows)
+    n_max = -(-stream_cache_len(cfg) // PAGE)
     Np = 2 * n_max
     pool = MD.init_paged_cache(cfg, 2, Np, PAGE, "cuda")
     ids = torch.randperm(Np, generator=torch.Generator().manual_seed(3)
                          ).reshape(2, n_max).int().cuda()
     toks, pos = [], []
     for b, p in enumerate(prompts):
-        S = p.shape[1]
+        S = p.shape[1] + MD.n_prefix(cfg)
         npg = -(-(S + 1) // PAGE)
-        lg, _, c = MD.forward(params, cfg, p, return_cache=True,
-                              cache_len=npg * PAGE)
+        lg, _, c = MD.forward(params, cfg, p, extra_embeds=extras[b],
+                              return_cache=True, cache_len=npg * PAGE)
         MD.write_paged_cache(pool, c, b, ids[b, :npg], cfg)
         toks.append(int(lg[0, -1].argmax()))
         pos.append(S)
@@ -1137,25 +1239,29 @@ def compare_plain_paths(torch, cfg, params, MD, SS, reqs):
 # ---------------------------------------------------------------------------
 # timed shapes (Hq, Hk, dh) of the serve paths' attention
 HEADS = {ARCH: (16, 8, 128), HYBRID: (32, 32, 64), TARGET: (16, 8, 128),
-         MOE: (32, 4, 128), DENSE7B: (32, 32, 128), ARCTIC: (56, 8, 128)}
+         MOE: (32, 4, 128), DENSE7B: (32, 32, 128), ARCTIC: (56, 8, 128),
+         WHISPER: (6, 6, 64), VLM: (32, 32, 96), NEMOTRON: (96, 8, 192)}
 
 
-def time_flash(torch, FA, heads, S=512):
-    B, (Hq, Hk, dh) = 1, heads
+def time_flash(torch, FA, heads, S=512, T=None, causal=True):
+    """Causal prefill of S tokens, or a non-causal read of T keys."""
+    B, (Hq, Hk, dh), T = 1, heads, T or S
     g = torch.Generator(device="cuda").manual_seed(42)
     q = torch.randn(B, S, Hq, dh, generator=g, device="cuda").bfloat16()
-    k = torch.randn(B, S, Hk, dh, generator=g, device="cuda").bfloat16()
-    v = torch.randn(B, S, Hk, dh, generator=g, device="cuda").bfloat16()
-    ms = device_ms(lambda: FA.flash_attention(q, k, v))
-    call_ms = cuda_ms(lambda: FA.flash_attention(q, k, v))
-    plain_ms = device_ms(lambda: FA.reference(q, k, v), n=10)
+    k = torch.randn(B, T, Hk, dh, generator=g, device="cuda").bfloat16()
+    v = torch.randn(B, T, Hk, dh, generator=g, device="cuda").bfloat16()
+    ms = device_ms(lambda: FA.flash_attention(q, k, v, causal=causal))
+    call_ms = cuda_ms(lambda: FA.flash_attention(q, k, v, causal=causal))
+    plain_ms = device_ms(lambda: FA.reference(q, k, v, causal=causal), n=10)
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    lib_ms = device_ms(lambda: sdpa(qt, kt, vt, is_causal=True))
-    pairs = S * (S + 1) // 2                      # causal (query, key) pairs
+    lib_ms = device_ms(lambda: sdpa(qt, kt, vt, is_causal=causal))
+    # (query, key) pairs attended: the causal triangle (S == T), or all
+    pairs = S * (S + 1) // 2 if causal else S * T
     flops = 4 * B * Hq * dh * pairs
     nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())   # q, k, v, out
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
-    return {"shape": [B, S, Hq, Hk, dh], "ms": ms, "call_ms": call_ms,
+    shape = [B, S, Hq, Hk, dh] if causal else [B, S, T, Hq, Hk, dh]
+    return {"shape": shape, "causal": causal, "ms": ms, "call_ms": call_ms,
             "plain_ms": plain_ms,
             "library_ms": lib_ms, "library": "scaled_dot_product_attention",
             "bound_ms": 1e3 * max(t_ops, t_bytes),
@@ -1163,9 +1269,9 @@ def time_flash(torch, FA, heads, S=512):
             "flops": flops, "bytes": nbytes}
 
 
-def time_paged(torch, PA, heads, pos_list):
+def time_paged(torch, PA, heads, pos_list, cache_len=PLEN[1] + GEN[1]):
     (Hq, Hk, dh), B, P = heads, len(pos_list), PAGE
-    n_max = -(-(PLEN[1] + GEN[1]) // P)
+    n_max = -(-cache_len // P)
     Np = B * n_max
     g = torch.Generator(device="cuda").manual_seed(43)
     q = torch.randn(B, Hq, dh, generator=g, device="cuda").bfloat16()
@@ -1603,7 +1709,6 @@ def drain_phase(torch, card, arch, ops, MD, ample):
     cfg = kernel_cfg(arch)
     params = MD.init_model(cfg, torch.Generator(device="cuda").manual_seed(0))
     reqs = make_requests(cfg, Request)
-    attn, ssm = path_layers(cfg)
 
     def counted(run, eng):
         torch.cuda.synchronize()
@@ -1613,9 +1718,7 @@ def drain_phase(torch, card, arch, ops, MD, ample):
         got = {n: getattr(ops, n).launches for n in
                ("flash_attention", "paged_attention", "ssd_scan")}
         st = eng.stats()
-        want = {"flash_attention": attn * st["prefill_ticks"],
-                "paged_attention": attn * st["decode_ticks"],
-                "ssd_scan": ssm * st["prefill_ticks"]}
+        want = want_launches(cfg, st)
         if got != want:
             fail(f"{arch} drain: launches {got}, want {want}")
         if st["preemptions"]:
@@ -1701,30 +1804,123 @@ def drain_phase(torch, card, arch, ops, MD, ample):
 # phase 4c: the MoE family and deepseek-7b
 # ---------------------------------------------------------------------------
 def tick_bytes(cfg, params, st):
-    """Bytes a decode tick must move at least: every weight once (all
-    experts: at decode the capacity dispatch runs every expert's C slots,
-    routed or not), the embedding's SLOTS rows rather than its table, and
-    the K/V of the pages in use at the run's mean pool occupancy."""
+    """Bytes a decode tick must move at least: every weight the tick
+    reads once (all experts: at decode the capacity dispatch runs every
+    expert's C slots, routed or not; not the audio encoder's or the vlm
+    projector's, which only an admit reads), the embedding's SLOTS rows
+    rather than its table, the K/V of the pages in use at the run's mean
+    pool occupancy, and the per-slot rows of the slots in use: audio's
+    cross-K/V read, the RWKV state read and written."""
     from repro_torch.models.common import tree_leaves
     emb = params["embed"]
-    weights = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    weights = sum(t.numel() * t.element_size()
+                  for k, v in params.items()
+                  if k not in ("enc_blocks", "enc_final_norm", "vproj")
+                  for t in tree_leaves(v))
     weights += (SLOTS - emb.shape[0]) * emb.shape[1] * emb.element_size()
-    kv = (st["pool_occupancy"] * st["num_pages"] * PAGE * cfg.num_layers
-          * 2 * cfg.num_kv_heads * cfg.head_dim * 2)
+    L, kvb = cfg.num_layers, 2 * cfg.num_kv_heads * cfg.head_dim * 2
+    slots = st["occupancy"] * SLOTS
+    if cfg.arch_type == "ssm":
+        H, K = cfg.rwkv_heads, cfg.rwkv_head_dim
+        kv = 2 * slots * L * (H * K * K * 4 + 2 * cfg.d_model * 2)
+    else:
+        kv = st["pool_occupancy"] * st["num_pages"] * PAGE * L * kvb
+    if cfg.arch_type == "audio":
+        kv += slots * L * cfg.encoder_seq * kvb
     return weights, kv
 
 
+def describe(cfg):
+    """The model's widths, for the phase 4c / 4d lines."""
+    if cfg.arch_type == "moe":
+        return (f"{cfg.num_experts} experts of {cfg.expert_d_ff} top-"
+                f"{cfg.top_k} cf {cfg.capacity_factor}"
+                + (f" + dense residual {cfg.dense_residual_d_ff}"
+                   if cfg.moe_dense_residual else ""))
+    out = f"d_ff {cfg.d_ff} {cfg.activation}"
+    if cfg.arch_type == "ssm":
+        out += (f", RWKV6: {cfg.rwkv_heads} heads of {cfg.rwkv_head_dim}, "
+                f"decay LoRA {cfg.rwkv_decay_lora}")
+    if cfg.arch_type == "audio":
+        out += (f", encoder {cfg.num_encoder_layers} layers over "
+                f"{cfg.encoder_seq} frames")
+    if cfg.arch_type == "vlm":
+        out += f", {cfg.num_patches} patches of 1024 prefixed"
+    return out
+
+
+def rwkv_state_check(torch, cfg, params, MD, reqs):
+    """The ssm family runs no kernel; its gate holds one prompt's prefill
+    (the WKV recurrence over the whole prompt, its projections as S-row
+    GEMMs) against the same prompt fed token by token (1-row products).
+    Both round the same bf16 products, in GEMMs of other shapes, so a
+    rounded output may differ by a bf16 step (2^-8 relative):
+    - each layer alone, on the prefill path's own input to it: the block
+      over the prompt against the block token by token from a zero
+      state; each state leaf (wkv fp32, tm and cm bf16) within the bf16
+      kernel tolerance TOL of its largest entry;
+    - the whole model, token by token through decode_step: the last
+      logits within LOGIT_TOL x max(1, max|logit|), as phase 4 holds
+      the kernel paths, and every layer's state within RWKV_PATH_TOL of
+      its largest entry (the layers' differences compound through 24
+      layers and the prompt's tokens: 0.048 on an H100 at 700 W)."""
+    from repro_torch.models import rwkv as RW
+    from repro_torch.models.common import torch_dtype, tree_map
+    p = torch.as_tensor(reqs[0].prompt, device="cuda")[None].int()
+    S, names = p.shape[1], ("wkv", "tm", "cm")
+
+    def rel(a, b):
+        return max_err(a, b) / max(float(b.float().abs().max()), 1e-30)
+
+    x = params["embed"][p.long()].to(torch_dtype(cfg.compute_dtype))
+    alone = {n: (0.0, 0) for n in names}
+    for i in range(cfg.num_layers):
+        lp = tree_map(lambda t: t[i], params["blocks"])
+        y, st = RW.rwkv_block(lp, x, cfg)
+        sd = {n: torch.zeros_like(t) for n, t in st.items()}
+        for t in range(S):
+            _, sd = RW.rwkv_block(lp, x[:, t:t + 1], cfg, state=sd)
+        for n in names:
+            e = rel(sd[n], st[n])
+            if not e <= TOL["bfloat16"]:
+                fail(f"rwkv layer {i} alone: state {n} {e} of its largest "
+                     f"entry apart (> {TOL['bfloat16']})")
+            alone[n] = max(alone[n], (e, i))
+        x = y
+    lp, _, cp = MD.forward(params, cfg, p, return_cache=True)
+    cache = MD.init_cache(cfg, 1, 1, "cuda")
+    for t in range(S):
+        ld, cache = MD.decode_step(params, cfg, p[:, t:t + 1], t, cache)
+    err, scale = hold_logits("rwkv prefill vs token-by-token",
+                             ld[0, 0], lp[0, -1])
+    path = {}
+    for n in names:
+        errs = [rel(a, b) for a, b in zip(cache[n], cp[n])]
+        worst = max(range(len(errs)), key=errs.__getitem__)
+        if not errs[worst] <= RWKV_PATH_TOL:
+            fail(f"rwkv state {n} at layer {worst}: {errs[worst]} of its "
+                 f"largest entry apart (> {RWKV_PATH_TOL})")
+        path[n] = {"rel_err_max": errs[worst], "layer": worst}
+    return {"prompt": S, "logits_max_abs_err": err, "logit_scale": scale,
+            "greedy_same": int(ld[0, 0].argmax()) == int(lp[0, -1].argmax()),
+            "state_layer_alone": {n: {"rel_err_max": e, "layer": i}
+                                  for n, (e, i) in alone.items()},
+            "state_whole_path": path}
+
+
 def family_phase(torch, card, ops, MD, SS, ServeEngine, Request,
-                 profile=False):
-    """qwen3-moe-30b-a3b and deepseek-7b at full width, then arctic-480b
-    at its published widths with its depth cut, one after another (each
-    one's params freed before the next is drawn), each serving phase 4's
-    stream through the paged engine with the kernels on: launch counts
+                 profile=False, family=FAMILY, phase="4c"):
+    """Phase 4c (the MoE family and deepseek-7b) or 4d (the last
+    families): each model at full width, or at its published widths with
+    its depth cut, one after another (each one's params freed before the
+    next is drawn), serving phase 4's stream through the paged engine
+    (the dense one for the ssm family) with the kernels on: launch counts
     exact, every request at its full budget, tokens/s, ticks, occupancy,
-    peak device memory, ms a decode tick against its bytes bound (a
-    synchronize after every admit and decode chunk); then the kernel path
-    against the plain path (routing flips counted for the MoE models, the
-    logits held on the kernel path's expert choices)."""
+    peak device memory, ms a decode tick against its bytes bound and ms
+    an admit (a synchronize after each); then the kernel path against the
+    plain path (routing flips counted for the MoE models, the logits held
+    on the kernel path's expert choices), or for the ssm family its
+    prefill against its token-by-token decode."""
     import gc
     from repro_torch.models.config import param_count
     out = []
@@ -1734,7 +1930,7 @@ def family_phase(torch, card, ops, MD, SS, ServeEngine, Request,
     # peak memory below is this phase's own
     gc.collect()
     torch.cuda.empty_cache()
-    for arch, depth in FAMILY:
+    for arch, depth in family:
         t_model = time.perf_counter()
         cfg = kernel_cfg(arch)
         full_layers, (full, _) = cfg.num_layers, param_count(cfg)
@@ -1757,25 +1953,23 @@ def family_phase(torch, card, ops, MD, SS, ServeEngine, Request,
         cut = (f", depth cut to {depth} of {full_layers} layers (its "
                f"{full / 1e9:.1f}B params at full depth do not fit one "
                f"card)" if depth else "")
-        moe = (f", {cfg.num_experts} experts of {cfg.expert_d_ff} top-"
-               f"{cfg.top_k} cf {cfg.capacity_factor}"
-               + (f" + dense residual {cfg.dense_residual_d_ff}"
-                  if cfg.moe_dense_residual else "")
-               if cfg.arch_type == "moe" else f", d_ff {cfg.d_ff}")
+        pool = (f"pool_occupancy={st['pool_occupancy']:.3f}, "
+                if "pool_occupancy" in st else "dense engine, ")
         print(f"family serve [{card}]: {arch} {total / 1e9:.2f}B params "
               f"({active / 1e9:.2f}B active) bf16, {cfg.num_layers} layers"
               f"{cut}, d_model {cfg.d_model}, {cfg.num_heads}/"
               f"{cfg.num_kv_heads} heads of {cfg.head_dim} (G "
-              f"{cfg.num_heads // cfg.num_kv_heads}){moe}; params drawn in "
+              f"{cfg.num_heads // cfg.num_kv_heads}), {describe(cfg)}; "
+              f"params drawn in "
               f"{init_s:.1f} s; {SLOTS} slots, {REQUESTS} requests: "
               f"{st['generated_tokens']} tokens in {wall:.2f} s = "
               f"{tps:.1f} tok/s, admits={st['prefill_ticks']} "
               f"decode_ticks={st['decode_ticks']} "
               f"occupancy={st['occupancy']:.3f} "
-              f"pool_occupancy={st['pool_occupancy']:.3f}, peak memory "
+              f"{pool}peak memory "
               f"{st['peak_mem_gb']:.2f} GB; a decode tick {tick_ms:.2f} ms "
               f"(bound {bound_ms:.2f} ms: {weights / 1e9:.2f} GB of "
-              f"weights + {kv / 1e9:.3f} GB of K/V at "
+              f"weights + {kv / 1e9:.3f} GB of K/V and state at "
               f"{PEAK_BYTES / 1e12:.2f} TB/s), an admit {admit_ms:.2f} ms; "
               f"launches={launches}")
         prof = None
@@ -1783,8 +1977,14 @@ def family_phase(torch, card, ops, MD, SS, ServeEngine, Request,
             prof = profile_serve(torch, cfg, params, ServeEngine, Request)
             print(f"split [{card}] {arch}: {json.dumps(prof['split'])}")
             print_trace(card, f"trace {arch}", prof["trace"])
-        plain = compare_plain_paths(torch, cfg, params, MD, SS, reqs)
-        print(f"kernel vs plain path [{card}] {arch}: {json.dumps(plain)}")
+        if cfg.arch_type == "ssm":
+            plain = rwkv_state_check(torch, cfg, params, MD, reqs)
+            print(f"prefill vs token-by-token decode [{card}] {arch}: "
+                  f"{json.dumps(plain)}")
+        else:
+            plain = compare_plain_paths(torch, cfg, params, MD, SS, reqs)
+            print(f"kernel vs plain path [{card}] {arch}: "
+                  f"{json.dumps(plain)}")
         if "routing" in plain:
             r = plain["routing"]
             print(f"routing [{card}] {arch}: {r['differ']} of {r['pairs']} "
@@ -1824,9 +2024,71 @@ def family_phase(torch, card, ops, MD, SS, ServeEngine, Request,
                     "profile": prof,
                     "seconds": secs})
         print(f"family [{card}]: {arch} took {secs:.1f} s")
-    print(f"family [{card}]: phase 4c took "
+    print(f"family [{card}]: phase {phase} took "
           f"{time.perf_counter() - t_phase:.1f} s")
     return out
+
+
+def swa_phase(torch, card, ops, MD):
+    """qwen3-0.6b's sliding-window variant (shape_plan's long_500k,
+    window 4096): a SWA_PROMPT-token prompt prefilled through flash with
+    the window (one launch a layer), the ring of `window` slots built
+    from its cache as the reference's test builds it, then SWA_STEPS
+    teacher-forced decode steps on the ring (no kernel: a dense ring), each
+    step's logits held against the plain path's windowed forward of the
+    whole SWA_PROMPT + SWA_STEPS tokens (LOGIT_TOL x max(1, max|logit|)),
+    the prefill's last logits too."""
+    import numpy as np
+    from repro_torch.configs import shape_plan
+    t0 = time.perf_counter()
+    cfg = shape_plan(ARCH, "long_500k").with_(use_flash_kernel=True,
+                                              use_paged_kernel=True)
+    params = MD.init_model(cfg, torch.Generator(device="cuda").manual_seed(0))
+    S, T, W = SWA_PROMPT, SWA_STEPS, cfg.sliding_window
+    toks = torch.as_tensor(np.random.RandomState(5).randint(
+        0, cfg.vocab_size, size=(1, S + T)), device="cuda").int()
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    lk, _, cache = MD.forward(params, cfg, toks[:, :S], return_cache=True)
+    ring = MD.init_cache(cfg, 1, S, "cuda")
+    if ring["k"].shape[2] != W:
+        fail(f"{cfg.name}: the ring holds {ring['k'].shape[2]} slots, "
+             f"want the window {W}")
+    idx = torch.arange(S - W, S, device="cuda")
+    for n in ring:
+        ring[n][:, :, idx % W] = cache[n][:, :, idx]
+    del cache
+    steps = []
+    for t in range(T):
+        lg, ring = MD.decode_step(params, cfg, toks[:, S + t:S + t + 1],
+                                  S + t, ring)
+        steps.append(lg[0, 0])
+    torch.cuda.synchronize()
+    launches = {n: getattr(ops, n).launches for n in
+                ("flash_attention", "paged_attention", "ssd_scan")}
+    want = {"flash_attention": cfg.num_layers, "paged_attention": 0,
+            "ssd_scan": 0}
+    if launches != want:
+        fail(f"{cfg.name}: launches {launches}, want {want}")
+    ref, _, _ = MD.forward(params, plain_cfg(cfg), toks)
+    pre_err, pre_scale = hold_logits(f"{cfg.name} prefill", lk[0, -1],
+                                     ref[0, S - 1])
+    errs = [hold_logits(f"{cfg.name} ring decode step {t}", steps[t],
+                        ref[0, S + t])[0] for t in range(T)]
+    same = sum(int(steps[t].argmax()) == int(ref[0, S + t].argmax())
+               for t in range(T))
+    secs = time.perf_counter() - t0
+    res = {"arch": cfg.name, "window": W, "prompt": S, "steps": T,
+           "launches": launches, "prefill_max_abs_err": pre_err,
+           "logit_scale": pre_scale, "decode_max_abs_err": max(errs),
+           "greedy_same": same, "seconds": secs}
+    print(f"swa [{card}]: {cfg.name} window {W}: {S}-token prompt through "
+          f"flash, {T} decode steps on a ring of {W} slots, every step's "
+          f"logits held against the windowed forward of {S + T} tokens: "
+          f"{json.dumps(res)}")
+    del params, ring, ref
+    torch.cuda.empty_cache()
+    return res
 
 
 def main(argv=None) -> int:
@@ -1906,6 +2168,9 @@ def main(argv=None) -> int:
               for arch in (ARCH, HYBRID)]
     family = family_phase(torch, card, ops, MD, SS, ServeEngine,  # 4c
                           Request, args.profile)
+    last = family_phase(torch, card, ops, MD, SS, ServeEngine,    # 4d
+                        Request, args.profile, family=LAST, phase="4d")
+    swa = swa_phase(torch, card, ops, MD)
 
     mid = [PLEN[0] + (PLEN[1] + GEN[1] - PLEN[0]) * i // SLOTS
            for i in range(SLOTS)]
@@ -1921,6 +2186,27 @@ def main(argv=None) -> int:
                                                        HEADS[arch])
         timing[f"paged_attention@{arch}"] = time_paged(torch, PA,
                                                        HEADS[arch], mid)
+    # phase 4d's: whisper's encoder and its cross-attention at a mid
+    # prompt, positions inside its 448-token decoder; phi-3's prefill of
+    # 576 patches + 512 tokens, its positions past the patches
+    W = HEADS[WHISPER]
+    timing[f"flash_attention@{WHISPER}"] = time_flash(
+        torch, FA, W, S=1500, causal=False)
+    timing[f"flash_attention@{WHISPER}:cross"] = time_flash(
+        torch, FA, W, S=192, T=1500, causal=False)
+    timing[f"paged_attention@{WHISPER}"] = time_paged(
+        torch, PA, W, [64 + (448 - 64) * i // SLOTS for i in range(SLOTS)],
+        cache_len=448)
+    vcfg = kernel_cfg(VLM)
+    timing[f"flash_attention@{VLM}"] = time_flash(
+        torch, FA, HEADS[VLM], S=vcfg.num_patches + PLEN[1])
+    timing[f"paged_attention@{VLM}"] = time_paged(
+        torch, PA, HEADS[VLM], [vcfg.num_patches + p for p in mid],
+        cache_len=stream_cache_len(vcfg))
+    timing[f"flash_attention@{NEMOTRON}"] = time_flash(torch, FA,
+                                                       HEADS[NEMOTRON])
+    timing[f"paged_attention@{NEMOTRON}"] = time_paged(
+        torch, PA, HEADS[NEMOTRON], mid)
     # beyond the serve paths' prompts (at most 512): where flash stands
     # against SDPA on longer prefills
     timing["flash_attention S=1024"] = time_flash(torch, FA, HEADS[ARCH],
@@ -1961,7 +2247,9 @@ def main(argv=None) -> int:
           f"and moments bit-identical")
 
     # launches by path: each counted from zero over its own main-path run
-    by_path = {f"{p['arch']} serve": p["launches"] for p in paths + family}
+    by_path = {f"{p['arch']} serve": p["launches"]
+               for p in paths + family + last}
+    by_path[f"{swa['arch']} prefill"] = swa["launches"]
     by_path.update({f"{p['arch']} serve, tight pool": p["tight_pool"]
                     ["launches"] for p in paths if p["tight_pool"]})
     by_path.update({p: run["launches"] for p, run in spec["runs"].items()})
@@ -1985,16 +2273,20 @@ def main(argv=None) -> int:
             ("paged_attention@verify", "paged_attention",
              "src/repro/kernels/paged_attention.py:77"),
             *((f"{k}@{arch}", k, f"src/repro/kernels/{k}.py:77")
-              for arch, _ in FAMILY
+              for arch, _ in FAMILY + LAST[1:]
               for k in ("flash_attention", "paged_attention")),
+            (f"flash_attention@{WHISPER}:cross", "flash_attention",
+             "src/repro/kernels/flash_attention.py:77"),
             ("ssd_scan", "ssd_scan", "src/repro/kernels/ssd_scan.py:69"),
             ("nc_pack", "nat_compress", "src/repro/kernels/nat_compress.py:56"),
             ("nc_unpack", "nat_compress",
              "src/repro/kernels/nat_compress.py:80")):
         # "kernel@model": the same kernel timed at that model's shapes,
-        # with the launches of that model's runs; "@verify": at the verify
-        # shape, with the speculative runs' launches
+        # with the launches of that model's runs ("@model:cross": at
+        # another of its shapes); "@verify": at the verify shape, with
+        # the speculative runs' launches
         kernel, _, at = name.partition("@")
+        at = at.partition(":")[0]
         t = timing[name]
         paths_n = {p: n[kernel] for p, n in by_path.items()
                    if n.get(kernel) and (
@@ -2011,7 +2303,7 @@ def main(argv=None) -> int:
     elapsed = time.perf_counter() - t_start
     result = {"card": card, "build_s": build_s, "elapsed_s": elapsed,
               "checks": rows, "serve": paths, "spec": spec,
-              "family": family,
+              "family": family, "last": last, "swa": swa,
               "drain": drains, "nc_checks": nc_rows,
               "timing": dict(timing, nc=nc_t),
               "train": tr}

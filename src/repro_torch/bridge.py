@@ -17,8 +17,9 @@ from repro_torch import DeviceLike, resolve_device
 
 # leaves the port's descriptors keep fp32 whatever the param dtype (the
 # MoE router, `models/mlp.py::moe_descs`; the Mamba2 scalars,
-# `models/ssm.py`): a cast leaves them fp32
-FP32_LEAVES = frozenset({"router", "A_log", "D", "dt_bias"})
+# `models/ssm.py`; the RWKV6 decay base and bonus, `models/rwkv.py`): a
+# cast leaves them fp32
+FP32_LEAVES = frozenset({"router", "A_log", "D", "dt_bias", "w0", "u"})
 
 
 def _leaf_to_torch(a, device: torch.device,

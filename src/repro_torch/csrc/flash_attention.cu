@@ -26,7 +26,11 @@
 // copies, double-buffered: tile i+1 is copied while tile i computes, with
 // one __syncthreads a tile.  Rows are padded by 16 bytes so that ldmatrix
 // and ldmatrix.trans are free of bank conflicts (85 KB of dynamic shared
-// memory at dh 128, opted in with cudaFuncSetAttribute; two blocks an SM).
+// memory at dh 128, opted in with cudaFuncSetAttribute; two blocks an SM;
+// 67 KB at dh 96; 128 KB and one block an SM at dh 192, where the Q
+// fragments and the O accumulator take 144 registers a thread).  Any head
+// dim that is a multiple of 16 fits these layouts (dh 96 and 192: 6 and
+// 12 k-steps of Q.K^T, 12 and 24 n-blocks of P.V).
 // S = Q.K^T runs on mma.sync bf16 -> fp32; the causal / window / bounds
 // mask is applied to the accumulator fragments only in tiles that
 // straddle the diagonal, the window edge or the ragged end.  The online
@@ -44,7 +48,8 @@
 // blocks an SM), so neither is here; wgmma is the next step.
 //
 // fp32 (the tests only): the blockwise kernel on the FMA units, two threads
-// per query row each holding half of the head dim, 32-key fp32 tiles.
+// per query row each holding half of the head dim, 32-key fp32 tiles
+// (48 KB of static shared memory at dh 192, the static limit).
 // TF32 tensor cores keep ~3 decimal digits and cannot meet the fp32
 // tolerance (2e-5), so fp32 stays off the tensor cores.
 #include <cuda_bf16.h>
@@ -209,10 +214,13 @@ struct TcLayout {
   // Q (reused for the output), then kStages K tiles and kStages V tiles
   static constexpr size_t kBytes =
       (1 + 2 * kStages) * kTile * sizeof(__nv_bfloat16);
+  // blocks an SM can hold by shared memory (227 KB a block, 228 an SM):
+  // two up to dh 128 (85 KB), one at dh 192 (128 KB)
+  static constexpr int kMinBlocks = 2 * kBytes <= 227 * 1024 ? 2 : 1;
 };
 
 template <int DH>
-__global__ void __launch_bounds__(kTThreads, 2)
+__global__ void __launch_bounds__(kTThreads, TcLayout<DH>::kMinBlocks)
 flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
                      const __nv_bfloat16* __restrict__ k,
                      const __nv_bfloat16* __restrict__ v,
@@ -497,8 +505,14 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
     case 64:
       return launch<64>(q, k, v, o, B, S, Tk, Hq, Hk, causal, has_window,
                         window, scale, dtype, st);
+    case 96:                      // phi-3-vision-4.2b
+      return launch<96>(q, k, v, o, B, S, Tk, Hq, Hk, causal, has_window,
+                        window, scale, dtype, st);
     case 128:
       return launch<128>(q, k, v, o, B, S, Tk, Hq, Hk, causal, has_window,
+                         window, scale, dtype, st);
+    case 192:                     // nemotron-4-340b
+      return launch<192>(q, k, v, o, B, S, Tk, Hq, Hk, causal, has_window,
                          window, scale, dtype, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);

@@ -27,9 +27,12 @@
 // least two blocks per SM.  The block loads pos, its own block-table
 // entries (the TPU's scalar prefetch) and q at once; a split wholly past
 // pos[b] then exits, reading no page.  Its 4 warps walk the span's
-// positions: a position's K and V rows are read with 16-byte loads, dh/8
-// lanes a row in bf16 (dh/4 in fp32), 8/G positions a lane in flight at
-// once; the G scores of a position are partial dot products reduced by
+// positions: a position's K and V rows are read with 16-byte loads (dh/8
+// chunks a row in bf16, dh/4 in fp32) by a group of lanes, the power of
+// two at least the chunk count and at most a warp (dh 96 in bf16: 12
+// chunks on 16 lanes, 4 of them idle; dh 192 in fp32: 48 chunks on 32
+// lanes, two chunks a lane, round-robin), 8/G positions a lane in flight
+// at once; the G scores of a position are partial dot products reduced by
 // shuffles across the row's lanes, which then fold the position into their
 // own running max, normaliser and fp32 accumulator (one update per
 // position and head, by the lanes that hold it, no thread walking
@@ -57,6 +60,11 @@ constexpr int kMaxSpan = 64;   // pages a split may take (its table in smem)
 // K/V rows a lane loads at once, over the G heads it folds them into
 constexpr int kRowsInFlight = 8;
 constexpr float kLog2e = 1.4426950408889634f;
+
+// the least power of two >= n
+__host__ __device__ constexpr int pow2_at_least(int n) {
+  return n <= 1 ? 1 : 2 * pow2_at_least((n + 1) / 2);
+}
 
 // 16 bytes of T widened to fp32
 __device__ __forceinline__ void widen(const uint4& r, float* f, float) {
@@ -98,8 +106,14 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kp,
                     int bt_stride, int n_splits, int span,
                     float scale_log2) {
   constexpr int kVec = 16 / sizeof(T);     // elements per 16-byte load
-  constexpr int kLanes = DH / kVec;        // lanes per K/V row
+  constexpr int kChunks = DH / kVec;       // 16-byte chunks a K/V row
+  // lanes per K/V row; lane c of a row takes chunks c, c + kLanes, ...
+  // (those past the row are idle: none when kChunks is a power of two)
+  constexpr int kLanes = kChunks >= 32 ? 32 : pow2_at_least(kChunks);
+  constexpr int kC = (kChunks + kLanes - 1) / kLanes;   // chunks a lane
+  constexpr int kE = kC * kVec;            // elements a lane holds a row
   constexpr int kRows = 32 / kLanes;       // rows a warp takes per step
+  static_assert(DH % kVec == 0, "a row is whole 16-byte chunks");
   // rows a lane holds in flight
   constexpr int kU = kRowsInFlight > G ? kRowsInFlight / G : 1;
   constexpr int kStep = kWarps * kRows * kU;
@@ -122,11 +136,17 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kp,
   const int n_tbl = min(span, n_pages - pg0);
   const int page = tid < n_tbl ? bt[static_cast<size_t>(b) * bt_stride
                                     + pg0 + tid] : 0;
-  uint4 qraw[G];
+  bool live[kC];                           // chunk i of this lane is in
+#pragma unroll
+  for (int i = 0; i < kC; ++i) live[i] = c + i * kLanes < kChunks;
+  uint4 qraw[G][kC];
 #pragma unroll
   for (int g = 0; g < G; ++g)
-    qraw[g] = *reinterpret_cast<const uint4*>(
-        q + (static_cast<size_t>(b) * Hq + hk * G + g) * DH + c * kVec);
+#pragma unroll
+    for (int i = 0; i < kC; ++i)
+      qraw[g][i] = live[i] ? *reinterpret_cast<const uint4*>(
+          q + (static_cast<size_t>(b) * Hq + hk * G + g) * DH
+          + (c + i * kLanes) * kVec) : make_uint4(0u, 0u, 0u, 0u);
   if (t0 > p_b) {            // wholly past the row's position: read nothing
     if (n_splits == 1)       // (only pos < 0 gets here) no key -> 0
       for (int i = tid; i < G * DH; i += kThreads)
@@ -136,20 +156,21 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kp,
   const int t_end = min(min(t0 + span * P, n_pages * P), p_b + 1);
   if (tid < n_tbl) tbl[tid] = page;
 
-  float qr[G][kVec];
+  float qr[G][kE];
 #pragma unroll
   for (int g = 0; g < G; ++g) {
-    widen(qraw[g], qr[g], T());
 #pragma unroll
-    for (int e = 0; e < kVec; ++e) qr[g][e] *= scale_log2;
+    for (int i = 0; i < kC; ++i) widen(qraw[g][i], qr[g] + i * kVec, T());
+#pragma unroll
+    for (int e = 0; e < kE; ++e) qr[g][e] *= scale_log2;
   }
-  float m[G], l[G], acc[G][kVec];
+  float m[G], l[G], acc[G][kE];
 #pragma unroll
   for (int g = 0; g < G; ++g) {
     m[g] = -INFINITY;
     l[g] = 0.f;
 #pragma unroll
-    for (int e = 0; e < kVec; ++e) acc[g][e] = 0.f;
+    for (int e = 0; e < kE; ++e) acc[g][e] = 0.f;
   }
   __syncthreads();
 
@@ -157,31 +178,40 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kp,
   const T* kb = kp + static_cast<size_t>(hk) * DH + c * kVec;
   const T* vb = vp + static_cast<size_t>(hk) * DH + c * kVec;
   for (int tb = t0; tb < t_end; tb += kStep) {
-    uint4 kr[kU], vr[kU];
+    uint4 kr[kU][kC], vr[kU][kC];
     bool ok[kU];
 #pragma unroll
     for (int u = 0; u < kU; ++u) {
       const int t = tb + (u * kWarps + warp) * kRows + grp;
       ok[u] = t < t_end;
-      kr[u] = vr[u] = make_uint4(0u, 0u, 0u, 0u);
+      size_t row = 0;
       if (ok[u]) {
         const int j = t / P;
-        const size_t row =
-            (static_cast<size_t>(tbl[j - pg0]) * P + (t - j * P)) * row_stride;
-        kr[u] = *reinterpret_cast<const uint4*>(kb + row);
-        vr[u] = *reinterpret_cast<const uint4*>(vb + row);
+        row = (static_cast<size_t>(tbl[j - pg0]) * P + (t - j * P))
+              * row_stride;
+      }
+#pragma unroll
+      for (int i = 0; i < kC; ++i) {
+        kr[u][i] = vr[u][i] = make_uint4(0u, 0u, 0u, 0u);
+        if (ok[u] && live[i]) {
+          kr[u][i] = *reinterpret_cast<const uint4*>(kb + row
+                                                     + i * kLanes * kVec);
+          vr[u][i] = *reinterpret_cast<const uint4*>(vb + row
+                                                     + i * kLanes * kVec);
+        }
       }
     }
     float s[kU][G];
 #pragma unroll
     for (int u = 0; u < kU; ++u) {
-      float kf[kVec];
-      widen(kr[u], kf, T());
+      float kf[kE];
+#pragma unroll
+      for (int i = 0; i < kC; ++i) widen(kr[u][i], kf + i * kVec, T());
 #pragma unroll
       for (int g = 0; g < G; ++g) {
         float a = 0.f;
 #pragma unroll
-        for (int e = 0; e < kVec; ++e) a = fmaf(qr[g][e], kf[e], a);
+        for (int e = 0; e < kE; ++e) a = fmaf(qr[g][e], kf[e], a);
 #pragma unroll
         for (int sh = kLanes / 2; sh > 0; sh >>= 1)
           a += __shfl_xor_sync(0xffffffffu, a, sh);
@@ -197,15 +227,16 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kp,
       m[g] = mx;
       l[g] *= alpha;
 #pragma unroll
-      for (int e = 0; e < kVec; ++e) acc[g][e] *= alpha;
+      for (int e = 0; e < kE; ++e) acc[g][e] *= alpha;
 #pragma unroll
       for (int u = 0; u < kU; ++u) {
         const float p = weight(s[u][g], mx);   // masked: exactly 0
-        float vf[kVec];
-        widen(vr[u], vf, T());
+        float vf[kE];
+#pragma unroll
+        for (int i = 0; i < kC; ++i) widen(vr[u][i], vf + i * kVec, T());
         l[g] += p;
 #pragma unroll
-        for (int e = 0; e < kVec; ++e) acc[g][e] = fmaf(p, vf[e], acc[g][e]);
+        for (int e = 0; e < kE; ++e) acc[g][e] = fmaf(p, vf[e], acc[g][e]);
       }
     }
   }
@@ -221,7 +252,7 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kp,
       const float a1 = weight(m[g], mn), a2 = weight(m2, mn);
       l[g] = l[g] * a1 + l2 * a2;
 #pragma unroll
-      for (int e = 0; e < kVec; ++e) {
+      for (int e = 0; e < kE; ++e) {
         const float x2 = __shfl_xor_sync(0xffffffffu, acc[g][e], sh);
         acc[g][e] = acc[g][e] * a1 + x2 * a2;
       }
@@ -232,7 +263,12 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kp,
 #pragma unroll
     for (int g = 0; g < G; ++g) {
 #pragma unroll
-      for (int e = 0; e < kVec; ++e) red_acc[warp][g][c * kVec + e] = acc[g][e];
+      for (int i = 0; i < kC; ++i)
+        if (live[i])
+#pragma unroll
+          for (int e = 0; e < kVec; ++e)
+            red_acc[warp][g][(c + i * kLanes) * kVec + e] =
+                acc[g][i * kVec + e];
       if (c == 0) {
         red_ml[warp][g][0] = m[g];
         red_ml[warp][g][1] = l[g];
@@ -345,6 +381,9 @@ int dispatch_g(const void* q, const void* kp, const void* vp, const int* bt,
     case 8:
       return launch<T, DH, 8>(q, kp, vp, bt, pos, o, ws, B, Hk, P, n_pages,
                               bt_stride, n_splits, span, scale, st);
+    case 12:                           // 96/8 heads (nemotron-4-340b)
+      return launch<T, DH, 12>(q, kp, vp, bt, pos, o, ws, B, Hk, P, n_pages,
+                               bt_stride, n_splits, span, scale, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -362,8 +401,14 @@ int dispatch_dh(const void* q, const void* kp, const void* vp, const int* bt,
     case 64:
       return dispatch_g<T, 64>(q, kp, vp, bt, pos, o, ws, B, Hk, G, P,
                                n_pages, bt_stride, n_splits, span, scale, st);
+    case 96:                           // phi-3-vision-4.2b
+      return dispatch_g<T, 96>(q, kp, vp, bt, pos, o, ws, B, Hk, G, P,
+                               n_pages, bt_stride, n_splits, span, scale, st);
     case 128:
       return dispatch_g<T, 128>(q, kp, vp, bt, pos, o, ws, B, Hk, G, P,
+                                n_pages, bt_stride, n_splits, span, scale, st);
+    case 192:                          // nemotron-4-340b
+      return dispatch_g<T, 192>(q, kp, vp, bt, pos, o, ws, B, Hk, G, P,
                                 n_pages, bt_stride, n_splits, span, scale, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);

@@ -16,7 +16,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels.ref import attention_ref as reference
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 96, 128, 192)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -23,11 +23,6 @@ from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import ssd_scan as _ssd
 
-# the TPU kernel tiles keys in blocks of 128; non-causal input whose key
-# length does not fill whole blocks is refused there, and here alike
-_TPU_BLOCK_K = 128
-
-
 def _refuse_autograd(name: str, *tensors: torch.Tensor) -> None:
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise RuntimeError(
@@ -39,12 +34,11 @@ def _refuse_autograd(name: str, *tensors: torch.Tensor) -> None:
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True,
                     window: Optional[int] = None) -> torch.Tensor:
-    """GQA flash attention.  q: (B,S,Hq,dh); k,v: (B,T,Hk,dh)."""
+    """GQA flash attention.  q: (B,S,Hq,dh); k,v: (B,T,Hk,dh).  Any T:
+    the kernel masks keys past T, where the TPU kernel pads them and so
+    refuses a non-causal T that is not a multiple of its 128-key block
+    (the whisper encoder's 1500 frames)."""
     _refuse_autograd("flash_attention", q, k, v)
-    T = k.shape[1]
-    if not causal and T % min(_TPU_BLOCK_K, T):
-        raise ValueError("non-causal flash requires T % block_k == 0 "
-                         "(padding keys would receive weight)")
     if not q.is_cuda:
         return _ref.attention_ref(q, k, v, causal=causal, window=window)
     out = _fa.flash_attention(q, k, v, causal=causal, window=window)

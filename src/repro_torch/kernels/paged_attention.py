@@ -16,8 +16,8 @@ from repro_torch.kernels import build
 from repro_torch.kernels.ref import paged_attention_ref as reference
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (32, 64, 128)
-GROUPS = (1, 2, 4, 7, 8)
+HEAD_DIMS = (32, 64, 96, 128, 192)
+GROUPS = (1, 2, 4, 7, 8, 12)
 _SMEM_LIMIT = 48 * 1024  # static launch limit without an opt-in attribute
 # the kernel's layout (csrc/paged_attention.cu): 4 warps a block, a split
 # takes at most MAX_SPAN pages (their table entries staged in shared memory)

@@ -14,12 +14,16 @@ lookup draft, or with --draft-arch a smaller model of the same vocabulary
 
 Runs on the CUDA card (the attention kernels, and for the hybrid family
 the SSD scan kernel, on) unless --device cpu, where the kernel wrappers
-take their plain PyTorch versions.  --arch takes the ported configs:
-qwen3-0.6b, qwen3-1.7b, deepseek-7b (dense), qwen3-moe-30b-a3b,
-arctic-480b (MoE; arctic's 476.9B params need more than one card) and
-zamba2-1.2b (hybrid).  The hybrid family
-prefills any prompt length: its chunked scan takes a ragged last chunk,
-where the JAX package asserts a whole number of chunks.
+take their plain PyTorch versions.  --arch takes every config of the
+registry: qwen3-0.6b, qwen3-1.7b, deepseek-7b, nemotron-4-340b (dense;
+nemotron's 341.0B params need more than one card), qwen3-moe-30b-a3b,
+arctic-480b (MoE; arctic's 476.9B params need more than one card),
+zamba2-1.2b (hybrid), rwkv6-1.6b (ssm: no KV, so not --paged),
+whisper-tiny (audio) and phi-3-vision-4.2b (vlm).  The audio and vlm
+requests carry zero frames / patches from the stub frontends, as in the
+JAX launcher, and a vlm cache holds the patch prefix too.  The hybrid
+family prefills any prompt length: its chunked scan takes a ragged last
+chunk, where the JAX package asserts a whole number of chunks.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --batch 4 \
@@ -34,6 +38,8 @@ Usage:
       --continuous --paged --speculative --draft-arch qwen3-0.6b
   PYTHONPATH=src python -m repro_torch.launch.serve \
       --arch qwen3-moe-30b-a3b --continuous --paged --requests 16 --batch 8
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b \
+      --smoke --device cpu --continuous --requests 6 --batch 2
 
 Not ported yet: --replicas, --hedged, the transports and tracing.
 """
@@ -47,16 +53,18 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs import get_config
-from repro_torch.launch.steps import make_serve_step, sharded_argmax
+from repro_torch.launch.steps import (make_extra, make_serve_step,
+                                      sharded_argmax)
 from repro_torch.models import model as MD
 
 
-def make_static_fns(cfg, cache_len):
+def make_static_fns(cfg, cache_len, extra=None):
     """(prefill, decode) pair for the static serve path."""
     serve_step = make_serve_step(cfg)
 
     def prefill(params, tokens):
         logits, _, cache = MD.forward(params, cfg, tokens,
+                                      extra_embeds=extra,
                                       return_cache=True,
                                       cache_len=cache_len)
         return sharded_argmax(logits[:, -1])[:, None], cache
@@ -74,11 +82,14 @@ def _sync(device: torch.device) -> None:
 
 def _serve_static(params, cfg, args, device):
     B, S, G = args.batch, args.prompt_len, args.gen
-    cache_len = S + G
+    # the vlm cache holds the patch prefix before the prompt tokens
+    P = MD.n_prefix(cfg)
+    cache_len = S + G + P
     rng = np.random.RandomState(args.seed + 1)
     prompts = torch.as_tensor(rng.randint(0, cfg.vocab_size, size=(B, S)),
                               device=device)
-    prefill, decode = make_static_fns(cfg, cache_len)
+    prefill, decode = make_static_fns(cfg, cache_len,
+                                      make_extra(cfg, B, device))
 
     t0 = time.time()
     tok, cache = prefill(params, prompts)
@@ -87,7 +98,7 @@ def _serve_static(params, cfg, args, device):
     out = [tok]
     t0 = time.time()
     for i in range(G - 1):
-        tok, cache = decode(params, tok, S + i, cache)
+        tok, cache = decode(params, tok, P + S + i, cache)
         out.append(tok)
     _sync(device)
     t_decode = time.time() - t0
@@ -109,8 +120,9 @@ def _stream_lens(args):
     return plens, gens
 
 
-def _make_stream(cfg, args):
-    """Deterministic mixed-length request stream (as the JAX launcher)."""
+def _make_stream(cfg, args, device):
+    """Deterministic mixed-length request stream (as the JAX launcher);
+    vlm and audio requests carry the stub frontend's zeros."""
     from repro_torch.serving import Request
 
     rng = np.random.RandomState(args.seed + 1)
@@ -118,7 +130,8 @@ def _make_stream(cfg, args):
     return [Request(rid=i,
                     prompt=rng.randint(0, cfg.vocab_size,
                                        size=int(rng.choice(plens))),
-                    max_new_tokens=int(rng.choice(gens)))
+                    max_new_tokens=int(rng.choice(gens)),
+                    extra_embeds=make_extra(cfg, 1, device))
             for i in range(args.requests)]
 
 
@@ -126,10 +139,11 @@ def _serve_continuous(params, cfg, args, device):
     from repro_torch.serving import (LookupDraft, ModelDraft, ServeEngine,
                                      SpecDecodeEngine)
 
-    # drawn lengths never exceed the CLI bounds: cache_len = S + G must
-    # hold the longest prompt plus the largest generation budget
+    # drawn lengths never exceed the CLI bounds: cache_len = S + G (and a
+    # vlm's patch prefix) holds the longest prompt plus the largest budget
     S, G = args.prompt_len, args.gen
-    reqs = _make_stream(cfg, args)
+    reqs = _make_stream(cfg, args, device)
+    cache_len = S + G + MD.n_prefix(cfg)
     paged = dict(page_size=args.page_size,
                  num_pages=args.num_pages) if args.paged else {}
     if args.speculative:
@@ -141,12 +155,12 @@ def _serve_continuous(params, cfg, args, device):
         else:
             draft = LookupDraft()
         engine = SpecDecodeEngine(params, cfg, num_slots=args.batch,
-                                  cache_len=S + G + args.spec_k,
+                                  cache_len=cache_len + args.spec_k,
                                   draft=draft, spec_k=args.spec_k,
                                   device=device, **paged)
     else:
         engine = ServeEngine(params, cfg, num_slots=args.batch,
-                             cache_len=S + G, device=device, **paged)
+                             cache_len=cache_len, device=device, **paged)
     t0 = time.time()
     finished = engine.run(reqs)
     _sync(device)

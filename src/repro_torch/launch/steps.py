@@ -14,7 +14,7 @@ import torch
 
 from repro_torch.core.compression import wire_roundtrip
 from repro_torch.models import model as MD
-from repro_torch.models.common import tree_leaves, tree_map
+from repro_torch.models.common import torch_dtype, tree_leaves, tree_map
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim.optimizers import clip_by_global_norm
 
@@ -63,6 +63,22 @@ def make_train_step(cfg: ModelConfig, opt,
         params, opt_state, gnorm = apply_grads(opt, params, opt_state, grads)
         return params, opt_state, {"loss": loss, "gnorm": gnorm}
     return train_step
+
+
+def make_extra(cfg: ModelConfig, B: int,
+               device: torch.device) -> Optional[torch.Tensor]:
+    """The stub modality frontends' output, zeros in the compute dtype as
+    the JAX launchers give them (its ``batch_abstract`` shapes): vlm
+    patches (B, num_patches, 1024), audio frames (B, encoder_seq,
+    d_model); None for the text-only families."""
+    dt = torch_dtype(cfg.compute_dtype)
+    if cfg.arch_type == "vlm":
+        return torch.zeros((B, cfg.num_patches, MD.VISION_EMBED_DIM),
+                           dtype=dt, device=device)
+    if cfg.arch_type == "audio":
+        return torch.zeros((B, cfg.encoder_seq, cfg.d_model), dtype=dt,
+                           device=device)
+    return None
 
 
 def make_prefill_step(cfg: ModelConfig, cache_len: int) -> Callable:

@@ -36,7 +36,7 @@ from repro_torch.checkpoint import (latest_step, restore_checkpoint,
                                     save_checkpoint)
 from repro_torch.configs import get_config
 from repro_torch.data import make_pipeline
-from repro_torch.launch.steps import make_train_step
+from repro_torch.launch.steps import make_extra, make_train_step
 from repro_torch.models import model as MD
 from repro_torch.optim.optimizers import get_optimizer, warmup_cosine
 
@@ -105,6 +105,9 @@ def _train(args) -> dict:
         step = step0 + i
         batch = {k: torch.from_numpy(v).to(device)
                  for k, v in next(batches).items()}
+        extra = make_extra(cfg, args.batch, device)
+        if extra is not None:         # the stub frontends' zeros, as JAX
+            batch["extra_embeds"] = extra
         noise = None
         if args.compress_grads:
             noise = torch.Generator(device=device).manual_seed(

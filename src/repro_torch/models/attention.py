@@ -2,12 +2,14 @@
 
 The PyTorch counterpart of the JAX package's ``models/attention.py``.
 Projections are stored flattened (d_model, heads*head_dim), as there.
-Cross-attention, the sliding-window ring buffer and the q-chunked path
-are not ported yet (ROADMAP.md, queue 1).
+Batched attention dispatches to the flash kernel, the q-chunked path or
+the flat softmax; cross-attention reads encoder K/V computed once
+(`encoder_kv`); decode writes a dense cache, a sliding-window ring of
+`window` slots, or a paged pool.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -77,17 +79,44 @@ def causal_mask(S: int, T: int, offset: int = 0,
     return m
 
 
+def _cross_q(p, x, cfg: ModelConfig):
+    """The cross-attention query of x (B,S,d): no rope, as the encoder's
+    keys carry the frames' positions."""
+    B, S, _ = x.shape
+    q = dense(x, p["wq"]).reshape(B, S, cfg.num_heads, cfg.head_dim)
+    if cfg.qk_norm:
+        q = head_rms_norm(q, p["q_scale"], cfg.norm_eps)
+    return q
+
+
+def attention(p, x, positions, cfg: ModelConfig, *,
+              encoder_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+              causal: bool = True) -> torch.Tensor:
+    """Batched attention. x: (B,S,d).  encoder_kv: (k, v) of
+    `encoder_kv` -> cross-attention (never causal)."""
+    B, S, _ = x.shape
+    if encoder_kv is not None:
+        q, (k, v) = _cross_q(p, x, cfg), encoder_kv
+        causal = False
+    else:
+        q, k, v = _project_qkv(p, x, positions, cfg)
+    window = (cfg.sliding_window
+              if cfg.attention_kind == "sliding_window" else None)
+    out = gqa_attend(q, k, v, cfg, causal=causal, window=window)
+    return dense(out.reshape(B, S, -1), p["wo"])
+
+
 def gqa_attend(q, k, v, cfg: ModelConfig, *, causal: bool = True,
                window: Optional[int] = None) -> torch.Tensor:
     """Backend dispatch for batched GQA attention: the flash kernel
-    wrapper (cfg.use_flash_kernel) or the flat softmax."""
+    wrapper (cfg.use_flash_kernel), the q-chunked path (cfg.attn_q_chunk)
+    or the flat softmax."""
     S = q.shape[1]
     if cfg.use_flash_kernel and S > 1:
         from repro_torch.kernels import ops as K
         return K.flash_attention(q, k, v, causal=causal, window=window)
     if cfg.attn_q_chunk and S > cfg.attn_q_chunk:
-        raise NotImplementedError("q-chunked attention is not ported yet "
-                                  "(ROADMAP.md queue 1, attention)")
+        return _gqa_chunked(q, k, v, cfg, causal=causal, window=window)
     scores = _gqa_scores(q, k)
     if causal:
         T = k.shape[1]
@@ -95,6 +124,41 @@ def gqa_attend(q, k, v, cfg: ModelConfig, *, causal: bool = True,
         scores = torch.where(m, scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1)
     return _gqa_out(probs, v)
+
+
+def _gqa_chunked(q, k, v, cfg: ModelConfig, *, causal: bool,
+                 window: Optional[int]) -> torch.Tensor:
+    """q-chunked attention: the scores exist only for one block of
+    attn_q_chunk query rows at a time.  As in the reference, query i of
+    the prompt sits at key position i (not T - S + i as in the flat path:
+    the same for the S == T prefill, the only caller).  The last block is
+    short where the JAX code pads it; softmax rows are independent, so
+    the kept rows are the same."""
+    S, T = q.shape[1], k.shape[1]
+    Qc = min(cfg.attn_q_chunk, S)
+    kpos = torch.arange(T, device=q.device)[None, :]
+    outs = []
+    for lo in range(0, S, Qc):
+        qb = q[:, lo:lo + Qc]
+        scores = _gqa_scores(qb, k)  # (B,Hk,G,Qc,T)
+        if causal:
+            qpos = lo + torch.arange(qb.shape[1], device=q.device)[:, None]
+            m = kpos <= qpos
+            if window is not None:
+                m &= kpos > qpos - window
+            scores = torch.where(m, scores, NEG_INF)
+        outs.append(_gqa_out(torch.softmax(scores, dim=-1), v))
+    return torch.cat(outs, dim=1)
+
+
+def encoder_kv(p, enc_x, cfg: ModelConfig):
+    """Cross-attention K/V from the encoder output (cached at prefill)."""
+    B, T, _ = enc_x.shape
+    k = dense(enc_x, p["wk"]).reshape(B, T, cfg.num_kv_heads, cfg.head_dim)
+    v = dense(enc_x, p["wv"]).reshape(B, T, cfg.num_kv_heads, cfg.head_dim)
+    if cfg.qk_norm:
+        k = head_rms_norm(k, p["k_scale"], cfg.norm_eps)
+    return k, v
 
 
 # --------------------------------------------------------------------------
@@ -117,7 +181,8 @@ def _paged_gather(pool, bt, C):
 
 
 def attention_decode(p, x, cache_k, cache_v, pos, cfg: ModelConfig, *,
-                     active=None, block_tables=None, logical_len=None):
+                     encoder_kv_cache=None, active=None, block_tables=None,
+                     logical_len=None):
     """x: (B,1,d); cache_k/v: (B,C,Hk,dh) views into the layer-stacked
     cache; pos: () current length, or (B,) — one position per row.
 
@@ -127,10 +192,18 @@ def attention_decode(p, x, cache_k, cache_v, pos, cfg: ModelConfig, *,
     cache must not change — their dense write puts back the row's own old
     value, and their paged write goes to the trash page.
 
+    encoder_kv_cache: (k, v) (B,T,Hk,dh) of `encoder_kv` — the
+    cross-attention read: every encoder position is visible, and nothing
+    is written (cache_k/v are not read and may be None).
+
     block_tables: optional (B, n_max) int — PAGED mode: cache_k/v are the
     shared pool (Np+1, P, Hk, dh) of `model.init_paged_cache` and row b's
     position q lives in pool[block_tables[b, q // P], q % P].  logical_len
     bounds the gathered view (the dense cache_len it replaces).
+
+    With a sliding window the dense cache is a ring of C = window slots:
+    position q lives in slot q mod C, and once q >= C every slot holds one
+    of the last C positions.
 
     Returns (y, cache_k, cache_v)."""
     B = x.shape[0]
@@ -138,14 +211,16 @@ def attention_decode(p, x, cache_k, cache_v, pos, cfg: ModelConfig, *,
     ring = cfg.attention_kind == "sliding_window"
     if paged and ring:
         raise ValueError("paged KV does not support sliding-window caches")
-    if ring:
-        raise NotImplementedError("the sliding-window ring cache is not "
-                                  "ported yet (ROADMAP.md queue 1)")
     pos = torch.as_tensor(pos, device=x.device)
     per_row = pos.dim() == 1
     if paged and not per_row:
         raise ValueError("paged KV requires a per-row pos vector")
     pos_b = (pos if per_row else pos.expand(B)).long()  # (B,)
+    if encoder_kv_cache is not None:
+        q, (k, v) = _cross_q(p, x, cfg), encoder_kv_cache
+        probs = torch.softmax(_gqa_scores(q, k), dim=-1)
+        y = dense(_gqa_out(probs, v).reshape(B, 1, -1), p["wo"])
+        return y, cache_k, cache_v
     q, k1, v1 = _project_qkv(p, x, pos_b[:, None], cfg)
     if paged:
         Np, P = cache_k.shape[0] - 1, cache_k.shape[1]   # page Np: trash
@@ -174,8 +249,10 @@ def attention_decode(p, x, cache_k, cache_v, pos, cfg: ModelConfig, *,
         C = cache_k.shape[1]
         if per_row:
             rows = torch.arange(B, device=x.device)
-            slot = pos_b.clamp(max=C - 1)
-            keep = pos_b < C
+            if ring:
+                slot, keep = pos_b % C, torch.ones_like(pos_b, dtype=bool)
+            else:
+                slot, keep = pos_b.clamp(max=C - 1), pos_b < C
             if active is not None:
                 keep = keep & active
             keep = keep[:, None, None]
@@ -187,10 +264,15 @@ def attention_decode(p, x, cache_k, cache_v, pos, cfg: ModelConfig, *,
             cache_v[rows, slot] = torch.where(keep, v1[:, 0].to(cache_v.dtype),
                                               cache_v[rows, slot])
         else:
-            cache_k.index_copy_(1, pos.reshape(1).long(), k1.to(cache_k.dtype))
-            cache_v.index_copy_(1, pos.reshape(1).long(), v1.to(cache_v.dtype))
+            slot = (pos % C if ring else pos).reshape(1).long()
+            cache_k.index_copy_(1, slot, k1.to(cache_k.dtype))
+            cache_v.index_copy_(1, slot, v1.to(cache_v.dtype))
         k, v = cache_k, cache_v
-    valid = torch.arange(C, device=x.device)[None, :] <= pos_b[:, None]
+    idx = torch.arange(C, device=x.device)[None, :]
+    if ring:
+        valid = (idx <= (pos_b % C)[:, None]) | (pos_b[:, None] >= C)
+    else:
+        valid = idx <= pos_b[:, None]
     scores = _gqa_scores(q, k)  # (B,Hk,G,1,C)
     scores = torch.where(valid[:, None, None, None], scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1)

@@ -3,9 +3,8 @@
 A copy of the JAX package's ``models/config.py`` (the port imports nothing
 from it): one dataclass covers the six arch types dense / moe / ssm /
 hybrid / vlm / audio.  Fields unused by a family are ignored by its
-builder.  The port runs the dense, MoE and hybrid families so far;
-``use_flash_kernel``, ``use_paged_kernel`` and ``use_ssd_kernel`` select
-the hand-written CUDA kernels.
+model code.  ``use_flash_kernel``, ``use_paged_kernel`` and
+``use_ssd_kernel`` select the hand-written CUDA kernels.
 """
 from __future__ import annotations
 
@@ -33,8 +32,8 @@ class ModelConfig:
     rope_theta: float = 10000.0
     attention_kind: str = "full"  # full | sliding_window
     sliding_window: int = 4096
-    # q-chunked attention (JAX package only; the port has not ported the
-    # chunked path yet and rejects a nonzero value).  0 = off.
+    # q-chunked attention: the scores of attn_q_chunk query rows at a
+    # time, so the (S,T) score matrix never exists whole.  0 = off.
     attn_q_chunk: int = 0
     # batched attention through kernels.ops.flash_attention: the CUDA
     # kernel for CUDA tensors, its plain version for CPU tensors.

@@ -1,5 +1,6 @@
-"""Top-level decoder LM: the dense and MoE families, and the hybrid family
-(Zamba2-style Mamba2 layers with one shared attention+MLP block).
+"""Top-level models: decoder LM (dense / moe / vlm), encoder-decoder
+(audio), hybrid (Zamba2-style Mamba2 layers with one shared
+attention+MLP block) and RWKV6 (ssm).
 
 The PyTorch counterpart of the JAX package's ``models/model.py``.  Per-layer
 parameters are stacked ``(L, ...)`` leaves as there; the layer
@@ -25,24 +26,22 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as A
 from repro_torch.models import mlp as M
+from repro_torch.models import rwkv as RW
 from repro_torch.models import ssm as SSM
 from repro_torch.models.common import (ParamDesc, dense, init_params,
                                        rms_norm, torch_dtype, tree_map)
 from repro_torch.models.config import ModelConfig
 
-_PORTED = ("dense", "moe", "hybrid")
-
-
-def _require_ported(cfg: ModelConfig) -> None:
-    if cfg.arch_type not in _PORTED:
-        raise NotImplementedError(
-            f"arch_type {cfg.arch_type!r} is not ported yet (ROADMAP.md "
-            f"queue 1, other model families); ported: {_PORTED}")
+# the attention families: a position-indexed K/V cache, one per layer
+_ATTN = ("dense", "vlm", "moe", "audio")
 
 
 # ---------------------------------------------------------------------------
 # Parameter descriptor trees
 # ---------------------------------------------------------------------------
+VISION_EMBED_DIM = 1024  # stub ViT output dim (CLIP ViT-L) for VLM backbones
+
+
 def _stack(tree, L: int):
     return tree_map(lambda d: ParamDesc((L,) + d.shape, d.dtype, d.init,
                                         d.fan_in), tree)
@@ -52,19 +51,29 @@ def _norm_desc(cfg):
     return ParamDesc((cfg.d_model,), cfg.param_dtype, init="ones")
 
 
-def _attn_mlp_block_descs(cfg: ModelConfig):
-    return {"ln1": _norm_desc(cfg), "attn": A.attn_descs(cfg),
-            "ln2": _norm_desc(cfg), "mlp": M.mlp_descs(cfg)}
+def _attn_mlp_block_descs(cfg: ModelConfig, cross: bool = False):
+    d = {"ln1": _norm_desc(cfg), "attn": A.attn_descs(cfg),
+         "ln2": _norm_desc(cfg), "mlp": M.mlp_descs(cfg)}
+    if cross:
+        d["lnc"] = _norm_desc(cfg)
+        d["cross"] = A.attn_descs(cfg)
+    return d
 
 
 def block_descs(cfg: ModelConfig) -> Dict[str, Any]:
-    _require_ported(cfg)
-    if cfg.arch_type == "hybrid":
-        return {"ln": _norm_desc(cfg), "ssm": SSM.ssm_descs(cfg)}
-    if cfg.arch_type == "moe":
+    at = cfg.arch_type
+    if at in ("dense", "vlm"):
+        return _attn_mlp_block_descs(cfg)
+    if at == "audio":
+        return _attn_mlp_block_descs(cfg, cross=True)
+    if at == "moe":
         return {"ln1": _norm_desc(cfg), "attn": A.attn_descs(cfg),
                 "ln2": _norm_desc(cfg), "moe": M.moe_descs(cfg)}
-    return _attn_mlp_block_descs(cfg)
+    if at == "hybrid":
+        return {"ln": _norm_desc(cfg), "ssm": SSM.ssm_descs(cfg)}
+    if at == "ssm":
+        return RW.rwkv_descs(cfg)
+    raise ValueError(f"unknown arch_type {at!r}")
 
 
 def model_descs(cfg: ModelConfig) -> Dict[str, Any]:
@@ -81,7 +90,20 @@ def model_descs(cfg: ModelConfig) -> Dict[str, Any]:
         # one attention+MLP block, applied after every hybrid_attn_every
         # layers with the same weights each time (not stacked)
         descs["shared"] = _attn_mlp_block_descs(cfg)
+    if cfg.arch_type == "audio":
+        descs["enc_blocks"] = _stack(_attn_mlp_block_descs(cfg),
+                                     cfg.num_encoder_layers)
+        descs["enc_final_norm"] = _norm_desc(cfg)
+    if cfg.arch_type == "vlm":
+        descs["vproj"] = ParamDesc((VISION_EMBED_DIM, cfg.d_model), dt,
+                                   fan_in=VISION_EMBED_DIM)
     return descs
+
+
+def n_prefix(cfg: ModelConfig) -> int:
+    """Positions a request's modality prefix takes in its cache (the vlm
+    patches, ahead of the prompt); the logits do not include them."""
+    return cfg.num_patches if cfg.arch_type == "vlm" else 0
 
 
 def init_model(cfg: ModelConfig, generator: torch.Generator):
@@ -117,16 +139,23 @@ def _ffn(p, h, cfg):
     return M.mlp(p["mlp"], h, cfg), None
 
 
-def _apply_attn_mlp(p, x, positions, cfg):
-    """(x, (k, v), aux) of one attention + feed-forward layer."""
+def _apply_attn_mlp(p, x, positions, cfg, enc=None):
+    """(x, (k, v), aux) of one attention + feed-forward layer; with the
+    encoder output `enc` (audio) a cross-attention sublayer sits between
+    them, and (k, v) also carries its encoder K/V: (k, v, ck, cv)."""
     x, kv = _attn_sublayer(p, x, positions, cfg)
+    if enc is not None:
+        h = rms_norm(x, p["lnc"], cfg.norm_eps)
+        ekv = A.encoder_kv(p["cross"], enc, cfg)
+        x = x + A.attention(p["cross"], h, positions, cfg, encoder_kv=ekv)
+        kv = kv + ekv
     y, aux = _ffn(p, rms_norm(x, p["ln2"], cfg.norm_eps), cfg)
     return x + y, kv, aux
 
 
-def _block(p, x, positions, cfg):
+def _block(p, x, positions, cfg, enc=None):
     """(x, aux): the unit that block remat recomputes."""
-    x, _, aux = _apply_attn_mlp(p, x, positions, cfg)
+    x, _, aux = _apply_attn_mlp(p, x, positions, cfg, enc)
     return x, aux
 
 
@@ -144,55 +173,124 @@ def _hybrid_layer(lp, shared, x, positions, cfg, with_shared: bool):
     return _block(shared, x, positions, cfg)[0] if with_shared else x
 
 
+def _encode_audio(params, cfg, frames, remat):
+    """The encoder over the frame embeddings (B, Te, d_model): full
+    (non-causal) self-attention with rope over the frame positions."""
+    B, Te, _ = frames.shape
+    enc_pos = torch.arange(Te, device=frames.device)[None].expand(B, Te)
+    h = frames
+    for i in range(cfg.num_encoder_layers):
+        lp = _layer(params["enc_blocks"], i)
+        h = (checkpoint(_encoder_layer, lp, h, enc_pos, cfg,
+                        use_reentrant=False)
+             if remat else _encoder_layer(lp, h, enc_pos, cfg))
+    return rms_norm(h, params["enc_final_norm"], cfg.norm_eps)
+
+
+def _encoder_layer(lp, h, enc_pos, cfg):
+    h1 = rms_norm(h, lp["ln1"], cfg.norm_eps)
+    h = h + A.attention(lp["attn"], h1, enc_pos, cfg, causal=False)
+    h2 = rms_norm(h, lp["ln2"], cfg.norm_eps)
+    return h + M.mlp(lp["mlp"], h2, cfg)
+
+
 def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *,
             extra_embeds=None, return_cache: bool = False,
             cache_len: Optional[int] = None):
-    """tokens: (B, S) int.  Returns (logits (B, S, V), aux_loss scalar,
-    cache|None); the cache is `init_cache`'s (dense: {"k", "v"}:
-    (L, B, cache_len, Hk, dh)) holding the prefill.
+    """tokens: (B, S) int.  extra_embeds: the modality frontend's stub
+    output — audio: (B, T_enc, d_model) frame embeddings; vlm: (B, P,
+    1024) patches, projected and prepended to the tokens (positions and
+    the cache include them; the logits do not).
+
+    Returns (logits (B, S, V), aux_loss scalar, cache|None); the cache is
+    `init_cache`'s (dense: {"k", "v"}: (L, B, cache_len, Hk, dh); audio
+    adds the cross-attention K/V "ck", "cv" (L, B, T_enc, Hk, dh); ssm:
+    the recurrent state) holding the prefill.
 
     With ``cfg.remat == "block"`` and autograd recording, each layer runs
     under ``torch.utils.checkpoint`` (the JAX package's ``jax.checkpoint``
     of the scan body): its activations are recomputed in the backward."""
-    _require_ported(cfg)
-    if extra_embeds is not None:
-        raise NotImplementedError("modality prefixes are not ported yet "
-                                  "(ROADMAP.md queue 1, other families)")
-    B, S = tokens.shape
+    at = cfg.arch_type
     x = params["embed"][tokens.long()].to(torch_dtype(cfg.compute_dtype))
+    n_prefix = 0
+    if at == "vlm":
+        if extra_embeds is None:
+            raise ValueError("arch_type vlm needs extra_embeds (patches)")
+        patches = dense(extra_embeds.to(x.dtype), params["vproj"])
+        x = torch.cat([patches, x], dim=1)
+        n_prefix = patches.shape[1]
+    B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)[None].expand(B, S)
     C = cache_len or S
-    if C < S:
+    if C < S and at != "ssm":
         raise ValueError(f"cache_len {C} < seq {S}")
     remat = (cfg.remat == "block" and torch.is_grad_enabled()
              and not return_cache)
-    run = _run_hybrid if cfg.arch_type == "hybrid" else _run_dense
-    x, aux, cache = run(params, cfg, x, positions, return_cache, C, remat)
+    if at == "ssm":
+        x, aux, cache = _run_rwkv(params, cfg, x, return_cache, remat)
+    elif at == "hybrid":
+        x, aux, cache = _run_hybrid(params, cfg, x, positions,
+                                    return_cache, C, remat)
+    else:
+        enc = (_encode_audio(params, cfg, extra_embeds, remat)
+               if at == "audio" else None)
+        x, aux, cache = _run_dense(params, cfg, x, positions, return_cache,
+                                   C, remat, enc)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = dense(x, params["lm_head"])
+    if n_prefix:
+        logits = logits[:, n_prefix:]
     return logits, aux, cache
 
 
-def _run_dense(params, cfg, x, positions, return_cache, C, remat):
-    """The dense and MoE stacks; aux sums the MoE layers' losses."""
+def _run_dense(params, cfg, x, positions, return_cache, C, remat, enc):
+    """The dense, vlm, MoE and audio stacks; aux sums the MoE layers'
+    losses.  Audio (enc given): each layer's cross-attention K/V go to the
+    cache as "ck"/"cv"."""
     B, S, _ = x.shape
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     cache = None
     if return_cache:
         cache = A.init_kv_cache(cfg, B, C, cfg.num_layers, x.dtype, x.device)
+        if enc is not None:
+            shape = (cfg.num_layers, B, enc.shape[1], cfg.num_kv_heads,
+                     cfg.head_dim)
+            cache["ck"] = torch.zeros(shape, dtype=x.dtype, device=x.device)
+            cache["cv"] = torch.zeros(shape, dtype=x.dtype, device=x.device)
     for i in range(cfg.num_layers):
         lp = _layer(params["blocks"], i)
         if remat:
-            x, a = checkpoint(_block, lp, x, positions, cfg,
+            x, a = checkpoint(_block, lp, x, positions, cfg, enc,
                               use_reentrant=False)
         else:
-            x, (k, v), a = _apply_attn_mlp(lp, x, positions, cfg)
+            x, kv, a = _apply_attn_mlp(lp, x, positions, cfg, enc)
             if return_cache:
-                cache["k"][i, :, :S] = k
-                cache["v"][i, :, :S] = v
+                for n, t in zip(("k", "v", "ck", "cv"), kv):
+                    cache[n][i, :, :t.shape[1]] = t
         if a is not None:
             aux = aux + a
     return x, aux, cache
+
+
+def _run_rwkv(params, cfg, x, return_cache, remat):
+    """The RWKV6 stack; the cache is the final recurrent state of every
+    layer (`init_cache`'s "wkv", "tm", "cm")."""
+    cache = (RW.init_rwkv_state(cfg, x.shape[0], cfg.num_layers, x.device)
+             if return_cache else None)
+    for i in range(cfg.num_layers):
+        lp = _layer(params["blocks"], i)
+        if remat:
+            x = checkpoint(_rwkv_layer, lp, x, cfg, use_reentrant=False)
+            continue
+        x, st = RW.rwkv_block(lp, x, cfg)
+        if return_cache:
+            for n, t in st.items():
+                cache[n][i] = t
+    return x, torch.zeros((), dtype=torch.float32, device=x.device), cache
+
+
+def _rwkv_layer(lp, x, cfg):
+    return RW.rwkv_block(lp, x, cfg)[0]
 
 
 def _run_hybrid(params, cfg, x, positions, return_cache, C, remat):
@@ -240,29 +338,60 @@ def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor, pos, cache,
     (B, n_max) int — PAGED mode over the pools of `init_paged_cache`;
     logical_len is the dense cache_len the pool replaces.
 
+    Audio: each layer's cross-attention reads the cached encoder K/V
+    ("ck", "cv"), which never change.  ssm: rows whose `active` is False
+    keep their recurrent state bit for bit.
+
     The cache is updated in place.  Returns (logits (B,1,V), cache)."""
-    _require_ported(cfg)
+    at = cfg.arch_type
     if active is not None and torch.as_tensor(pos).dim() != 1:
         raise ValueError("active mask requires a per-row pos vector")
+    if block_tables is not None and at == "ssm":
+        raise ValueError("arch_type ssm has no KV cache to page")
     x = params["embed"][tokens.long()].to(torch_dtype(cfg.compute_dtype))
-    if cfg.arch_type == "hybrid":
+    if at == "hybrid":
         x = _decode_hybrid(params, cfg, x, pos, cache, active=active,
                            block_tables=block_tables,
                            logical_len=logical_len)
-        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-        return dense(x, params["lm_head"]), cache
-    for i in range(cfg.num_layers):
-        lp = _layer(params["blocks"], i)
-        pre = rms_norm(x, lp["ln1"], cfg.norm_eps)
-        y, _, _ = A.attention_decode(lp["attn"], pre, cache["k"][i],
-                                     cache["v"][i], pos, cfg, active=active,
-                                     block_tables=block_tables,
-                                     logical_len=logical_len)
-        x = x + y
-        pre2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
-        x = x + _ffn(lp, pre2, cfg)[0]
+    elif at == "ssm":
+        x = _decode_rwkv(params, cfg, x, cache, active)
+    else:
+        for i in range(cfg.num_layers):
+            lp = _layer(params["blocks"], i)
+            pre = rms_norm(x, lp["ln1"], cfg.norm_eps)
+            y, _, _ = A.attention_decode(lp["attn"], pre, cache["k"][i],
+                                         cache["v"][i], pos, cfg,
+                                         active=active,
+                                         block_tables=block_tables,
+                                         logical_len=logical_len)
+            x = x + y
+            if at == "audio":
+                # the reference passes zeroed copies of the self-attention
+                # cache here (`ck * 0`), which the cross read never uses
+                hc = rms_norm(x, lp["lnc"], cfg.norm_eps)
+                y, _, _ = A.attention_decode(
+                    lp["cross"], hc, None, None, pos, cfg,
+                    encoder_kv_cache=(cache["ck"][i], cache["cv"][i]))
+                x = x + y
+            pre2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
+            x = x + _ffn(lp, pre2, cfg)[0]
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return dense(x, params["lm_head"]), cache
+
+
+def _decode_rwkv(params, cfg, x, cache, active):
+    """One token through the RWKV6 stack; layer i's state is cache rows
+    [i], updated in place (inactive rows keep theirs)."""
+    for i in range(cfg.num_layers):
+        lp = _layer(params["blocks"], i)
+        st = {n: cache[n][i] for n in ("wkv", "tm", "cm")}
+        x, new = RW.rwkv_block(lp, x, cfg, state=st)
+        for n, t in new.items():
+            if active is not None:
+                keep = active.reshape((-1,) + (1,) * (t.dim() - 1))
+                t = torch.where(keep, t.to(st[n].dtype), st[n])
+            st[n].copy_(t)
+    return x
 
 
 def _decode_hybrid(params, cfg, x, pos, cache, *, active=None,
@@ -317,7 +446,6 @@ def verify_step(params, cfg: ModelConfig, tokens: torch.Tensor, pos, cache,
     at = cfg.arch_type
     if at not in ("dense", "vlm", "moe"):
         raise ValueError(f"verify_step: unsupported arch_type {at}")
-    _require_ported(cfg)
     x = params["embed"][tokens.long()].to(torch_dtype(cfg.compute_dtype))
     for i in range(cfg.num_layers):
         lp = _layer(params["blocks"], i)
@@ -338,20 +466,29 @@ def verify_step(params, cfg: ModelConfig, tokens: torch.Tensor, pos, cache,
 # ---------------------------------------------------------------------------
 def cache_specs(cfg: ModelConfig, batch: int, cache_len: int):
     """name -> (shape, dtype) of the dense decode cache; the hybrid's
-    "conv" leaf is itself a dict {"x","B","C"}."""
-    _require_ported(cfg)
+    "conv" leaf is itself a dict {"x","B","C"}.  A sliding-window cache
+    is a ring of min(cache_len, window) slots."""
+    at = cfg.arch_type
+    L = cfg.num_layers
     if cfg.attention_kind == "sliding_window":
         cache_len = min(cache_len, cfg.sliding_window)
     cdt = torch_dtype(cfg.compute_dtype)
     kv = (cfg.num_kv_heads, cfg.head_dim)
-    if cfg.arch_type == "hybrid":
-        base = SSM.ssm_state_specs(cfg, batch, cfg.num_layers)
-        shape = (cfg.num_layers // cfg.hybrid_attn_every, batch,
-                 cache_len) + kv
+    if at == "ssm":
+        return RW.rwkv_state_specs(cfg, batch, L)
+    if at == "hybrid":
+        base = SSM.ssm_state_specs(cfg, batch, L)
+        shape = (L // cfg.hybrid_attn_every, batch, cache_len) + kv
         return {"ssm": base["state"], "conv": base["conv"],
                 "sk": (shape, cdt), "sv": (shape, cdt)}
-    shape = (cfg.num_layers, batch, cache_len) + kv
-    return {"k": (shape, cdt), "v": (shape, cdt)}
+    if at not in _ATTN:
+        raise ValueError(f"unknown arch_type {at!r}")
+    shape = (L, batch, cache_len) + kv
+    specs = {"k": (shape, cdt), "v": (shape, cdt)}
+    if at == "audio":
+        cross = (L, batch, cfg.encoder_seq) + kv
+        specs.update(ck=(cross, cdt), cv=(cross, cdt))
+    return specs
 
 
 def _zeros(specs, device: torch.device):
@@ -365,10 +502,14 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
 
 
 def paged_leaf_names(cfg: ModelConfig) -> tuple:
-    """Cache leaves that page (position-indexed KV); every other leaf (the
-    hybrid's SSM state and conv ring) stays a per-slot batch row."""
-    _require_ported(cfg)
-    return ("sk", "sv") if cfg.arch_type == "hybrid" else ("k", "v")
+    """Cache leaves that page (position-indexed KV); every other leaf —
+    the audio cross-KV (fixed encoder length), the hybrid's SSM state and
+    conv ring, the RWKV state — stays a per-slot batch row."""
+    if cfg.arch_type in _ATTN:
+        return ("k", "v")
+    if cfg.arch_type == "hybrid":
+        return ("sk", "sv")
+    return ()
 
 
 def init_paged_cache(cfg: ModelConfig, num_slots: int, num_pages: int,
@@ -377,12 +518,15 @@ def init_paged_cache(cfg: ModelConfig, num_slots: int, num_pages: int,
     The last page is the trash page: no block table names it, and retired
     slots' decode writes land there instead of being dropped (PyTorch has
     no drop-mode scatter); pages [:num_pages] are the pool proper.
-    Per-slot leaves (the hybrid's SSM state and conv ring) keep num_slots
-    batch rows."""
+    Per-slot leaves (the audio cross-KV, the hybrid's SSM state and conv
+    ring) keep num_slots batch rows."""
     if cfg.attention_kind == "sliding_window":
         raise ValueError("paged KV does not support sliding-window caches")
+    names = paged_leaf_names(cfg)
+    if not names:
+        raise ValueError(f"arch_type {cfg.arch_type} has no KV to page")
     specs = dict(cache_specs(cfg, num_slots, page_size))
-    for name in paged_leaf_names(cfg):
+    for name in names:
         (stack, *_), dt = specs[name]
         specs[name] = ((stack, num_pages + 1, page_size, cfg.num_kv_heads,
                         cfg.head_dim), dt)

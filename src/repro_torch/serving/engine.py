@@ -26,6 +26,14 @@ engine that admits a continuation carrying one installs them instead of
 re-prefilling the prefix (`elastic.recovery.ServingDrainReadmit` builds
 such continuations).
 
+Every family serves: a vlm request's `extra_embeds` patches are prefilled
+ahead of its prompt (they take the first `num_patches` positions of its
+cache), an audio request's frames are encoded at admit and the encoder
+K/V ride in per-slot rows, and the ssm family's recurrent state is a
+per-slot row (dense mode only: it has no KV to page).  A sliding-window
+config is refused: its cache is a ring of `window` slots, which neither
+the prefill's cache layout nor the page pool takes.
+
 Not ported yet (ROADMAP.md): the obs events, `program=` and `chunk_cap=`.
 """
 from __future__ import annotations
@@ -58,8 +66,9 @@ class MigratedKV:
     decode invariant, so installing this state and ticking once computes
     what the source engine's next tick would have.  `pages` maps each
     paged cache leaf to a (stack, n_pages, P, Hk, dh) CPU tensor in the
-    cache's dtype; `rows` carries the per-slot leaves (the hybrid's SSM
-    state and nested conv ring) as (stack, ...) CPU tensors."""
+    cache's dtype; `rows` carries the per-slot leaves (the audio cross-KV,
+    the hybrid's SSM state and nested conv ring) as (stack, ...) CPU
+    tensors."""
     pos: int
     last_token: int
     page_size: int
@@ -95,17 +104,20 @@ class ServeProgram:
         self._serve_cb = (make_paged_serve_cb_step(cfg, cache_len)
                           if page_size else make_serve_cb_step(cfg))
 
-    def admit(self, params, prompt, cache, regs: Dict[str, torch.Tensor],
-              slot: int, start_pos: int, max_new: int, eos_id: int,
+    def admit(self, params, prompt, extra, cache,
+              regs: Dict[str, torch.Tensor], slot: int, start_pos: int,
+              max_new: int, eos_id: int,
               page_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """Prefill one request and install it into `slot`: its cache
-        (dense row, or whole pages onto `page_ids` after a prefill to a
-        page multiple) and every lifecycle register.  Returns the first
-        sampled token, (1, 1), left on the device."""
+        """Prefill one request (with its modality input `extra`, or None)
+        and install it into `slot`: its cache (dense row, or whole pages
+        onto `page_ids` after a prefill to a page multiple) and every
+        lifecycle register.  Returns the first sampled token, (1, 1), left
+        on the device."""
         C = self.cache_len
         if page_ids is not None:
             C = page_ids.shape[0] * self.page_size
         logits, _, req_cache = MD.forward(params, self.cfg, prompt,
+                                          extra_embeds=extra,
                                           return_cache=True, cache_len=C)
         first = sharded_argmax(logits[:, -1])  # (1,)
         if page_ids is not None:
@@ -176,6 +188,12 @@ class ServeEngine:
                  num_pages: Optional[int] = None,
                  device: DeviceLike = None):
         self.device = torch.empty(0, device=resolve_device(device)).device
+        if cfg.attention_kind == "sliding_window":
+            raise ValueError(
+                f"{cfg.name}: the engine does not serve a sliding-window "
+                f"config (its decode cache is a ring of "
+                f"{cfg.sliding_window} slots; the JAX engine fails on one "
+                f"too, with a broadcasting error)")
         if params["embed"].device != self.device:
             raise ValueError(f"params live on {params['embed'].device}, "
                              f"engine runs on {self.device}")
@@ -199,6 +217,7 @@ class ServeEngine:
                     f"needed by a single max-length request")
         else:
             self.num_pages = 0
+        self.n_prefix = MD.n_prefix(cfg)
         self.program = ServeProgram(cfg, cache_len=cache_len,
                                     page_size=page_size)
         self.reset()
@@ -247,7 +266,7 @@ class ServeEngine:
 
     # ------------------------------------------------------------------
     def submit(self, req: Request) -> None:
-        validate_budget(req, 0, self.cache_len)
+        validate_budget(req, self.n_prefix, self.cache_len)
         self.scheduler.submit(req)
 
     def _slot_pos(self, slot: int) -> int:
@@ -264,7 +283,7 @@ class ServeEngine:
             return
         prompt = torch.as_tensor(np.asarray(req.prompt, np.int32),
                                  device=self.device)[None, :]
-        start_pos = prompt.shape[1]
+        start_pos = prompt.shape[1] + self.n_prefix
         page_ids = None
         if self.paged:
             npg = self.pages.pages_for(start_pos + 1)
@@ -274,13 +293,20 @@ class ServeEngine:
             page_ids = torch.as_tensor(got, dtype=torch.long,
                                        device=self.device)
         first = self.program.admit(
-            self.params, prompt, self.cache, self.regs, slot, start_pos,
+            self.params, prompt, self._extra(req), self.cache, self.regs,
+            slot, start_pos,
             req.max_new_tokens, -1 if req.eos_id is None else req.eos_id,
             page_ids=page_ids)
         self.pool.occupy(slot, req, start_pos, self.ticks)
         self._pending_first[slot] = first  # harvested with the next chunk
         self.prefill_ticks += 1
         self.prefill_tokens += int(prompt.shape[1])
+
+    def _extra(self, req: Request) -> Optional[torch.Tensor]:
+        """The request's modality input on the engine's device."""
+        if req.extra_embeds is None:
+            return None
+        return torch.as_tensor(req.extra_embeds, device=self.device)
 
     def _admit_migrated(self, req: Request, slot: int) -> None:
         """Install a continuation's harvested KV onto freshly allocated
@@ -291,7 +317,7 @@ class ServeEngine:
         if kv.page_size != self.page_size:
             raise ValueError(f"migrated page size {kv.page_size} != "
                              f"engine page size {self.page_size}")
-        start_pos = len(np.asarray(req.prompt))
+        start_pos = len(np.asarray(req.prompt)) + self.n_prefix
         if kv.pos != start_pos - 1:
             raise ValueError(f"request {req.rid}: migrated KV holds "
                              f"{kv.pos} positions, its prompt {start_pos}")
@@ -452,7 +478,8 @@ class ServeEngine:
         if req.kv_seed is not None:
             need = self.pages.pages_for(req.kv_seed.pos + 1)
         else:
-            need = self.pages.pages_for(len(np.asarray(req.prompt)) + 1)
+            need = self.pages.pages_for(len(np.asarray(req.prompt))
+                                        + self.n_prefix + 1)
         if need > self.pages.num_free:
             self.scheduler.queue.appendleft(req)  # keep head-of-line
             return None

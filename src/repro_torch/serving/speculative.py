@@ -126,7 +126,7 @@ class SpecDecodeEngine(ServeEngine):
         # verify writes KV at pos..pos+spec_k even when it emits only one
         # token, so every slot needs spec_k positions of headroom beyond
         # the sequential budget
-        validate_budget(req, 0, self.cache_len - self.spec_k)
+        validate_budget(req, self.n_prefix, self.cache_len - self.spec_k)
         self.scheduler.submit(req)
 
     # -- the round and the draft ---------------------------------------
@@ -184,9 +184,10 @@ class SpecDecodeEngine(ServeEngine):
             p = p + active.to(p.dtype)
         return torch.stack(props[:self.spec_k], dim=1)
 
-    def _draft_admit(self, prompt: torch.Tensor, slot: int) -> None:
+    def _draft_admit(self, prompt: torch.Tensor, extra, slot: int) -> None:
         _, _, req_cache = MD.forward(self.draft.params, self.draft.cfg,
-                                     prompt, return_cache=True,
+                                     prompt, extra_embeds=extra,
+                                     return_cache=True,
                                      cache_len=self.cache_len)
         MD.write_cache_slot(self.draft_cache, req_cache, slot)
 
@@ -196,7 +197,7 @@ class SpecDecodeEngine(ServeEngine):
         if isinstance(self.draft, ModelDraft) and req.kv_seed is None:
             prompt = torch.as_tensor(np.asarray(req.prompt, np.int32),
                                      device=self.device)[None, :]
-            self._draft_admit(prompt, slot)
+            self._draft_admit(prompt, self._extra(req), slot)
         # a migrated admit leaves the draft's slot cache cold: the draft's
         # guesses start out uninformed, the verifier stays exact
 

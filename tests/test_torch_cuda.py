@@ -34,6 +34,10 @@ FA_SHAPES = [
     (1, 257, 257, 32, 32, 128, True, None),  # deepseek-7b: G 1, dh 128
     (1, 512, 512, 56, 8, 128, True, None),   # arctic-480b: G 7
     (1, 65, 130, 14, 2, 64, True, None),     # G 7, S < T, ragged tiles
+    (1, 1500, 1500, 6, 6, 64, False, None),  # whisper-tiny encoder
+    (1, 300, 1500, 6, 6, 64, False, None),   # whisper-tiny cross prefill
+    (1, 592, 592, 32, 32, 96, True, None),   # phi-3-vision-4.2b: dh 96
+    (1, 512, 512, 96, 8, 192, True, None),   # nemotron-4-340b: dh 192, G 12
 ]
 PA_SHAPES = [
     # B, Np, P, n_max, Hq, Hk, dh
@@ -46,6 +50,9 @@ PA_SHAPES = [
     (8, 321, 16, 40, 32, 32, 128),           # deepseek-7b: G 1, dh 128
     (8, 321, 16, 40, 56, 8, 128),            # arctic-480b: G 7
     (3, 40, 8, 12, 14, 2, 64),               # G 7, dh 64
+    (8, 321, 16, 40, 6, 6, 64),              # whisper-tiny decode
+    (8, 321, 16, 40, 32, 32, 96),            # phi-3-vision-4.2b: dh 96
+    (8, 321, 16, 40, 96, 8, 192),            # nemotron-4-340b: G 12
 ]
 # the bf16 kernel's 64-row query and 64-key tiles: S and T at the tile
 # edges, a single query row, S < T, windows and full masking, every head
@@ -74,6 +81,9 @@ PA_SPLIT_SHAPES = [
     (6, 8, 20, 4, 2, 128),                   # G 2, P 8
     (8, 16, 40, 56, 8, 128),                 # arctic-480b: G 7
     (3, 8, 24, 7, 1, 32),                    # G 7, dh 32, P 8
+    (8, 16, 40, 32, 32, 96),                 # phi-3-vision-4.2b: dh 96
+    (8, 16, 40, 96, 8, 192),                 # nemotron-4-340b: G 12
+    (3, 8, 24, 12, 1, 96),                   # G 12, dh 96, P 8
 ]
 SSD_SHAPES = [
     # B, S, H, P, N, chunk: tests/test_kernels.py's, then zamba2-1.2b's
@@ -157,8 +167,8 @@ def test_flash_kernel_tile_edges(B, S, T, Hq, Hk, dh, causal, window,
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("dh", [32, 64, 128])
-@pytest.mark.parametrize("G", [1, 2, 4, 7, 8])
+@pytest.mark.parametrize("dh", [32, 64, 128, 96, 192])
+@pytest.mark.parametrize("G", [1, 2, 4, 7, 8, 12])
 def test_flash_kernel_head_dims_and_groups(dh, G, dtype):
     test_flash_kernel_matches_plain(1, 129, 129, 2 * G, 2, dh, True, None,
                                     dtype)

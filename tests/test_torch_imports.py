@@ -72,6 +72,9 @@ def test_engine_refuses_without_cuda(monkeypatch):
 
 
 def test_unported_arch_names_ported_ids():
-    from repro_torch.configs import get_config
+    """Every arch of the JAX registry is ported; an id outside it raises,
+    naming the known ids."""
+    from repro_torch.configs import ARCH_IDS, get_config
+    assert len(ARCH_IDS) == 10
     with pytest.raises(KeyError, match="qwen3-0.6b"):
-        get_config("rwkv6-1.6b")
+        get_config("no-such-arch")

@@ -28,6 +28,9 @@ FA_SHAPES = [
     (1, 200, 256, 4, 2, 64, True, None),    # unpadded q length
     (2, 128, 128, 4, 2, 64, False, None),   # non-causal (encoder)
     (1, 96, 96, 8, 8, 64, True, None),      # zamba2's shared block: G 1
+    (1, 64, 64, 8, 8, 96, True, None),      # phi-3-vision-4.2b: dh 96
+    (1, 64, 128, 24, 2, 192, True, None),   # nemotron-4-340b: dh 192, G 12
+    (1, 32, 64, 4, 4, 96, False, None),     # non-causal, S < T (cross)
 ]
 PA_SHAPES = [
     # B, Np, P, n_max, Hq, Hk, dh
@@ -35,6 +38,8 @@ PA_SHAPES = [
     (2, 16, 4, 6, 4, 4, 32),     # MHA, small pages
     (4, 32, 8, 8, 8, 8, 64),     # many rows
     (2, 24, 16, 6, 8, 8, 64),    # zamba2's shared block: G 1, page 16
+    (2, 16, 4, 6, 4, 4, 96),     # phi-3-vision-4.2b: dh 96
+    (2, 16, 4, 6, 24, 2, 192),   # nemotron-4-340b: dh 192, G 12
 ]
 SSD_SHAPES = [
     # B, S, H, P, N, chunk (a subset of tests/test_kernels.py SSD_SHAPES,
@@ -285,9 +290,19 @@ def test_paged_wrapper_crops_block_table():
 
 
 def test_flash_wrapper_rejects_ragged_noncausal():
-    q, k, v = _t(*_qkv(1, 16, 200, 4, 2, 32))
+    """The TPU kernel pads keys to its 128-key block, so it refuses a
+    non-causal T off the block multiples (padding keys would receive
+    weight); the port's kernel masks keys past T and takes any T (the
+    whisper encoder's 1500 frames), so its wrapper gives the exact
+    softmax over the T keys where the reference raises."""
+    q, k, v = _qkv(1, 16, 200, 4, 2, 32)
     with pytest.raises(ValueError, match="non-causal"):
-        ops.flash_attention(q, k, v, causal=False)
+        jax_flash(*map(jnp.asarray, (q, k, v)), causal=False,
+                  interpret=True)
+    out = ops.flash_attention(*_t(q, k, v), causal=False)
+    oracle = JR.attention_ref(*map(jnp.asarray, (q, k, v)), causal=False)
+    np.testing.assert_allclose(out.numpy(), np.asarray(oracle), rtol=2e-5,
+                               atol=2e-5)
 
 
 # ---------------------------------------------------------------------------

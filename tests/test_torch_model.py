@@ -253,6 +253,32 @@ def test_paged_decode_matches_jax():
 
 
 def test_unported_family_raises():
-    _, tcfg = TP.configs()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TMD.model_descs(tcfg.with_(arch_type="ssm"))
+    """Every family of the JAX package is ported; an arch_type outside
+    them raises, in the port as in the reference."""
+    jcfg, tcfg = TP.configs()
+    with pytest.raises(ValueError):
+        JMD.model_descs(jcfg.with_(arch_type="conv"))
+    with pytest.raises(ValueError, match="arch_type"):
+        TMD.model_descs(tcfg.with_(arch_type="conv"))
+    with pytest.raises(ValueError, match="arch_type"):
+        TMD.cache_specs(tcfg.with_(arch_type="conv"), 1, 8)
+
+
+@pytest.mark.parametrize("kernels", [False, True],
+                         ids=["plain", "kernel_flags"])
+@pytest.mark.parametrize("arch", ["nemotron-4-340b"])
+def test_dense_config_paged_engine_matches_jax(arch, kernels):
+    """A dense config's SMOKE (nemotron-4-340b: squared-ReLU MLP, G 2):
+    forward and per-row decode against JAX's (the qwen3-1.7b and
+    deepseek-7b checks above), then the paged engine's greedy streams on
+    a pool that preempts, with the kernel flags on (their plain versions
+    on the CPU) or off, equal to the JAX engine's."""
+    import _torch_families as F
+    if not kernels:
+        _check_arch_forward_and_decode(arch)
+    jcfg = F.setup(arch)[0]
+    reqs = F.stream(jcfg, seed=9, n=5, plens=(5, 8), gens=(4, 9))
+    kw = dict(num_slots=3, cache_len=20, page_size=4, num_pages=8)
+    teng, _ = F.engines_match(arch, reqs, kw, use_flash_kernel=kernels,
+                              use_paged_kernel=kernels)
+    assert teng.stats()["preemptions"] >= 1
