@@ -42,7 +42,12 @@ Phases (each raises on failure, and then no result is printed):
      kernel launch counters zeroed just before and read just after (28
      flash launches an admit, 28 paged launches a decode tick); then hold
      the kernel path's prefill logits and paged decode logits against the
-     plain versions' (flags off); then serve zamba2-1.2b at full width
+     plain versions' (flags off); the same stream once more under a
+     `repro_torch.obs` Recorder: the greedy streams equal the unrecorded
+     run's, one serve.first_token and one request span a request, one
+     serve.admit an admit, the trace file parsed back with every event;
+     admit -> first token and ms an output token (p50, p99) and tokens/s
+     with and without recording printed; then serve zamba2-1.2b at full width
      (38 Mamba2 layers, the shared attention block after every 6th, bf16)
      the same way, the same prompt lengths (ragged last chunks): 38
      ssd_scan and 6 flash launches an admit, 6 paged launches a decode
@@ -123,7 +128,21 @@ Phases (each raises on failure, and then no result is printed):
      no attention kernel); then one step's split into forward+backward,
      compression and optimizer, and the same gradients compressed by the
      kernels and by the plain versions, which must agree bit for bit, and
-     so must the parameters each update gives.
+     so must the parameters each update gives (the train step is the
+     launcher's: params and moments updated in place); then the same
+     loop saves through AsyncCheckpointer and steps
+     on while the writer works: after wait() the restore equals the saved
+     params and moments bit for bit (ckpt.snapshot ms, the writer's ms, a
+     step with the save in flight against one without); then zamba2-1.2b
+     (batch 2 x 4096), rwkv6-1.6b (2 x 512: its recurrence runs a token
+     at a time), whisper-tiny (8 x 448) and phi-3-vision-4.2b (1 x 2048
+     after 576 patches) train at full width through the launcher, one
+     after another: a warm-up step and 3 timed ones read from the
+     train.step spans, nc launches exactly leaves x steps, finite losses,
+     and one step's compressed gradients through the kernels and the
+     plain versions bit-identical, leaf by leaf, and their global norms
+     equal; the raw gradients' non-finite elements are counted (phi-3's
+     zero-patch prefix overflows at depth: ROADMAP queue 3).
 
 The serve runs of phase 4 are timed warm: one short batch goes through
 the same engine first (cuBLAS handles, allocator growth, first launches).
@@ -205,6 +224,18 @@ WINDOW = {ARCH: (24, 12), HYBRID: (24, 6), MOE: (24, 4), DENSE7B: (24, 6),
 # train phase: train_4k's sequence length, its global batch of 256 cut to
 # 2 sequences on one card; one warm-up step, then TRAIN_STEPS timed
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_WARMUP = 2, 4096, 10, 20
+# the other families' train runs: (arch, batch, seq, the cut if any), one
+# warm-up step and TRAIN_TIMED timed ones each.  rwkv6's WKV recurrence
+# runs one token at a time (in the JAX package too), so its sequence is
+# cut to 512; whisper's is its 448-token decoder context; phi-3's 2048
+# tokens follow its 576 patches.
+TRAIN_FAMILIES = (
+    (HYBRID, 2, 4096, None),
+    (RWKV, 2, 512, "seq cut from 4096 to 512: the WKV recurrence runs "
+                   "one token at a time"),
+    (WHISPER, 8, 448, None),
+    (VLM, 1, 2048, None))
+TRAIN_TIMED = 3
 # the nc wire format: code 1..127 <=> |value| 2^-69 .. 2^57
 NC_LO, NC_HI = 2.0 ** -69, 2.0 ** 57
 
@@ -787,7 +818,7 @@ def want_launches(cfg, st, draft_layers=0):
 
 def serve(torch, cfg, params, ops, ServeEngine, Request, num_pages=None,
           engine=None, draft_layers=0, n_requests=REQUESTS,
-          split_ticks=False):
+          split_ticks=False, recorder=None):
     """One warm run of the requests through a fresh paged engine
     (`num_pages` pages, default every slot at full length; or the one
     `engine()` builds), the launch counters zeroed just before and read
@@ -796,7 +827,8 @@ def serve(torch, cfg, params, ops, ServeEngine, Request, num_pages=None,
     launches, the engine's stats (with the run's peak device memory, and
     with `split_ticks` the seconds of its admits and decode chunks, a
     synchronize after each), the wall time and the prefill lengths of
-    every admit by request id."""
+    every admit by request id.  With `recorder` (a `repro_torch.obs`
+    Recorder) the timed run is recorded, the warm-up not."""
     reqs = make_requests(cfg, Request)[:n_requests]
     eng = (engine() if engine else
            make_engine(cfg, params, ServeEngine, num_pages))
@@ -822,13 +854,18 @@ def serve(torch, cfg, params, ops, ServeEngine, Request, num_pages=None,
             tick_s[kind] = tick_s.get(kind, 0.0) + time.perf_counter() - t
             return kind
         eng.tick = timed
+    from repro_torch import obs
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
-    t0 = time.perf_counter()
-    fins = eng.run(reqs)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    prev = obs.install(recorder)
+    try:
+        t0 = time.perf_counter()
+        fins = eng.run(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        obs.install(prev)
     peak = torch.cuda.max_memory_allocated()
     launches = {n: getattr(ops, n).launches for n in
                 ("flash_attention", "paged_attention", "ssd_scan")}
@@ -880,6 +917,83 @@ def serve_tight(torch, cfg, params, ops, ServeEngine, Request, ample):
                           tok_s=st["generated_tokens"] / wall),
             "readmit_lens": readmits,
             "same_token_share": same_share(fins, ample)}
+
+
+def percentiles(xs):
+    import numpy as np
+    return {"p50": float(np.percentile(xs, 50)),
+            "p99": float(np.percentile(xs, 99))}
+
+
+def recorded_serve(torch, card, cfg, params, ops, ServeEngine, Request,
+                   fins_ref, tps_ref, trace_dir):
+    """Phase 4's stream once more under a `repro_torch.obs` Recorder:
+    the greedy streams equal the unrecorded run's, one
+    `serve.first_token` and one `request` span a request, one
+    `serve.admit` an admit (re-admits included), the port's trace file
+    parses back with the same event count.  Returns the run's latency
+    figures: admit -> first token (the first token is harvested with the
+    next decode chunk, so this is when the host could stream it), and ms
+    an output token, (request span - admit -> first token) / (tokens - 1);
+    neither sees the queueing before an admit.  Both assume no request
+    was preempted (a re-admit restarts the request's clock and emits
+    another first token), so a run that preempts fails."""
+    from repro_torch import obs
+    from repro_torch.obs.trace import write_trace
+    rec = obs.Recorder()
+    reqs, fins, launches, st, wall, admits = serve(
+        torch, cfg, params, ops, ServeEngine, Request, recorder=rec)
+    if [f.tokens for f in fins] != [f.tokens for f in fins_ref]:
+        fail(f"{cfg.name} recorded serve: streams differ from the "
+             f"unrecorded run's")
+    if st["preemptions"]:
+        fail(f"{cfg.name} recorded serve: {st['preemptions']} preemptions;"
+             f" the latency figures assume none")
+    evs = rec.events
+    rids = sorted(r.rid for r in reqs)
+    for name, ph in (("serve.first_token", "i"), ("request", "X")):
+        got = sorted(e.args["rid"] for e in evs
+                     if e.name == name and e.ph == ph)
+        if got != rids:
+            fail(f"{cfg.name} recorded serve: {name} for rids {got}, want "
+                 f"one for each of {rids}")
+    n_admit = sum(e.name == "serve.admit" for e in evs)
+    if n_admit != len(admits) or n_admit != st["prefill_ticks"]:
+        fail(f"{cfg.name} recorded serve: {n_admit} serve.admit events, "
+             f"{len(admits)} admits ({st['prefill_ticks']} prefill ticks)")
+    path = write_trace(os.path.join(trace_dir, "serve_trace.json"), evs)
+    with open(path) as fh:
+        back = [e for e in json.load(fh)["traceEvents"] if e["ph"] != "M"]
+    if len(back) != len(evs):
+        fail(f"trace {path}: {len(back)} events, recorded {len(evs)}")
+    first_admit, first_tok = {}, {}
+    for e in evs:
+        if e.name == "serve.admit":
+            first_admit.setdefault(e.args["rid"], e.ts)
+        elif e.name == "serve.first_token":
+            first_tok.setdefault(e.args["rid"], e.ts)
+    ttft = {r: 1e3 * (first_tok[r] - first_admit[r]) for r in rids}
+    tpot = [(1e3 * e.dur - ttft[e.args["rid"]]) / (e.args["tokens"] - 1)
+            for e in evs if e.name == "request" and e.args["tokens"] > 1]
+    tps = st["generated_tokens"] / wall
+    out = {"launches": launches, "events": len(evs), "wall_s": wall,
+           "tok_s": tps, "tok_s_unrecorded": tps_ref,
+           "admit_to_first_token_ms": percentiles(list(ttft.values())),
+           "ms_per_output_token": percentiles(tpot), "trace": path,
+           "counts": {n: sum(e.name == n for e in evs) for n in
+                      sorted({e.name for e in evs})}}
+    print(f"serve recorded [{card}]: {cfg.name} streams equal to the "
+          f"unrecorded run's, {len(evs)} events {json.dumps(out['counts'])}"
+          f", trace {path} parsed back with {len(back)} events; "
+          f"launches={launches}")
+    t, p = out["admit_to_first_token_ms"], out["ms_per_output_token"]
+    print(f"serve latency [{card}]: {cfg.name} admit -> first token "
+          f"p50 {t['p50']:.2f} ms p99 {t['p99']:.2f} ms; ms an output "
+          f"token p50 {p['p50']:.3f} p99 {p['p99']:.3f} (no queueing "
+          f"before admit)")
+    print(f"serve tokens/s [{card}]: {cfg.name} recorded {tps:.1f}, "
+          f"unrecorded {tps_ref:.1f}")
+    return out
 
 
 # the port's own kernels, by the names of their CUDA functions
@@ -1499,8 +1613,11 @@ def train_phase(torch, cfg, ops, NC, profile=False):
     ck = tree_map(ops.nc_roundtrip, grads, u)
     torch.cuda.synchronize()
     split["compression_ms"] = 1e3 * (time.perf_counter() - t)
+    # the step's in-place update, on copies of the params and moments
+    pk, sk = tree_map(torch.clone, params), tree_map(torch.clone, state)
+    torch.cuda.synchronize()
     t = time.perf_counter()
-    pk, sk, _ = apply_grads(opt, params, state, ck)
+    apply_grads(opt, pk, sk, ck)
     torch.cuda.synchronize()
     split["optimizer_ms"] = 1e3 * (time.perf_counter() - t)
 
@@ -1509,7 +1626,8 @@ def train_phase(torch, cfg, ops, NC, profile=False):
                                                    g.dtype), grads, u)
     if not same_bits(ck, cp):
         fail("compressed gradients: kernels and plain versions differ")
-    pp, sp, _ = apply_grads(opt, params, state, cp)
+    pp, sp = tree_map(torch.clone, params), tree_map(torch.clone, state)
+    apply_grads(opt, pp, sp, cp)
     if not (same_bits(pk, pp) and same_bits(sk["mu"], sp["mu"])
             and same_bits(sk["nu"], sp["nu"])):
         fail("params after the kernel step and the plain step differ")
@@ -1539,10 +1657,218 @@ def train_phase(torch, cfg, ops, NC, profile=False):
             "trace": trace}
 
 
+def async_ckpt_phase(torch, card, cfg, ckpt_dir):
+    """Phase 6's asynchronous checkpoint: the qwen3 train loop (the
+    launcher's step: params and moments updated in place) takes a step without a save, saves through AsyncCheckpointer
+    and takes the next step while the writer works.  After `wait()` a
+    restore equals the saved step's params and moments bit for bit,
+    though the step after the save overwrote them on the card."""
+    import shutil
+    from repro_torch import obs
+    from repro_torch.checkpoint import AsyncCheckpointer, restore_checkpoint
+    from repro_torch.data import make_pipeline
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import model as MD
+    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.optim.optimizers import adamw, warmup_cosine
+
+    B, S = TRAIN_BATCH, TRAIN_SEQ
+    params = MD.init_model(cfg, torch.Generator(device="cuda").manual_seed(0))
+    opt = adamw(warmup_cosine(3e-3, TRAIN_WARMUP, 4))
+    state = opt.init(params)
+    step_fn = make_train_step(cfg, opt, compress_grads=True)
+    batches = iter(make_pipeline(cfg.vocab_size, B, S, seed=0))
+
+    def step(i):
+        b = {k: torch.from_numpy(v).cuda() for k, v in next(batches).items()}
+        t = time.perf_counter()
+        _, _, m = step_fn(params, state, b,
+                          torch.Generator(device="cuda").manual_seed(1 + i))
+        loss = float(m["loss"])
+        return 1e3 * (time.perf_counter() - t), loss
+
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    rec = obs.Recorder()
+    try:
+        with obs.recording(rec):
+            step(0)                                        # warm-up
+            plain_ms, _ = step(1)
+            tree = {"params": params, "opt": state}
+            kept = tree_map(lambda t: t.clone(), tree)
+            ck = AsyncCheckpointer(ckpt_dir)
+            try:
+                t = time.perf_counter()
+                ck.save(2, tree, {"step": 2, "arch": cfg.name})
+                save_ms = 1e3 * (time.perf_counter() - t)
+                inflight_ms, loss = step(2)
+                busy = ck.last_committed_step() is None
+                ck.wait()
+            finally:
+                ck.close(wait=False)
+        like = tree_map(torch.zeros_like, kept)
+        back, meta = restore_checkpoint(ckpt_dir, like)
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    got, want = tree_leaves(back), tree_leaves(kept)
+    if meta != {"step": 2, "arch": cfg.name} or not all(
+            a.dtype == b.dtype and torch.equal(bits(torch, a), bits(torch, b))
+            for a, b in zip(got, want)):
+        fail("asynchronous checkpoint: the restore differs from the saved "
+             "step's params and moments")
+    if all(torch.equal(a, b) for a, b in zip(tree_leaves(params),
+                                             tree_leaves(kept["params"]))):
+        fail("asynchronous checkpoint: the step after the save left the "
+             "params as they were")
+    spans = {}
+    for e in rec.events:
+        if e.name.startswith("ckpt."):
+            spans[e.name] = spans.get(e.name, 0.0) + 1e3 * e.dur
+    writer = sum(v for k, v in spans.items() if k != "ckpt.snapshot")
+    nbytes = sum(a.numel() * (4 if a.dtype == torch.bfloat16
+                              else a.element_size()) for a in want)
+    out = {"bytes": nbytes, "leaves": len(want), "save_call_ms": save_ms,
+           "snapshot_ms": spans["ckpt.snapshot"], "writer_ms": writer,
+           "spans_ms": spans, "step_ms": plain_ms,
+           "step_with_save_in_flight_ms": inflight_ms,
+           "writer_busy_after_step": busy, "loss": loss,
+           "registry": rec.metrics()}
+    print(f"async checkpoint [{card}]: {cfg.name} step 2, {len(want)} "
+          f"leaves, {nbytes / 1e9:.2f} GB as stored: ckpt.snapshot "
+          f"{spans['ckpt.snapshot']:.1f} ms (save returned in "
+          f"{save_ms:.1f} ms), writer {writer:.1f} ms "
+          f"({json.dumps({k: round(v, 1) for k, v in spans.items()})}); "
+          f"a step {plain_ms:.1f} ms without a save, {inflight_ms:.1f} ms "
+          f"with the save in flight (writer still busy after it: {busy}); "
+          f"restore bit-equal to the saved params and moments")
+    return out
+
+
+def leafwise_roundtrip_check(torch, ops, NC, grads, seed):
+    """The nc kernels against their plain versions on one step's gradients
+    and the same uniforms, a leaf at a time (a model of billions of
+    params cannot hold two compressed gradient trees at once): every
+    compressed gradient leaf bit-identical, and the two paths' global
+    norms, the clip's one input beyond the leaf, equal.  Returns the
+    number of gradient elements and of those not finite (phi-3's, from
+    the stub frontend's zero patches: ROADMAP queue 3)."""
+    from repro_torch.models.common import tree_leaves
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    norms, n, nonfinite = [0, 0], 0, 0
+    for g in tree_leaves(grads):
+        u = torch.rand(g.shape, generator=gen, dtype=torch.float32,
+                       device="cuda")
+        ck = ops.nc_roundtrip(g, u)
+        cp = NC.unpack_reference(NC.pack_reference(g, u), g.dtype)
+        if not torch.equal(bits(torch, ck), bits(torch, cp)):
+            fail("compressed gradients: kernels and plain versions differ")
+        norms = [m + c.float().square().sum() for m, c in zip(norms,
+                                                              (ck, cp))]
+        n += g.numel()
+        nonfinite += int((~torch.isfinite(g)).sum())
+    if not torch.equal(norms[0], norms[1]):
+        fail(f"compressed gradients: global norms differ, "
+             f"{float(norms[0].sqrt())} vs {float(norms[1].sqrt())}")
+    return n, nonfinite
+
+
+def family_train_phase(torch, card, ops, NC):
+    """Phase 6 for the other families: each trains at full width through
+    the launcher (`repro_torch.launch.train`, bf16, block remat, AdamW,
+    compressed gradients through nc_pack / nc_unpack, in-place steps)
+    under a Recorder, one model after another, each freed before the
+    next: one warm-up step and TRAIN_TIMED timed ones, the step times read
+    from the `train.step` spans; losses finite, nc launches exactly
+    leaves x steps, no attention or scan kernel; then one more step's
+    gradients through the kernels and the plain versions, leaf by leaf."""
+    import gc
+    from repro_torch import obs
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_pipeline
+    from repro_torch.launch.steps import loss_and_grads, make_extra
+    from repro_torch.launch.train import train
+    from repro_torch.models import model as MD
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.models.config import param_count
+    out = []
+    steps = 1 + TRAIN_TIMED
+    for arch, B, S, cut in TRAIN_FAMILIES:
+        t_model = time.perf_counter()
+        cfg = get_config(arch)
+        total, _ = param_count(cfg)
+        n_leaves = len(tree_leaves(MD.model_descs(cfg)))
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        rec = obs.Recorder()
+        with obs.recording(rec):
+            res = train(["--arch", arch, "--steps", str(steps),
+                         "--batch", str(B), "--seq", str(S),
+                         "--compress-grads", "--log-every", "1000"])
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        launches = {n: getattr(ops, n).launches for n in
+                    ("nc_pack", "nc_unpack", "flash_attention",
+                     "paged_attention", "ssd_scan")}
+        losses = res["losses"]
+        want = n_leaves * steps
+        if launches["nc_pack"] != want or launches["nc_unpack"] != want:
+            fail(f"{arch} train: nc launches {launches}, want {want} each "
+                 f"({n_leaves} gradient leaves x {steps} steps)")
+        if any(launches[k] for k in ("flash_attention", "paged_attention",
+                                     "ssd_scan")):
+            fail(f"{arch} train launched an attention or scan kernel: "
+                 f"{launches}")
+        if len(losses) != steps or not all(
+                v == v and abs(v) != float("inf") for v in losses):
+            fail(f"{arch} train: losses {losses}")
+        spans = [1e3 * e.dur for e in rec.events if e.name == "train.step"]
+        if len(spans) != steps:
+            fail(f"{arch} train: {len(spans)} train.step spans, want {steps}")
+        ms = sum(spans[1:]) / TRAIN_TIMED
+        params = res["params"]
+        del res
+        b = {k: torch.from_numpy(v).cuda() for k, v in
+             next(iter(make_pipeline(cfg.vocab_size, B, S, seed=1))).items()}
+        extra = make_extra(cfg, B, torch.device("cuda"))
+        if extra is not None:
+            b["extra_embeds"] = extra
+        _, grads = loss_and_grads(params, cfg, b)
+        del b, extra
+        n, nonfinite = leafwise_roundtrip_check(torch, ops, NC, grads,
+                                                seed=steps + 1)
+        del params, grads
+        gc.collect()
+        torch.cuda.empty_cache()
+        prefix = f" plus {cfg.num_patches} patches" if cfg.arch_type == \
+            "vlm" else ""
+        r = {"arch": arch, "params": total, "batch": B, "seq": S,
+             "cut": cut, "steps": steps, "losses": losses,
+             "step_ms": spans, "ms_per_step": ms,
+             "tok_s": B * S / (ms / 1e3), "peak_mem_gb": peak / 1e9,
+             "launches": launches, "n_leaves": n_leaves,
+             "grad_elements": n, "grad_nonfinite": nonfinite,
+             "seconds": time.perf_counter() - t_model}
+        out.append(r)
+        print(f"train [{card}]: {arch} {total / 1e9:.2f}B params bf16, "
+              f"remat={cfg.remat}, batch {B} x seq {S}{prefix}"
+              f"{' (' + cut + ')' if cut else ''}, {TRAIN_TIMED} timed "
+              f"steps (train.step spans): {ms:.1f} ms/step, "
+              f"{r['tok_s']:.0f} tokens/s, peak memory "
+              f"{r['peak_mem_gb']:.2f} GB, launches {launches}, losses "
+              f"{[round(x, 4) for x in losses]}; kernel vs plain "
+              f"compression on {n_leaves} leaves ({n} elements, {nonfinite} "
+              f"not finite before it): gradients bit-identical, global "
+              f"norms equal; {r['seconds']:.1f} s")
+    return out
+
+
 def serve_path(torch, card, arch, ops, MD, SS, ServeEngine, Request,
-               profile=False):
+               profile=False, trace_dir=None):
     """Phase 4 for one model: the warm serve run with its launch counts,
-    the --profile split and trace, kernel path vs plain path, and for the
+    with `trace_dir` the same run recorded (its trace written there), the
+    --profile split and trace, kernel path vs plain path, and for the
     hybrid the tight-pool run that preempts."""
     from repro_torch.models.config import param_count
     cfg = kernel_cfg(arch)
@@ -1561,6 +1887,10 @@ def serve_path(torch, card, arch, ops, MD, SS, ServeEngine, Request,
           f"occupancy={st['occupancy']:.3f} "
           f"pool_occupancy={st['pool_occupancy']:.3f} "
           f"preemptions={st['preemptions']} launches={launches}")
+    recorded = None
+    if trace_dir:
+        recorded = recorded_serve(torch, card, cfg, params, ops, ServeEngine,
+                                  Request, fins, tps, trace_dir)
     prof = None
     if profile:
         prof = profile_serve(torch, cfg, params, ServeEngine, Request)
@@ -1584,7 +1914,8 @@ def serve_path(torch, card, arch, ops, MD, SS, ServeEngine, Request,
     torch.cuda.empty_cache()
     return {"arch": arch, "params": total, "launches": launches,
             "stats": dict(st, wall_s=wall, tok_s=tps), "profile": prof,
-            "plain_paths": plain, "tight_pool": tight}, fins
+            "plain_paths": plain, "tight_pool": tight,
+            "recorded": recorded}, fins
 
 
 # ---------------------------------------------------------------------------
@@ -2159,9 +2490,11 @@ def main(argv=None) -> int:
               f"{r['above_range']}): codes and values bit-identical")
 
     paths, ample = [], {}
+    out_dir = args.out or os.path.join(ROOT, "build")
     for arch in (ARCH, HYBRID):                                 # phase 4
-        rec, ample[arch] = serve_path(torch, card, arch, ops, MD, SS,
-                                      ServeEngine, Request, args.profile)
+        rec, ample[arch] = serve_path(
+            torch, card, arch, ops, MD, SS, ServeEngine, Request,
+            args.profile, trace_dir=out_dir if arch == ARCH else None)
         paths.append(rec)
     spec = spec_phase(torch, card, ops, MD)                     # phase 4b
     drains = [drain_phase(torch, card, arch, ops, MD, ample[arch])
@@ -2245,6 +2578,12 @@ def main(argv=None) -> int:
           f"leaves, {tr['grad_elements']} gradient elements "
           f"{json.dumps(tr['grad_range'])}: compressed gradients, params "
           f"and moments bit-identical")
+    ckpt = async_ckpt_phase(torch, card, train_cfg,
+                            os.path.join(ROOT, "build", "ckpt_smoke"))
+    t_fam = time.perf_counter()
+    fam_train = family_train_phase(torch, card, ops, NC)
+    print(f"train [{card}]: the other families took "
+          f"{time.perf_counter() - t_fam:.1f} s")
 
     # launches by path: each counted from zero over its own main-path run
     by_path = {f"{p['arch']} serve": p["launches"]
@@ -2252,12 +2591,17 @@ def main(argv=None) -> int:
     by_path[f"{swa['arch']} prefill"] = swa["launches"]
     by_path.update({f"{p['arch']} serve, tight pool": p["tight_pool"]
                     ["launches"] for p in paths if p["tight_pool"]})
+    by_path.update({f"{p['arch']} serve, recorded": p["recorded"]
+                    ["launches"] for p in paths if p["recorded"]})
     by_path.update({p: run["launches"] for p, run in spec["runs"].items()})
     for d in drains:
         by_path[f"{d['arch']} drain"] = d["launches_before"]
         by_path[f"{d['arch']} migrated"] = d["launches_after"]
     by_path[f"{ARCH} train"] = {n: tr["launches"][n]
                                 for n in ("nc_pack", "nc_unpack")}
+    by_path.update({f"{r['arch']} train": {n: r["launches"][n] for n in
+                                            ("nc_pack", "nc_unpack")}
+                    for r in fam_train})
     timing.update(nc_pack=nc_t["embed"]["nc_pack"],
                   nc_unpack=nc_t["embed"]["nc_unpack"])
     kernels = []
@@ -2306,7 +2650,7 @@ def main(argv=None) -> int:
               "family": family, "last": last, "swa": swa,
               "drain": drains, "nc_checks": nc_rows,
               "timing": dict(timing, nc=nc_t),
-              "train": tr}
+              "train": tr, "async_ckpt": ckpt, "train_families": fam_train}
     if args.out:
         os.makedirs(args.out, exist_ok=True)
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as fh:

@@ -41,7 +41,10 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b \
       --smoke --device cpu --continuous --requests 6 --batch 2
 
-Not ported yet: --replicas, --hedged, the transports and tracing.
+--trace-out PATH records the run (the engine's `serve.*` events and
+`request` spans) and writes a Perfetto trace, also when the run fails.
+
+Not ported yet: --replicas, --hedged and the transports.
 """
 from __future__ import annotations
 
@@ -53,6 +56,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs import get_config
+from repro_torch.launch import cli
 from repro_torch.launch.steps import (make_extra, make_serve_step,
                                       sharded_argmax)
 from repro_torch.models import model as MD
@@ -221,8 +225,9 @@ def serve(argv=None) -> dict:
                          "(e.g. qwen3-0.6b for qwen3-1.7b); default: "
                          "model-free n-gram lookup draft")
     ap.add_argument("--seed", type=int, default=0)
+    cli.add_trace_args(ap)
     args = ap.parse_args(argv)
-    return _serve(args)
+    return cli.run_traced(args, lambda: _serve(args))
 
 
 def _device_config(arch, smoke, device):
@@ -248,4 +253,6 @@ def _serve(args) -> dict:
 
 
 if __name__ == "__main__":
+    from repro_torch.obs import log as _log
+    _log.configure()  # CLI runs show progress; library use stays quiet
     serve()

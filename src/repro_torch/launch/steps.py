@@ -16,7 +16,7 @@ from repro_torch.core.compression import wire_roundtrip
 from repro_torch.models import model as MD
 from repro_torch.models.common import torch_dtype, tree_leaves, tree_map
 from repro_torch.models.config import ModelConfig
-from repro_torch.optim.optimizers import clip_by_global_norm
+from repro_torch.optim.optimizers import clip_leaf, clip_scale
 
 
 # ---------------------------------------------------------------------------
@@ -33,11 +33,78 @@ def loss_and_grads(params, cfg: ModelConfig, batch):
     return loss.detach(), tree_map(lambda _: next(grads), params)
 
 
+def _leaf_paths(tree, prefix=()):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaf_paths(tree[k], prefix + (k,))
+    else:
+        yield prefix
+
+
+def _at(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def _index(tree, sl):
+    """The view `t[sl]` of every tensor of a tree."""
+    if isinstance(tree, dict):
+        return {k: _index(v, sl) for k, v in tree.items()}
+    return tree[sl]
+
+
+def _copy_into(dst, src) -> None:
+    """Write the leaves of `src` into the tensors of `dst`, in place."""
+    if isinstance(dst, dict):
+        for k in dst:
+            _copy_into(dst[k], src[k])
+    else:
+        dst.copy_(src)
+
+
+# elements of a leaf that an elementwise update takes at once: its fp32
+# temporaries stay at 256 MB each however large the leaf (a stacked
+# (L, ...) leaf of phi-3-vision-4.2b holds 1.6 G elements)
+UPDATE_CHUNK = 1 << 26
+
+
+def leaf_slices(p: torch.Tensor, elementwise: bool) -> list:
+    """Row ranges of `p`'s leading dim of at most UPDATE_CHUNK elements,
+    or the whole leaf."""
+    if not elementwise or p.dim() == 0 or p.numel() <= UPDATE_CHUNK:
+        return [...]
+    rows = max(1, UPDATE_CHUNK // (p.numel() // p.shape[0]))
+    return [slice(i, i + rows) for i in range(0, p.shape[0], rows)]
+
+
 def apply_grads(opt, params, opt_state, grads, max_norm: float = 1.0):
-    """Clip to the global norm, then one optimizer update.  Returns
-    (params, opt_state, gnorm)."""
-    grads, gnorm = clip_by_global_norm(grads, max_norm)
-    params, opt_state = opt.update(grads, opt_state, params)
+    """Clip to the global norm, then one optimizer update, in place: the
+    leaves of `params` and `opt_state` are overwritten, a leaf at a time
+    (an elementwise optimizer's in slices of UPDATE_CHUNK elements), what
+    the JAX launcher's `donate_argnums=(0, 1)` lets XLA do.  Returns
+    (params, opt_state, gnorm), the same objects.  A whole-tree update
+    would hold the old and the new parameters and moments at once (for
+    AdamW 2 x (2 + 8) bytes a bf16 parameter); this one, the temporaries
+    of one slice.  The bits are the whole-tree update's: an update reads
+    nothing beyond the leaf, or the slice, it writes."""
+    scale, gnorm = clip_scale(grads, max_norm)
+    step = opt_state["step"]
+    moments = [k for k in opt_state if k != "step"]
+    new_step = None
+    for path in _leaf_paths(params):
+        p, g = _at(params, path), _at(grads, path)
+        leaf = {k: _at(opt_state[k], path) for k in moments}
+        for sl in leaf_slices(p, opt.elementwise):
+            sub = {k: {"x": _index(v, sl)} for k, v in leaf.items()}
+            sub["step"] = step
+            new_p, new_s = opt.update({"x": clip_leaf(g[sl], scale)}, sub,
+                                      {"x": p[sl]})
+            p[sl].copy_(new_p["x"])
+            for k in moments:
+                _copy_into(_index(leaf[k], sl), new_s[k]["x"])
+            new_step = new_s["step"]
+    step.copy_(new_step)
     return params, opt_state, gnorm
 
 
@@ -45,7 +112,9 @@ def make_train_step(cfg: ModelConfig, opt,
                     compress_grads: bool = False) -> Callable:
     """compress_grads: every gradient leaf goes through the natural-
     compression wire format and back before the optimizer (survey ref 75;
-    the nc_pack/nc_unpack kernels on the card)."""
+    the nc_pack/nc_unpack kernels on the card).  The step updates its
+    params and opt_state in place (`apply_grads`), so a caller must not
+    hold on to them expecting the old values."""
     def train_step(params, opt_state, batch,
                    noise: Optional[Union[Any, torch.Generator]] = None):
         """noise (compress_grads only): a tree of uniforms shaped like the

@@ -14,15 +14,27 @@ Compression noise for step s is drawn from a generator seeded with
 ``PRNGKey(seed + 1 + s)``.  ``--resume`` restores params and optimizer
 state from the newest checkpoint and skips the batches the restored steps
 consumed, so a resumed run sees the data an uninterrupted one would.
+``--async-ckpt`` hands each save to a background writer
+(`repro_torch.checkpoint.AsyncCheckpointer`): the loop pays only the copy
+to the host.  ``--trace-out PATH`` records the run (a ``train.step`` span
+a step, which ends after the loss is read back, so on the card it is the
+step's true time; the checkpointer's ``ckpt.*`` spans) and writes a
+Perfetto trace, also when the run fails.
+
+Every ``--arch`` trains: the vlm and audio batches carry the stub
+frontends' zeros (`launch.steps.make_extra`), as the JAX launcher's do.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \
       --steps 25 --batch 4 --seq 64 --compress-grads
   PYTHONPATH=src python -m repro_torch.launch.train --steps 10 --batch 2 \
       --seq 4096 --compress-grads
+  PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-1.2b \
+      --smoke --device cpu --steps 3 --batch 2 --seq 64 --compress-grads \
+      --ckpt-dir /tmp/ck --async-ckpt --trace-out /tmp/trace.json
 
-Not ported yet: the mesh (--env/--data/--model), --elastic and --mode,
---async-ckpt, and tracing.
+Not ported yet: the mesh (--env/--data/--model), --elastic and --mode
+(with --keep-last and the cluster flags).
 """
 from __future__ import annotations
 
@@ -32,12 +44,14 @@ import time
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.checkpoint import (latest_step, restore_checkpoint,
-                                    save_checkpoint)
+from repro_torch.checkpoint import (AsyncCheckpointer, latest_step,
+                                    restore_checkpoint, save_checkpoint)
 from repro_torch.configs import get_config
 from repro_torch.data import make_pipeline
+from repro_torch.launch import cli
 from repro_torch.launch.steps import make_extra, make_train_step
 from repro_torch.models import model as MD
+from repro_torch.obs import recorder as obs
 from repro_torch.optim.optimizers import get_optimizer, warmup_cosine
 
 
@@ -61,7 +75,15 @@ def train(argv=None) -> dict:
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--compress-grads", action="store_true",
                     help="natural compression on gradients (survey ref 75)")
-    return _train(ap.parse_args(argv))
+    ap.add_argument("--async-ckpt", dest="async_ckpt", action="store_true",
+                    default=False,
+                    help="non-blocking checkpoint saves on a background "
+                         "writer (repro_torch.checkpoint.AsyncCheckpointer)")
+    ap.add_argument("--no-async-ckpt", dest="async_ckpt",
+                    action="store_false")
+    cli.add_trace_args(ap)
+    args = ap.parse_args(argv)
+    return cli.run_traced(args, lambda: _train(args))
 
 
 def _train(args) -> dict:
@@ -87,6 +109,8 @@ def _train(args) -> dict:
         step0 = meta.get("step", 0)
         print(f"resumed from step {step0}")
 
+    # the step updates params and optimizer state in place, as the JAX
+    # launcher's jit donates them
     step_fn = make_train_step(cfg, opt, compress_grads=args.compress_grads)
     pipe = make_pipeline(cfg.vocab_size, args.batch, args.seq, seed=args.seed)
     entropy_floor = pipe.source.entropy_nats
@@ -94,41 +118,59 @@ def _train(args) -> dict:
     for _ in range(step0):       # the batches the restored steps consumed
         next(batches)
 
+    saver = (AsyncCheckpointer(args.ckpt_dir)
+             if args.async_ckpt and args.ckpt_dir else None)
+
     def _save(at_step):
-        save_checkpoint(args.ckpt_dir, at_step,
-                        {"params": params, "opt": opt_state},
-                        {"step": at_step, "arch": args.arch})
+        tree = {"params": params, "opt": opt_state}
+        meta = {"step": at_step, "arch": args.arch}
+        if saver is not None:
+            saver.save(at_step, tree, meta)
+        else:
+            save_checkpoint(args.ckpt_dir, at_step, tree, meta)
 
     losses = []
     t0 = time.time()
-    for i in range(args.steps):
-        step = step0 + i
-        batch = {k: torch.from_numpy(v).to(device)
-                 for k, v in next(batches).items()}
-        extra = make_extra(cfg, args.batch, device)
-        if extra is not None:         # the stub frontends' zeros, as JAX
-            batch["extra_embeds"] = extra
-        noise = None
-        if args.compress_grads:
-            noise = torch.Generator(device=device).manual_seed(
-                args.seed + 1 + step)
-        params, opt_state, metrics = step_fn(params, opt_state, batch, noise)
-        loss = float(metrics["loss"])
-        losses.append(loss)
-        if step % args.log_every == 0:
-            dt = time.time() - t0
-            print(f"step {step:5d} loss {loss:.4f} "
-                  f"(floor~{entropy_floor:.3f}) "
-                  f"gnorm {float(metrics['gnorm']):.3f} "
-                  f"{dt / max(i, 1):.2f}s/step", flush=True)
-        if (args.ckpt_dir and args.ckpt_every
-                and (step + 1) % args.ckpt_every == 0):
-            _save(step + 1)
-    if args.ckpt_dir:
-        _save(step0 + args.steps)
+    try:
+        for i in range(args.steps):
+            step = step0 + i
+            batch = {k: torch.from_numpy(v).to(device)
+                     for k, v in next(batches).items()}
+            extra = make_extra(cfg, args.batch, device)
+            if extra is not None:     # the stub frontends' zeros, as JAX
+                batch["extra_embeds"] = extra
+            noise = None
+            if args.compress_grads:
+                noise = torch.Generator(device=device).manual_seed(
+                    args.seed + 1 + step)
+            # the span ends after the loss is read back, so on the card
+            # it holds the whole step, not its launch
+            with obs.get().span("train.step", cat="train", step=step):
+                params, opt_state, metrics = step_fn(params, opt_state,
+                                                     batch, noise)
+                loss = float(metrics["loss"])
+            losses.append(loss)
+            if step % args.log_every == 0:
+                dt = time.time() - t0
+                print(f"step {step:5d} loss {loss:.4f} "
+                      f"(floor~{entropy_floor:.3f}) "
+                      f"gnorm {float(metrics['gnorm']):.3f} "
+                      f"{dt / max(i, 1):.2f}s/step", flush=True)
+            if (args.ckpt_dir and args.ckpt_every
+                    and (step + 1) % args.ckpt_every == 0):
+                _save(step + 1)
+        if args.ckpt_dir:
+            _save(step0 + args.steps)
+        if saver is not None:
+            saver.wait()  # barrier: the final save is durable on return
+    finally:
+        if saver is not None:
+            saver.close(wait=False)  # never leak the writer thread
     return {"losses": losses, "entropy_floor": entropy_floor,
             "params": params}
 
 
 if __name__ == "__main__":
+    from repro_torch.obs import log as _log
+    _log.configure()  # CLI runs show progress; library use stays quiet
     train()

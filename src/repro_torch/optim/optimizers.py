@@ -23,6 +23,10 @@ class Optimizer(NamedTuple):
     init: Callable[[Any], Any]
     # update(grads, state, params) -> (new params, new state)
     update: Callable[[Any, Any, Any], Tuple[Any, Any]]
+    # the update is elementwise within a leaf (AdamW, SGD), so it may run
+    # on slices of a leaf; Adafactor's factored moments and update clip
+    # read the whole leaf
+    elementwise: bool = True
 
 
 def _zeros_f32(p: torch.Tensor) -> torch.Tensor:
@@ -35,13 +39,23 @@ def _step0(params) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+def clip_scale(grads, max_norm: float):
+    """(min(1, max_norm / (|grads| + 1e-9)), |grads|): the global norm
+    summed over the leaves in leaf order in fp32."""
+    gnorm = torch.sqrt(sum(g.float().square().sum()
+                           for g in tree_leaves(grads)))
+    return torch.clamp(max_norm / (gnorm + 1e-9), max=1.0), gnorm
+
+
+def clip_leaf(g: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    return (g.float() * scale).to(g.dtype)
+
+
 def clip_by_global_norm(grads, max_norm: float):
     """Scale every leaf by min(1, max_norm / (|grads| + 1e-9)); returns
     (clipped grads, global norm), norms summed in leaf order in fp32."""
-    gnorm = torch.sqrt(sum(g.float().square().sum()
-                           for g in tree_leaves(grads)))
-    scale = torch.clamp(max_norm / (gnorm + 1e-9), max=1.0)
-    return tree_map(lambda g: (g.float() * scale).to(g.dtype), grads), gnorm
+    scale, gnorm = clip_scale(grads, max_norm)
+    return tree_map(lambda g: clip_leaf(g, scale), grads), gnorm
 
 
 def warmup_cosine(peak_lr: float, warmup: int, total: int,
@@ -149,7 +163,7 @@ def adafactor(lr: Callable, eps: float = 1e-30,
         return (tree_map(lambda o: o[0], out),
                 {"f": tree_map(lambda o: o[1], out), "step": step})
 
-    return Optimizer(init, update)
+    return Optimizer(init, update, elementwise=False)
 
 
 def get_optimizer(name: str, lr_fn) -> Optimizer:

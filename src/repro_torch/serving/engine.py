@@ -34,7 +34,15 @@ per-slot row (dense mode only: it has no KV to page).  A sliding-window
 config is refused: its cache is a ring of `window` slots, which neither
 the prefill's cache layout nor the page pool takes.
 
-Not ported yet (ROADMAP.md): the obs events, `program=` and `chunk_cap=`.
+Under an installed `repro_torch.obs` recorder the engine emits the JAX
+engine's events on its `host` lane, with their names, categories and
+args: `serve.admit` / `serve.admit_migrated` at each admit, a `request`
+span from admit to finish, `serve.first_token`, `serve.preempt`,
+`serve.drain`, and the `serving.slot_occupancy` / `serving.pool_occupancy`
+gauges in `stats()`.  With the default null recorder they cost a method
+call and allocate nothing.
+
+Not ported yet (ROADMAP.md): `program=` and `chunk_cap=`.
 """
 from __future__ import annotations
 
@@ -50,6 +58,7 @@ from repro_torch.launch.steps import (make_paged_serve_cb_step,
 from repro_torch.models import model as MD
 from repro_torch.models.common import tree_map
 from repro_torch.models.config import ModelConfig
+from repro_torch.obs import recorder as obs
 from repro_torch.serving.request import (FinishedRequest, Request,
                                          validate_budget)
 from repro_torch.serving.scheduler import FifoScheduler, PagePool, SlotPool
@@ -186,7 +195,8 @@ class ServeEngine:
     def __init__(self, params, cfg: ModelConfig, *, num_slots: int,
                  cache_len: int, page_size: Optional[int] = None,
                  num_pages: Optional[int] = None,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, host: Any = "serve"):
+        self.host = host  # obs lane
         self.device = torch.empty(0, device=resolve_device(device)).device
         if cfg.attention_kind == "sliding_window":
             raise ValueError(
@@ -251,6 +261,7 @@ class ServeEngine:
         }
         # first token of each admitted request: device ref, harvested later
         self._pending_first: Dict[int, torch.Tensor] = {}
+        self._req_t0: Dict[int, float] = {}  # obs: rid -> admit clock
         # engine-local preemption ledger: rid -> (original request, tokens
         # already emitted across incarnations) — stitched back in _finish
         self._preempted: Dict[int, tuple] = {}
@@ -301,6 +312,12 @@ class ServeEngine:
         self._pending_first[slot] = first  # harvested with the next chunk
         self.prefill_ticks += 1
         self.prefill_tokens += int(prompt.shape[1])
+        rec = obs.get()
+        if rec.enabled:
+            self._req_t0[req.rid] = rec.clock()
+            # int(): a numpy slot index would make the trace unwritable
+            rec.event("serve.admit", host=self.host, cat="serving",
+                      rid=req.rid, slot=int(slot))
 
     def _extra(self, req: Request) -> Optional[torch.Tensor]:
         """The request's modality input on the engine's device."""
@@ -332,6 +349,12 @@ class ServeEngine:
         self.pool.occupy(slot, req, start_pos, self.ticks)
         self.migrated_admits += 1
         self.migrated_tokens_saved += int(kv.pos)
+        rec = obs.get()
+        if rec.enabled:
+            self._req_t0[req.rid] = rec.clock()
+            rec.event("serve.admit_migrated", host=self.host, cat="serving",
+                      rid=req.rid, slot=int(slot), pages=npg,
+                      tokens_resident=int(kv.pos))
 
     # ------------------------------------------------------------------
     def _release_slot(self, slot: int) -> None:
@@ -350,11 +373,23 @@ class ServeEngine:
             admitted_tick=int(self.pool.admitted_tick[slot]),
             finished_tick=self.ticks))
         self._release_slot(slot)
+        rec = obs.get()
+        if rec.enabled:
+            # the request lifecycle as one span: admit -> finish
+            t0 = self._req_t0.pop(req.rid, None)
+            if t0 is not None:
+                rec.complete("request", t0, rec.clock() - t0,
+                             host=self.host, cat="serving", rid=req.rid,
+                             reason=reason,
+                             tokens=len(self.finished[-1].tokens))
 
     def _consume(self, slot: int, tok: int) -> None:
         """Host mirror of the device retirement rule for one token."""
         req = self.pool.request[slot]
         self.pool.generated[slot].append(tok)
+        if len(self.pool.generated[slot]) == 1:
+            obs.get().event("serve.first_token", host=self.host,
+                            cat="serving", rid=req.rid)
         if req.eos_id is not None and tok == req.eos_id:
             self._finish(slot, "eos")
         elif len(self.pool.generated[slot]) >= req.max_new_tokens:
@@ -410,6 +445,8 @@ class ServeEngine:
         self.regs["active"][slot] = False
         self.scheduler.queue.appendleft(cont)
         self.preemptions += 1
+        obs.get().event("serve.preempt", host=self.host, cat="serving",
+                        rid=req.rid, slot=int(slot), emitted=len(prefix))
 
     def _ensure_coverage(self, k: int) -> None:
         """Grow every active slot's block table to cover the next k ticks,
@@ -529,6 +566,7 @@ class ServeEngine:
                 self._release_slot(slot)
                 self._pending_first.pop(slot, None)
                 self.regs["active"][slot] = False
+                self._req_t0.pop(rid, None)
                 self._preempted.pop(rid, None)
                 return True
         for i, req in enumerate(self.scheduler.queue):
@@ -565,6 +603,7 @@ class ServeEngine:
         host-harvested tokens; in paged mode (migrate_kv=True) each one's
         live KV rides along (`DrainedRequest.kv`).  Queued requests come
         back untouched, a continuation's `kv_seed` kept."""
+        rec = obs.get()
         out = []
         for slot in np.flatnonzero(self.pool.active):
             slot = int(slot)
@@ -574,10 +613,18 @@ class ServeEngine:
             out.append(DrainedRequest(
                 orig, prefix + list(self.pool.generated[slot]), kv))
             self._release_slot(slot)
+            if rec.enabled:
+                rec.event("serve.drain", host=self.host, cat="serving",
+                          rid=orig.rid, emitted=len(out[-1].emitted),
+                          migrated=kv is not None)
+                self._req_t0.pop(orig.rid, None)
         while self.scheduler.queue:
             req = self.scheduler.queue.popleft()
             orig, prefix = self._preempted.pop(req.rid, (req, []))
             out.append(DrainedRequest(orig, list(prefix), req.kv_seed))
+            if rec.enabled:
+                rec.event("serve.drain", host=self.host, cat="serving",
+                          rid=orig.rid, emitted=len(out[-1].emitted))
         self._pending_first = {}
         self.regs["active"].zero_()
         return sorted(out, key=lambda d: d.request.rid)
@@ -599,6 +646,11 @@ class ServeEngine:
         return self._page_steps / (self.decode_ticks * self.num_pages)
 
     def stats(self) -> Dict[str, float]:
+        rec = obs.get()
+        if rec.enabled:
+            rec.gauge("serving.slot_occupancy", self.occupancy)
+            if self.paged:
+                rec.gauge("serving.pool_occupancy", self.pool_occupancy)
         out = {"ticks": self.ticks, "decode_ticks": self.decode_ticks,
                "prefill_ticks": self.prefill_ticks,
                "prefill_tokens": self.prefill_tokens,

@@ -702,3 +702,135 @@ def test_moe_decode_tick_kernel_path_matches_plain(arch, dtype):
     scale = max(1.0, float(lf.float().abs().max()))
     torch.testing.assert_close(lk.float(), lf.float(), rtol=0,
                                atol=TOL[dtype] * scale)
+
+
+# ---------------------------------------------------------------------------
+# obs, asynchronous checkpoints, the other families' train steps
+# ---------------------------------------------------------------------------
+def test_recorded_serve_event_counts_on_card(tmp_path):
+    """A SMOKE qwen3 stream through the kernels on a paged pool tight
+    enough to preempt, recorded and unrecorded: the same streams; one
+    request span a request, one serve.admit an admit (re-admits
+    included), one serve.preempt a preemption, a first token for every
+    request (again for a re-admit, whose tokens count afresh, as in the
+    JAX engine) and at most one an admit; the trace parses back with
+    every event."""
+    _cuda()
+    import json
+    from repro_torch import obs
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as MD
+    from repro_torch.serving import Request, ServeEngine
+    cfg = get_config("qwen3-0.6b", smoke=True).with_(
+        use_flash_kernel=True, use_paged_kernel=True)
+    params = MD.init_model(cfg, torch.Generator(device="cuda").manual_seed(0))
+    r = np.random.RandomState(3)
+    reqs = [(i, r.randint(0, cfg.vocab_size, size=int(r.choice((5, 8)))),
+             int(r.choice((8, 12)))) for i in range(6)]
+
+    def run(rec):
+        eng = ServeEngine(params, cfg, num_slots=2, cache_len=24,
+                          page_size=4, num_pages=6, device="cuda")
+        with obs.recording(rec):
+            fins = eng.run([Request(rid=i, prompt=p, max_new_tokens=g)
+                            for i, p, g in reqs])
+        return [f.tokens for f in fins], eng.stats()
+    off, _ = run(None)
+    rec = obs.Recorder()
+    on, st = run(rec)
+    assert on == off and st["preemptions"] >= 1
+    names = [e.name for e in rec.events]
+    assert sorted(e.args["rid"] for e in rec.events
+                  if e.name == "request") == list(range(6))
+    assert {e.args["rid"] for e in rec.events
+            if e.name == "serve.first_token"} == set(range(6))
+    assert names.count("serve.first_token") <= st["prefill_ticks"]
+    assert names.count("serve.admit") == st["prefill_ticks"]
+    assert names.count("serve.preempt") == st["preemptions"]
+    path = obs.write_trace(tmp_path / "trace.json", rec.events)
+    back = json.load(open(path))["traceEvents"]
+    assert len([e for e in back if e["ph"] != "M"]) == len(rec.events)
+
+
+def test_async_save_restores_cuda_tensors_bit_equal(tmp_path):
+    """bf16, fp32 and int32 leaves on the card: the save sees them as they
+    were when it returned, though they are overwritten in place while the
+    writer works; the restore lands on the card bit-equal."""
+    _cuda()
+    import threading
+    from repro_torch.checkpoint import AsyncCheckpointer, restore_checkpoint
+    g = torch.Generator(device="cuda").manual_seed(0)
+    tree = {"w": torch.randn(257, 129, generator=g, device="cuda"),
+            "b": torch.randn(1000, generator=g, device="cuda").bfloat16(),
+            "opt": {"step": torch.tensor(7, dtype=torch.int32,
+                                         device="cuda")}}
+    kept = {"w": tree["w"].clone(), "b": tree["b"].clone(),
+            "opt": {"step": tree["opt"]["step"].clone()}}
+    gate = threading.Event()
+    ck = AsyncCheckpointer(str(tmp_path), failpoint=lambda name: (
+        gate.wait(10) if name == "before_write" else None))
+    ck.save(7, tree)
+    tree["w"].mul_(2)
+    tree["b"].add_(1)
+    tree["opt"]["step"].add_(1)
+    gate.set()
+    ck.wait()
+    ck.close()
+    like = {"w": torch.zeros_like(kept["w"]), "b": torch.zeros_like(
+        kept["b"]), "opt": {"step": torch.zeros_like(kept["opt"]["step"])}}
+    back, _ = restore_checkpoint(str(tmp_path), like)
+    for k in ("w", "b"):
+        assert back[k].device.type == "cuda" and back[k].dtype == kept[k].dtype
+        assert torch.equal(back[k].view(torch.int16 if k == "b" else
+                                        torch.int32),
+                           kept[k].view(torch.int16 if k == "b" else
+                                        torch.int32))
+    assert int(back["opt"]["step"]) == 7
+
+
+@pytest.mark.parametrize("arch", ["zamba2-1.2b", "rwkv6-1.6b",
+                                  "whisper-tiny", "phi-3-vision-4.2b",
+                                  "qwen3-moe-30b-a3b"])
+def test_compressed_train_step_of_each_family(arch):
+    """One compressed train step (in place) of each family at SMOKE in bf16
+    on the card: a finite loss, one nc_pack and one nc_unpack launch a
+    gradient leaf, no attention or scan kernel (they have no backward);
+    and the same gradients and uniforms through the kernels and the
+    plain versions bit-identical."""
+    _cuda()
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import (loss_and_grads, make_extra,
+                                          make_train_step)
+    from repro_torch.models import model as MD
+    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.optim.optimizers import adamw, warmup_cosine
+    cfg = get_config(arch, smoke=True).with_(param_dtype="bfloat16",
+                                             compute_dtype="bfloat16")
+    params = MD.init_model(cfg, torch.Generator(device="cuda").manual_seed(0))
+    opt = adamw(warmup_cosine(3e-3, 2, 4))
+    state = opt.init(params)
+    r = np.random.RandomState(0)
+    toks = torch.from_numpy(r.randint(0, cfg.vocab_size, size=(2, 65))
+                            .astype(np.int32)).cuda()
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    extra = make_extra(cfg, 2, torch.device("cuda"))
+    if extra is not None:
+        batch["extra_embeds"] = extra
+    step = make_train_step(cfg, opt, compress_grads=True)
+    ops.reset_launches()
+    _, _, m = step(params, state, batch,
+                   torch.Generator(device="cuda").manual_seed(1))
+    torch.cuda.synchronize()
+    n = len(tree_leaves(params))
+    assert np.isfinite(float(m["loss"]))
+    assert (ops.nc_pack.launches, ops.nc_unpack.launches) == (n, n)
+    assert (ops.flash_attention.launches, ops.paged_attention.launches,
+            ops.ssd_scan.launches) == (0, 0, 0)
+    _, grads = loss_and_grads(params, cfg, batch)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    u = tree_map(lambda g: torch.rand(g.shape, generator=gen,
+                                      device="cuda"), grads)
+    for g, v in zip(tree_leaves(grads), tree_leaves(u)):
+        k = ops.nc_roundtrip(g, v)
+        p = NC.unpack_reference(NC.pack_reference(g, v), g.dtype)
+        assert torch.equal(k.view(torch.int16), p.view(torch.int16))

@@ -31,6 +31,7 @@ from repro.optim import optimizers as JO  # noqa: E402
 from repro_torch.data import make_pipeline  # noqa: E402
 from repro_torch.launch.steps import loss_and_grads, make_train_step  # noqa: E402
 from repro_torch.models import model as TMD  # noqa: E402
+from repro_torch.models.common import tree_map  # noqa: E402
 from repro_torch.optim import optimizers as TO  # noqa: E402
 
 import test_torch_bridge as TP  # noqa: E402
@@ -164,9 +165,13 @@ def test_train_step_default_noise_follows_the_step_counter():
     step = make_train_step(tcfg, opt, compress_grads=True)
     batch = _tb(_batches(tcfg.vocab_size, 1)[0])
     s0 = opt.init(tp)
-    a = step(tp, s0, batch)[0]
-    b = step(tp, s0, batch, torch.Generator().manual_seed(0))[0]
-    c = step(tp, s0, batch, torch.Generator().manual_seed(1))[0]
+
+    def fresh():           # the step updates its params and state in place
+        return tree_map(torch.clone, tp), tree_map(torch.clone, s0)
+
+    a = step(*fresh(), batch)[0]
+    b = step(*fresh(), batch, torch.Generator().manual_seed(0))[0]
+    c = step(*fresh(), batch, torch.Generator().manual_seed(1))[0]
     assert torch.equal(a["embed"], b["embed"])
     assert not torch.equal(a["embed"], c["embed"])
 

@@ -3,17 +3,23 @@ fp32): the projected patch prefix, the logits cropped by it, decode past
 it, the paged engine's greedy streams (a tight pool that preempts and
 re-admits included), a drain and migrated install, and the speculative
 engine with the lookup draft — against the JAX package on the same
-weights and numpy inputs."""
+weights and numpy inputs; and the gradients at depth with the stub
+frontend's zero patches, non-finite where JAX's are."""
 import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
+from repro.configs import get_config as jax_get_config  # noqa: E402
 from repro.models import model as JMD  # noqa: E402
+from repro_torch.bridge import params_to_numpy  # noqa: E402
+from repro_torch.configs import get_config as torch_get_config  # noqa: E402
+from repro_torch.launch.steps import loss_and_grads  # noqa: E402
 from repro_torch.models import model as TMD  # noqa: E402
-from repro_torch.models.common import dense  # noqa: E402
+from repro_torch.models.common import dense, tree_leaves  # noqa: E402
 
 import _torch_families as F  # noqa: E402
 
@@ -131,3 +137,33 @@ def test_spec_engine_lookup_draft_matches_jax():
     _, sfin = F.engines_match(ARCH, reqs, kw, spec=True)
     _, pfin = F.engines_match(ARCH, reqs, kw)
     assert [f.tokens for f in sfin] == [f.tokens for f in pfin]
+
+
+def test_zero_patches_make_jax_s_nonfinite_gradients_at_depth():
+    """The vlm launchers' stub frontend gives zero patches.  Those prefix
+    rows stay zero through every layer, and each RMSNorm's backward
+    multiplies their gradient by 1/sqrt(eps) = 1000, so by 16 layers it
+    overflows and spreads NaN into the weights' gradients (the fault of
+    the reference that ROADMAP queue 3 records; phi-3-vision-4.2b has 32
+    layers).  The port reproduces it exactly: the same non-finite
+    gradient elements as JAX, none at 8 layers."""
+    for layers, bad in ((8, False), (16, True)):
+        jcfg = jax_get_config(ARCH, smoke=True).with_(num_layers=layers)
+        tcfg = torch_get_config(ARCH, smoke=True).with_(num_layers=layers)
+        tp = TMD.init_model(tcfg, torch.Generator().manual_seed(0))
+        jp = jax.tree_util.tree_map(jnp.asarray, params_to_numpy(tp))
+        toks = np.random.RandomState(0).randint(
+            0, tcfg.vocab_size, size=(1, 33)).astype(np.int32)
+        b = {"tokens": toks[:, :-1], "labels": toks[:, 1:],
+             "extra_embeds": np.zeros((1, tcfg.num_patches, 1024),
+                                      np.float32)}
+        _, jg = jax.value_and_grad(JMD.lm_loss)(
+            jp, jcfg, jax.tree_util.tree_map(jnp.asarray, b))
+        _, tg = loss_and_grads(tp, tcfg, {k: torch.from_numpy(v)
+                                          for k, v in b.items()})
+        t = [np.isfinite(a) for a in tree_leaves(params_to_numpy(tg))]
+        j = [np.isfinite(np.asarray(a)) for a in jax.tree_util.tree_leaves(jg)]
+        assert len(t) == len(j)
+        for a, c in zip(t, j):
+            np.testing.assert_array_equal(a, c)
+        assert any(not a.all() for a in t) == bad
