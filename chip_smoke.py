@@ -236,6 +236,16 @@ TRAIN_FAMILIES = (
     (WHISPER, 8, 448, None),
     (VLM, 1, 2048, None))
 TRAIN_TIMED = 3
+# phase 7: data parallelism on qwen3-0.6b at full width.  (a) S-SGD over
+# DP_W workers of 1 x DP_SEQ tokens (phase 6's 2 x 4096 split in two), a
+# warm-up step and DP_TIMED timed ones; (b) the fp32 equivalence, 1 x
+# EQ_SEQ a worker, SGD at EQ_LR, held to EQ_TOL of the largest update
+# element; (c) local SGD and EASGD rounds, LOCAL_K steps of 1 x LOCAL_SEQ;
+# (e) the coordinator driven for COORD_STEPS wall steps
+DP_W, DP_SEQ, DP_TIMED = 2, 4096, 3
+EQ_SEQ, EQ_LR, EQ_TOL = 512, 0.1, 1e-4
+LOCAL_K, LOCAL_SEQ, LOCAL_LR = 2, 1024, 1e-2
+COORD_STEPS = 6
 # the nc wire format: code 1..127 <=> |value| 2^-69 .. 2^57
 NC_LO, NC_HI = 2.0 ** -69, 2.0 ** 57
 
@@ -326,6 +336,17 @@ def max_err(out, ref) -> float:
 def bits(torch, t):
     """t's bits as integers: equal bits, not equal values (-0.0 != 0.0)."""
     return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+
+def same_tree_bits(torch, a, b):
+    """Two trees of tensors equal bit for bit (-0.0 and 0.0 differ), in
+    dtype and shape too."""
+    from repro_torch.models.common import tree_leaves
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(
+        x.dtype == y.dtype and x.shape == y.shape
+        and torch.equal(bits(torch, x), bits(torch, y))
+        for x, y in zip(la, lb))
 
 
 def check_close(name, out, ref, tol) -> float:
@@ -1919,6 +1940,343 @@ def serve_path(torch, card, arch, ops, MD, SS, ServeEngine, Request,
 
 
 # ---------------------------------------------------------------------------
+# phase 7: data parallelism, resharding and the coordinator
+# ---------------------------------------------------------------------------
+def finite(xs):
+    return all(v == v and abs(v) != float("inf") for v in xs)
+
+
+def dir_bytes_equal(a, b, chunk=1 << 26):
+    """Two directory trees hold the same files with the same bytes (read
+    in chunks of 64 MiB)."""
+    def files(d):
+        return sorted(os.path.relpath(os.path.join(r, f), d)
+                      for r, _, fs in os.walk(d) for f in fs)
+
+    def same(x, y):
+        if os.path.getsize(x) != os.path.getsize(y):
+            return False
+        with open(x, "rb") as fx, open(y, "rb") as fy:
+            while True:
+                bx, by = fx.read(chunk), fy.read(chunk)
+                if bx != by:
+                    return False
+                if not bx:
+                    return True
+
+    names = files(a)
+    return names == files(b) and all(
+        same(os.path.join(a, f), os.path.join(b, f)) for f in names)
+
+
+def dp_phase(torch, card, ops, train_ms):
+    """Phase 7: qwen3-0.6b at full width through `core/data_parallel`,
+    `elastic/reshard` and `cluster/` on the card.  (a) timed S-SGD
+    steps, W workers of 1 x DP_SEQ (phase 6's 2 x 4096 split), bf16,
+    block remat, all-reduce with natural-compressed gradients from CUDA
+    uniforms, AdamW through opt.update; (b) fp32 S-SGD equal to one step
+    on the joined batch, and ps equal to all-reduce; (c) a round of local
+    SGD and of EASGD; (d) reshard, save and restore of the stacked
+    params on the card; (e) the Coordinator over two real worker
+    processes.  Every step is held to its gate."""
+    import gc
+    import shutil
+    from repro_torch.cluster import Coordinator, ProcTransport, SimTransport
+    from repro_torch.configs import get_config
+    from repro_torch.core import data_parallel as DP
+    from repro_torch.data import make_pipeline
+    from repro_torch.elastic import (FailureTrace, TraceEvent,
+                                     reshard_stacked, restore_stacked,
+                                     save_stacked)
+    from repro_torch.models import model as MD
+    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.optim.optimizers import (adamw, sgd_momentum,
+                                              warmup_cosine)
+    t_phase = time.perf_counter()
+    out = {}
+    W = DP_W
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def batches_w(seq, n, seed, K=None):
+        """n (W[, K]) x 1 x seq batches on the card from the pipeline's
+        (W [x K]) x seq ones."""
+        rows = W * (K or 1)
+        pipe = iter(make_pipeline(cfg.vocab_size, rows, seq, seed=seed))
+        lead = (W, K) if K else (W,)
+        return [{k: torch.from_numpy(v).cuda().reshape(lead + (1, seq))
+                 for k, v in next(pipe).items()} for _ in range(n)]
+
+    # (a) timed sync_step, bf16 ------------------------------------------
+    cfg = get_config(ARCH)
+    loss_fn = lambda p, b: MD.lm_loss(p, cfg, b)
+    params = MD.init_model(cfg, torch.Generator(device="cuda").manual_seed(0))
+    n = sum(t.numel() for t in tree_leaves(params))
+    opt = adamw(warmup_cosine(3e-3, TRAIN_WARMUP, 1 + DP_TIMED))
+    state = opt.init(params)
+    data = batches_w(DP_SEQ, 2 + DP_TIMED, seed=0)
+
+    def noise(i):
+        return torch.Generator(device="cuda").manual_seed(1 + i)
+
+    params, state, m = DP.sync_step(loss_fn, params, opt, state, data[0],
+                                    noise=noise(0))                # warm-up
+    losses = [float(m["loss"])]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    for i, b in enumerate(data[1:-1]):
+        params, state, m = DP.sync_step(loss_fn, params, opt, state, b,
+                                        noise=noise(1 + i))
+        losses.append(float(m["loss"]))
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / DP_TIMED
+    peak = torch.cuda.max_memory_allocated()
+    launches = {k: getattr(ops, k).launches for k in
+                ("nc_pack", "nc_unpack", "flash_attention", "paged_attention")}
+    # one more step, split into its parts with a synchronize between them
+    dp_split = {}
+    t1 = time.perf_counter()
+    _, grads_w = DP.per_worker_grads(loss_fn, params, data[-1])
+    torch.cuda.synchronize()
+    dp_split["forward_backward_ms"] = 1e3 * (time.perf_counter() - t1)
+    t1 = time.perf_counter()
+    g, _ = DP.aggregate(grads_w, "allreduce", noise(1 + DP_TIMED))
+    torch.cuda.synchronize()
+    dp_split["aggregate_ms"] = 1e3 * (time.perf_counter() - t1)
+    del grads_w
+    t1 = time.perf_counter()
+    opt.update(g, state, params)
+    torch.cuda.synchronize()
+    dp_split["update_ms"] = 1e3 * (time.perf_counter() - t1)
+    del g
+    per_worker = 2 * n * (W - 1) // W
+    want = {"comm_bytes": per_worker * W, "bottleneck_link_bytes": per_worker,
+            "comm_events": W}
+    got = {k: m[k] for k in want}
+    if not finite(losses):
+        fail(f"dp sync_step: losses {losses}")
+    if got != want:
+        fail(f"dp sync_step: comm {got}, closed forms {want} ({n} params)")
+    if any(launches.values()):
+        fail(f"dp sync_step: the aggregate compresses with the plain "
+             f"natural_compress, yet kernels launched: {launches}")
+    out["sync_step"] = {"W": W, "seq": DP_SEQ, "params": n,
+                        "losses": losses, "ms_per_step": ms,
+                        "phase6_ms_per_step": train_ms,
+                        "peak_mem_gb": peak / 1e9, "comm": got,
+                        "launches": launches, "split_ms": dp_split}
+    print(f"dp sync_step [{card}]: {ARCH} {n} params {cfg.param_dtype}, "
+          f"W {W} x 1 x "
+          f"{DP_SEQ}, allreduce, natural-compressed (CUDA uniforms), AdamW: "
+          f"{ms:.1f} ms/step over {DP_TIMED} steps (phase 6: {train_ms:.1f} "
+          f"ms/step at {TRAIN_BATCH} x {TRAIN_SEQ}), peak memory "
+          f"{peak / 1e9:.2f} GB, comm_bytes {got['comm_bytes']}, "
+          f"bottleneck_link_bytes {got['bottleneck_link_bytes']}, "
+          f"comm_events {got['comm_events']} (the closed forms), losses "
+          f"{[round(x, 4) for x in losses]}; one more step split "
+          f"{json.dumps({k: round(v, 1) for k, v in dp_split.items()})}")
+    del params, state, data
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) equivalence in fp32 ---------------------------------------------
+    cfg32 = cfg.with_(param_dtype="float32", compute_dtype="float32")
+    loss32 = lambda p, b: MD.lm_loss(p, cfg32, b)
+    p0 = MD.init_model(cfg32, torch.Generator(device="cuda").manual_seed(1))
+    sgd = sgd_momentum(lambda s: EQ_LR, momentum=0.0)
+    b = batches_w(EQ_SEQ, 1, seed=2)[0]
+    p_ar, _, m_ar = DP.sync_step(loss32, p0, sgd, sgd.init(p0), b)
+    p_ps, _, m_ps = DP.sync_step(loss32, p0, sgd, sgd.init(p0), b, mode="ps")
+    joined = {k: v.reshape(W, EQ_SEQ) for k, v in b.items()}
+    _, g = DP.value_and_grad(loss32, p0, joined)
+    p_one = tree_map(lambda p, gg: p - EQ_LR * gg, p0, g)
+    del g
+    err = max(float((a - c).abs().max()) for a, c in
+              zip(tree_leaves(p_ar), tree_leaves(p_one)))
+    upd = max(float((c - a).abs().max()) for a, c in
+              zip(tree_leaves(p0), tree_leaves(p_one)))
+    if not err <= EQ_TOL * upd:
+        fail(f"dp equivalence: max|sync - single| {err:.3g} > {EQ_TOL} x "
+             f"the largest update element {upd:.3g}")
+    if not same_tree_bits(torch, p_ps, p_ar):
+        fail("dp equivalence: ps params differ from allreduce's")
+    if not m_ps["bottleneck_link_bytes"] > m_ar["bottleneck_link_bytes"]:
+        fail(f"dp equivalence: ps bottleneck {m_ps} not above allreduce's "
+             f"{m_ar}")
+    out["equivalence"] = {"seq": EQ_SEQ, "lr": EQ_LR, "max_err": err,
+                          "max_update": upd, "gate": EQ_TOL * upd,
+                          "ps_bottleneck": m_ps["bottleneck_link_bytes"],
+                          "allreduce_bottleneck":
+                              m_ar["bottleneck_link_bytes"]}
+    print(f"dp equivalence [{card}]: fp32, W {W} x 1 x {EQ_SEQ}, SGD "
+          f"(momentum 0, lr {EQ_LR}): max|sync_step - one step on the "
+          f"joined batch| {err:.3g} <= {EQ_TOL} x the largest update "
+          f"element {upd:.3g}; ps params bit-equal to allreduce, "
+          f"bottleneck link {m_ps['bottleneck_link_bytes']} > "
+          f"{m_ar['bottleneck_link_bytes']}")
+    del p0, p_ar, p_ps, p_one
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) local SGD and EASGD, bf16 -----------------------------------------
+    base = MD.init_model(cfg, torch.Generator(device="cuda").manual_seed(3))
+    stack = lambda t: t.unsqueeze(0).repeat((W,) + (1,) * t.dim())
+    data_k = batches_w(LOCAL_SEQ, 1, seed=4, K=LOCAL_K)[0]
+    sgd_m = sgd_momentum(lambda s: LOCAL_LR, momentum=0.9)
+    params_w = tree_map(stack, base)
+    states_w = tree_map(stack, sgd_m.init(base))
+    t = time.perf_counter()
+    params_w, states_w, m_l = DP.local_sgd_round(loss_fn, params_w, sgd_m,
+                                                 states_w, data_k)
+    loss_l = float(m_l["loss"])
+    torch.cuda.synchronize()
+    local_s = time.perf_counter() - t
+    rows_equal = all(torch.equal(bits(torch, x[0]), bits(torch, x[w]))
+                     for x in tree_leaves(params_w) for w in range(1, W))
+    want_l = 2 * n * 4 * (W - 1)
+    if not (finite([loss_l]) and rows_equal and m_l["comm_bytes"] == want_l):
+        fail(f"dp local SGD: loss {loss_l}, rows bit-equal {rows_equal}, "
+             f"comm_bytes {m_l['comm_bytes']} (closed form {want_l})")
+    del params_w, states_w
+    ecfg = DP.EASGDConfig(lr=LOCAL_LR, rho=0.1)
+    t = time.perf_counter()
+    ez_w, center, m_e = DP.easgd_round(loss_fn, tree_map(stack, base), base,
+                                       data_k, ecfg)
+    loss_e = float(m_e["loss"])
+    torch.cuda.synchronize()
+    easgd_s = time.perf_counter() - t
+    esize = {t.element_size() for t in tree_leaves(base)}
+    want_e = 2 * n * esize.pop() * W if len(esize) == 1 else None
+    if not (finite([loss_e]) and m_e["comm_bytes"] == want_e):
+        fail(f"dp EASGD: loss {loss_e}, comm_bytes {m_e['comm_bytes']} "
+             f"(closed form {want_e})")
+    # the rows went apart on different batches (bf16 swallows the
+    # smallest updates): reported, so (d)'s survivor checks mean something
+    rows_apart = sum(int((x[0] != x[1]).sum()) for x in tree_leaves(ez_w))
+    out["local_sgd"] = {"K": LOCAL_K, "seq": LOCAL_SEQ, "loss": loss_l,
+                        "comm_bytes": m_l["comm_bytes"], "seconds": local_s}
+    out["easgd"] = {"K": LOCAL_K, "seq": LOCAL_SEQ, "loss": loss_e,
+                    "comm_bytes": m_e["comm_bytes"], "seconds": easgd_s,
+                    "elements_apart": rows_apart}
+    print(f"dp local SGD / EASGD [{card}]: {cfg.param_dtype}, W {W}, "
+          f"K {LOCAL_K} x 1 x "
+          f"{LOCAL_SEQ}: local SGD loss {loss_l:.4f}, rows bit-equal after "
+          f"the average, comm_bytes {m_l['comm_bytes']} (fp32 mean), "
+          f"{local_s:.2f} s; EASGD loss {loss_e:.4f}, comm_bytes "
+          f"{m_e['comm_bytes']}, the rows apart in {rows_apart} of {n} "
+          f"elements, {easgd_s:.2f} s")
+    del base, center, data_k
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) reshard, save and restore on the card -----------------------------
+    t = time.perf_counter()
+    split = {}
+    moved = reshard_stacked(ez_w, [0, 1], [1, 2])
+    mean_row = tree_map(lambda x: DP.worker_mean(x[1:2]).to(x.dtype), ez_w)
+    if not (same_tree_bits(torch, tree_map(lambda x: x[0], moved),
+                           tree_map(lambda x: x[1], ez_w))
+            and same_tree_bits(torch, tree_map(lambda x: x[1], moved),
+                               mean_row)):
+        fail("dp reshard [0, 1] -> [1, 2]: survivor row not bit-equal, or "
+             "the joiner not the fp32 mean cast back")
+    del moved, mean_row
+    torch.cuda.synchronize()
+    split["reshard_s"] = time.perf_counter() - t
+    ck_dir = os.path.join(ROOT, "build", "dp_ckpt")
+    shutil.rmtree(ck_dir, ignore_errors=True)
+    card_dir, host_dir = (os.path.join(ck_dir, d) for d in ("card", "host"))
+    try:
+        t1 = time.perf_counter()
+        save_stacked(card_dir, 1, ez_w, [0, 1], metadata={"arch": ARCH})
+        split["save_from_card_s"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        host_w = tree_map(lambda x: x.cpu(), ez_w)
+        save_stacked(host_dir, 1, host_w, [0, 1], metadata={"arch": ARCH})
+        split["copy_and_save_from_host_s"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        same_files = dir_bytes_equal(card_dir, host_dir)
+        split["compare_s"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        row = tree_map(lambda x: x[0], ez_w)
+        back, _, meta = restore_stacked(card_dir, row, [0, 1, 2])
+        torch.cuda.synchronize()
+        split["restore_s"] = time.perf_counter() - t1
+    finally:
+        t1 = time.perf_counter()
+        shutil.rmtree(ck_dir, ignore_errors=True)
+        split["remove_s"] = time.perf_counter() - t1
+    ok_rows = same_tree_bits(torch, tree_map(lambda x: x[:2], back), ez_w)
+    joiner = tree_map(lambda x: DP.worker_mean(x).to(x.dtype), ez_w)
+    ok_join = same_tree_bits(torch, tree_map(lambda x: x[2], back), joiner)
+    on_card = all(x.is_cuda for x in tree_leaves(back))
+    if not (same_files and ok_rows and ok_join and on_card
+            and meta == {"arch": ARCH, "worker_ids": [0, 1]}):
+        fail(f"dp stacked checkpoint: files equal to the host save "
+             f"{same_files}, survivors bit-equal {ok_rows}, joiner the "
+             f"mean {ok_join}, on the card {on_card}, metadata {meta}")
+    reshard_s = time.perf_counter() - t
+    nbytes = sum(x.numel() * 4 for x in tree_leaves(ez_w))
+    out["reshard"] = {"bytes_stored": nbytes, "seconds": reshard_s,
+                      "split_s": split}
+    print(f"dp reshard [{card}]: stacked {cfg.param_dtype} params [0, 1] "
+          f"-> [1, 2] (survivor bit-equal, joiner the fp32 mean cast "
+          f"back); save_stacked from the card ({nbytes / 1e9:.2f} GB as "
+          f"stored) byte-identical to the save of the same rows on the "
+          f"host; restore_stacked onto [0, 1, 2] on the card, survivors "
+          f"bit-equal, joiner the mean; {reshard_s:.1f} s "
+          f"{json.dumps({k: round(v, 2) for k, v in split.items()})}")
+    del back, joiner, row
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (e) the Coordinator over two worker processes -------------------------
+    trace = FailureTrace([TraceEvent(2, "fail", 1), TraceEvent(4, "join", 5)])
+    with Coordinator(SimTransport(trace), W, heartbeat_timeout=3) as c:
+        for s in range(COORD_STEPS):
+            c.advance(s)
+        sim_log = c.transition_log()
+    t = time.perf_counter()
+    proc = ProcTransport(inject=trace)
+    with Coordinator(proc, W, heartbeat_timeout=3) as c:
+        start_s = time.perf_counter() - t
+        t = time.perf_counter()
+        for s in range(COORD_STEPS):
+            c.advance(s)
+        drive_s = time.perf_counter() - t
+        proc_log = c.transition_log()
+        alive = c.alive()
+        devices = proc.host_devices()
+        placed = c.place_rows(host_w, list(alive))
+        on_card = all(x.is_cuda for x in tree_leaves(placed))
+        ok_place = same_tree_bits(torch, placed, ez_w)
+    if proc_log != sim_log:
+        fail(f"dp coordinator: ProcTransport log {proc_log} != "
+             f"SimTransport's {sim_log}")
+    if not (on_card and ok_place):
+        fail(f"dp coordinator: place_rows on the card {on_card}, values "
+             f"unchanged {ok_place} (host devices {devices})")
+    out["coordinator"] = {"log": proc_log, "alive": list(alive),
+                          "start_s": start_s, "drive_s": drive_s,
+                          "devices": {w: str(d) for w, d in devices.items()}}
+    print(f"dp coordinator [{card}]: ProcTransport, {W} worker processes, "
+          f"trace fail 1 @2, join @4: transition log equal to "
+          f"SimTransport's ({len(proc_log)} transitions, alive "
+          f"{list(alive)}); children started in {start_s:.2f} s, "
+          f"{COORD_STEPS} steps driven in {drive_s:.2f} s; place_rows put "
+          f"the stacked params on {sorted({str(d) for d in devices.values()})}"
+          f", values unchanged")
+    del ez_w, host_w, placed
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"dp [{card}]: phase 7 took {out['seconds']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 4b: speculative decoding, drain and migrate
 # ---------------------------------------------------------------------------
 def near_argmax(torch, MD, cfg, params, reqs, fins):
@@ -2584,6 +2942,7 @@ def main(argv=None) -> int:
     fam_train = family_train_phase(torch, card, ops, NC)
     print(f"train [{card}]: the other families took "
           f"{time.perf_counter() - t_fam:.1f} s")
+    dp = dp_phase(torch, card, ops, tr["ms_per_step"])           # phase 7
 
     # launches by path: each counted from zero over its own main-path run
     by_path = {f"{p['arch']} serve": p["launches"]
@@ -2650,7 +3009,8 @@ def main(argv=None) -> int:
               "family": family, "last": last, "swa": swa,
               "drain": drains, "nc_checks": nc_rows,
               "timing": dict(timing, nc=nc_t),
-              "train": tr, "async_ckpt": ckpt, "train_families": fam_train}
+              "train": tr, "async_ckpt": ckpt, "train_families": fam_train,
+              "dp": dp}
     if args.out:
         os.makedirs(args.out, exist_ok=True)
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as fh:

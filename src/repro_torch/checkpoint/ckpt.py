@@ -36,6 +36,7 @@ _SEP = "__"
 # the leaf types of parameter and optimizer trees, by numpy's names
 _NP_NAMES = {torch.float32: "float32", torch.bfloat16: "bfloat16",
              torch.int32: "int32"}
+_TORCH_DTYPES = {name: dt for dt, name in _NP_NAMES.items()}
 
 
 def _flatten(tree: Pytree, prefix: str = "") -> Dict[str, torch.Tensor]:
@@ -56,6 +57,15 @@ def _unflatten_like(like: Pytree, flat: Dict[str, Any],
     return {k: _unflatten_like(like[k], flat,
                                f"{prefix}{_SEP}{k}" if prefix else str(k))
             for k in sorted(like)}
+
+
+def _load_leaf(step_dir: pathlib.Path, key: str, manifest: Dict,
+               device: "torch.device") -> torch.Tensor:
+    """Load one leaf as saved, cast to the manifest's logical dtype (a
+    bf16 leaf is stored as fp32), on `device`."""
+    arr = np.load(step_dir / f"{key}.npy")
+    dtype = _TORCH_DTYPES[manifest["leaves"][key]["dtype"]]
+    return torch.from_numpy(arr).to(device=device, dtype=dtype)
 
 
 def sweep_tmp(ckpt_dir: str) -> list:
@@ -207,9 +217,13 @@ def commit_staged(tmp: pathlib.Path, final: pathlib.Path,
 
 
 def save_checkpoint(ckpt_dir: str, step: int, tree: Pytree,
-                    metadata: Optional[Dict] = None) -> str:
+                    metadata: Optional[Dict] = None, keep_last: int = 0,
+                    floor: Optional[int] = None) -> str:
     """Write `tree` as step `step`, one leaf at a time (peak host memory
-    about one leaf).  Every save sweeps tmp dirs left by killed runs."""
+    about one leaf).  Every save sweeps tmp dirs left by killed runs.
+    keep_last > 0 enables retention: after the save only the newest
+    `keep_last` checkpoints survive, plus the newest step at or below
+    `floor`, the fleet's rewind floor (`gc_checkpoints`)."""
     tmp, final = stage_dirs(ckpt_dir, step)
     manifest = {"step": step, "metadata": metadata or {}, "leaves": {}}
     for key, arr, dtype in iter_snapshot(tree):  # stream, leaf by leaf
@@ -217,6 +231,8 @@ def save_checkpoint(ckpt_dir: str, step: int, tree: Pytree,
         manifest["leaves"][key] = {"shape": list(arr.shape), "dtype": dtype}
     (tmp / "manifest.json").write_text(json.dumps(manifest, indent=1))
     commit_staged(tmp, final)
+    if keep_last:
+        gc_checkpoints(ckpt_dir, keep_last, floor=floor)
     return str(final)
 
 

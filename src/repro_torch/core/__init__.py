@@ -1,1 +1,2 @@
-"""Distributed-training building blocks; so far natural compression."""
+"""Distributed-training building blocks: natural compression, data
+parallelism, the parameter-server and replay-shard state."""

@@ -43,7 +43,8 @@ def natural_compress(x: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     return out.to(x.dtype)
 
 
-def _uniforms_like(t: torch.Tensor, generator: torch.Generator):
+def uniforms_like(t: torch.Tensor, generator: torch.Generator):
+    """float32 uniforms in [0, 1) of t's shape, on t's device."""
     return torch.rand(t.shape, generator=generator, dtype=torch.float32,
                       device=t.device)
 
@@ -52,7 +53,7 @@ def draw_uniforms(tree: Any, generator: torch.Generator) -> Any:
     """A tree of float32 uniforms in [0, 1) shaped like ``tree``'s leaves
     and on their device (the generator's), drawn leaf by leaf in
     sorted-key order."""
-    return tree_map(lambda t: _uniforms_like(t, generator), tree)
+    return tree_map(lambda t: uniforms_like(t, generator), tree)
 
 
 def wire_roundtrip(grads: Any,
@@ -64,7 +65,7 @@ def wire_roundtrip(grads: Any,
     would give, without holding them all at once."""
     if isinstance(noise, torch.Generator):
         return tree_map(
-            lambda g: ops.nc_roundtrip(g, _uniforms_like(g, noise)), grads)
+            lambda g: ops.nc_roundtrip(g, uniforms_like(g, noise)), grads)
     return tree_map(ops.nc_roundtrip, grads, noise)
 
 

@@ -13,8 +13,9 @@ from typing import Any, Callable, Optional, Union
 import torch
 
 from repro_torch.core.compression import wire_roundtrip
+from repro_torch.core.data_parallel import value_and_grad
 from repro_torch.models import model as MD
-from repro_torch.models.common import torch_dtype, tree_leaves, tree_map
+from repro_torch.models.common import torch_dtype
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim.optimizers import clip_leaf, clip_scale
 
@@ -26,11 +27,7 @@ def loss_and_grads(params, cfg: ModelConfig, batch):
     """(loss, grads) of ``lm_loss``: the port's ``jax.value_and_grad``.
     grads mirror params (a parameter that the loss does not reach gets
     zeros, as in JAX); params themselves are left untouched."""
-    leaves = tree_map(lambda p: p.detach().requires_grad_(True), params)
-    loss = MD.lm_loss(leaves, cfg, batch)
-    grads = iter(torch.autograd.grad(loss, tree_leaves(leaves),
-                                     materialize_grads=True))
-    return loss.detach(), tree_map(lambda _: next(grads), params)
+    return value_and_grad(lambda p, b: MD.lm_loss(p, cfg, b), params, batch)
 
 
 def _leaf_paths(tree, prefix=()):

@@ -834,3 +834,122 @@ def test_compressed_train_step_of_each_family(arch):
         k = ops.nc_roundtrip(g, v)
         p = NC.unpack_reference(NC.pack_reference(g, v), g.dtype)
         assert torch.equal(k.view(torch.int16), p.view(torch.int16))
+
+
+# ---------------------------------------------------------------------------
+# data parallelism, resharding and placement on the card
+# ---------------------------------------------------------------------------
+def _dp_smoke(device):
+    """qwen3 SMOKE (fp32) params, SGD-with-momentum state and a W = 2
+    batch, the same numbers on `device`."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as MD
+    from repro_torch.models.common import tree_map
+    from repro_torch.optim.optimizers import sgd_momentum
+    cfg = get_config("qwen3-0.6b", smoke=True)
+    params = tree_map(lambda t: t.to(device),
+                      MD.init_model(cfg, torch.Generator().manual_seed(0)))
+    r = np.random.RandomState(1)
+    toks = torch.from_numpy(r.randint(0, cfg.vocab_size, size=(2, 1, 33))
+                            .astype(np.int32)).to(device)
+    opt = sgd_momentum(lambda s: 0.1)
+    return (cfg, params, opt, opt.init(params),
+            {"tokens": toks[..., :-1], "labels": toks[..., 1:]})
+
+
+@pytest.mark.parametrize("mode", ["allreduce", "ps"])
+def test_sync_step_on_card_matches_cpu(mode):
+    """sync_step of qwen3 SMOKE on the card against the same call on the
+    CPU (fp32, TF32 off): params within 1e-4, the comm accounts equal.
+    The compressed aggregate of the same stacked gradients and uniforms
+    is bit-identical on the two devices (its arithmetic is exact)."""
+    _cuda()
+    from repro_torch.core import data_parallel as DP
+    from repro_torch.models import model as MD
+    from repro_torch.models.common import tree_leaves, tree_map
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        out = {}
+        for dev in ("cpu", "cuda"):
+            cfg, p, opt, st, b = _dp_smoke(dev)
+            loss = lambda q, x: MD.lm_loss(q, cfg, x)
+            out[dev] = DP.sync_step(loss, p, opt, st, b, mode=mode)
+            if dev == "cpu":
+                _, grads_w = DP.per_worker_grads(loss, p, b)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    (pc, sc, mc), (pg, sg, mg) = out["cpu"], out["cuda"]
+    assert {k: v for k, v in mg.items() if k != "loss"} == \
+        {k: v for k, v in mc.items() if k != "loss"}
+    np.testing.assert_allclose(float(mg["loss"]), float(mc["loss"]),
+                               rtol=1e-5)
+    for a, c in zip(tree_leaves(pg), tree_leaves(pc)):
+        assert a.is_cuda
+        np.testing.assert_allclose(a.cpu().numpy(), c.numpy(), rtol=1e-4,
+                                   atol=1e-6)
+    gen = torch.Generator().manual_seed(3)
+    u = tree_map(lambda g: torch.rand(g.shape, generator=gen), grads_w)
+    ac, cc = DP.aggregate(grads_w, mode, noise=u)
+    ag, cg = DP.aggregate(tree_map(lambda t: t.cuda(), grads_w), mode,
+                          noise=tree_map(lambda t: t.cuda(), u))
+    assert cg == cc
+    for a, c in zip(tree_leaves(ag), tree_leaves(ac)):
+        assert a.is_cuda and torch.equal(a.cpu(), c)
+
+
+def test_reshard_and_save_stacked_of_cuda_tensors(tmp_path):
+    """Rows of bf16, fp32 and int32 leaves on the card: survivors carried
+    bit for bit, the joiner the fp32 mean cast back; the stacked save of
+    the card's tensors is byte-identical to the save of their CPU copies,
+    and the restore lands on the card."""
+    _cuda()
+    import filecmp
+    from repro_torch.elastic import (reshard_stacked, restore_stacked,
+                                     save_stacked)
+    from repro_torch.models.common import tree_leaves, tree_map
+    g = torch.Generator(device="cuda").manual_seed(0)
+    tree = {"w": torch.randn(3, 65, 33, generator=g, device="cuda")
+            .bfloat16(),
+            "b": torch.randn(3, 7, generator=g, device="cuda"),
+            "step": torch.arange(3, dtype=torch.int32, device="cuda")}
+    out = reshard_stacked(tree, [4, 5, 6], [6, 4, 9])
+    for k, v in tree.items():
+        assert torch.equal(out[k][0], v[2]) and torch.equal(out[k][1], v[0])
+    assert torch.equal(out["w"][2], tree["w"][[2, 0]].float().mean(0)
+                       .bfloat16())
+    save_stacked(str(tmp_path / "card"), 3, tree, [4, 5, 6])
+    save_stacked(str(tmp_path / "host"), 3, tree_map(lambda t: t.cpu(), tree),
+                 [4, 5, 6])
+    names = sorted(p.name for p in (tmp_path / "card" / "step_00000003")
+                   .iterdir())
+    assert len(names) == 4
+    assert all(filecmp.cmp(tmp_path / "card" / "step_00000003" / n,
+                           tmp_path / "host" / "step_00000003" / n,
+                           shallow=False) for n in names)
+    row = tree_map(lambda t: t[0], tree)
+    back, _, meta = restore_stacked(str(tmp_path / "card"), row, [5, 6, 7])
+    assert meta["worker_ids"] == [4, 5, 6]
+    for k, v in tree.items():
+        assert back[k].is_cuda and back[k].dtype == v.dtype
+        assert torch.equal(back[k][:2], v[1:])
+    assert all(t.is_cuda for t in tree_leaves(back))
+
+
+def test_place_rows_onto_the_card():
+    """The coordinator moves a stacked host tree onto the card its
+    transport maps the hosts to, values unchanged; a transport without a
+    map leaves it where it is."""
+    _cuda()
+    from repro_torch.cluster import Coordinator, SimTransport
+
+    class OnCard(SimTransport):
+        def host_devices(self):
+            return {0: torch.device("cuda", 0), 1: torch.device("cuda", 0)}
+
+    tree = {"w": torch.arange(12.0).reshape(2, 6),
+            "b": torch.ones(2, 3, dtype=torch.bfloat16)}
+    placed = Coordinator(OnCard(), 2).place_rows(tree, [0, 1])
+    for k, v in tree.items():
+        assert placed[k].is_cuda and torch.equal(placed[k].cpu(), v)
+    assert Coordinator(SimTransport(), 2).place_rows(tree, [0, 1]) is tree

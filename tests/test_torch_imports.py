@@ -7,6 +7,7 @@ import pathlib
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_threads import one_thread  # noqa: E402,F401
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "repro")
@@ -45,6 +46,127 @@ def test_import_guard_sees_forbidden_imports(tmp_path):
                    "from repro_torch import bridge\n")
     found = [m.split(".")[0] for m in _imported_modules(src)]
     assert [m for m in found if m in FORBIDDEN] == ["jax", "repro", "jaxlib"]
+
+
+# the modules a proc-transport worker child loads (its entry point, the
+# role registry, the server roles' state, the trace types and obs): they
+# must load without torch, or every child would pay its import
+CHILD_MODULES = ("repro_torch.cluster.proc", "repro_torch.cluster.roles",
+                 "repro_torch.cluster.transport",
+                 "repro_torch.elastic.membership",
+                 "repro_torch.core.param_server",
+                 "repro_torch.core.replay_shard", "repro_torch.obs")
+
+
+def _module_path(name):
+    base = ROOT / "src" / pathlib.Path(*name.split("."))
+    return base / "__init__.py" if base.is_dir() else base.with_suffix(".py")
+
+
+def _import_time_modules(path):
+    """Modules imported when `path` is imported: its import statements
+    outside function bodies (a function's imports run when it is called)
+    and outside `if TYPE_CHECKING:` blocks."""
+    def walk(node):
+        for child in ast.iter_child_nodes(node):
+            if isinstance(child, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                continue
+            if (isinstance(child, ast.If)
+                    and getattr(child.test, "id", "") == "TYPE_CHECKING"):
+                child = ast.Module(body=child.orelse, type_ignores=[])
+            if isinstance(child, ast.Import):
+                yield from (a.name for a in child.names)
+            elif isinstance(child, ast.ImportFrom) and child.level == 0:
+                yield child.module
+                yield from (f"{child.module}.{a.name}" for a in child.names)
+            else:
+                yield from walk(child)
+    return set(walk(ast.parse(path.read_text(), filename=str(path))))
+
+
+def _loaded_by(name):
+    """Every module importing `name` loads, following the port's own
+    modules (and their packages' __init__) through the ast."""
+    seen, todo, out = set(), [name], set()
+    while todo:
+        mod = todo.pop()
+        parts = mod.split(".")
+        for i in range(1, len(parts) + 1):
+            sub = ".".join(parts[:i])
+            out.add(sub)
+            if sub.startswith("repro_torch") and sub not in seen \
+                    and _module_path(sub).exists():
+                seen.add(sub)
+                todo.extend(_import_time_modules(_module_path(sub)))
+    return out
+
+
+@pytest.mark.parametrize("name", CHILD_MODULES)
+def test_child_modules_import_no_torch(name):
+    """No torch (nor jax); numpy only for the two server-role states, the
+    rest is stdlib only, as in the JAX package."""
+    top = {m.split(".")[0] for m in _loaded_by(name)}
+    forbidden = {"torch", "jax", "jaxlib", "repro"}
+    if not name.startswith("repro_torch.core"):
+        forbidden.add("numpy")
+    assert not top & forbidden, top & forbidden
+
+
+def test_child_module_walk_sees_torch():
+    """The walk follows the port's imports: the coordinator reaches torch
+    (through the straggler's batch split), a function-local import does
+    not count."""
+    assert "torch" in _loaded_by("repro_torch.cluster.coordinator")
+    assert "torch" not in _loaded_by("repro_torch.cluster.proc")
+
+
+_PROBE_ROLE = """\
+import sys
+from repro_torch.cluster import roles
+
+def _probe(state, cmd):
+    for name in cmd["load"]:
+        __import__(name)
+    return {"modules": sorted(m for m in ("torch", "jax", "repro", "numpy")
+                              if m in sys.modules)}
+
+roles.register(roles.RoleSpec("probe", open_verb="probe_open",
+                              make=lambda cmd: {},
+                              verbs={"probe_modules": _probe}))
+"""
+
+
+def test_proc_child_runs_without_torch(tmp_path, monkeypatch):
+    """A worker child that the port's ProcTransport starts, after it has
+    loaded every child module and opened the ps, replay and learner
+    roles, holds no torch (nor jax) in sys.modules."""
+    import os
+    from repro_torch.cluster import ProcTransport
+    (tmp_path / "torch_probe_role.py").write_text(_PROBE_ROLE)
+    monkeypatch.setenv("PYTHONPATH", str(tmp_path) + os.pathsep
+                       + os.environ.get("PYTHONPATH", ""))
+    exec(_PROBE_ROLE.replace("roles.register", "roles.lookup('probe_modules') "
+                             "or roles.register"), {})
+    with ProcTransport(role_modules=["torch_probe_role"],
+                       device="cpu") as proc:
+        proc.start(1)
+        proc.role_open(0, "probe")
+        first = proc.role_call(0, "probe_modules", {"load": []})
+        assert first["modules"] == []
+        proc.ps_open(0, lr=0.1, entries={"w": [1.0, 2.0]})
+        proc.role_open(0, "replay", capacity=4)
+        proc.role_open(0, "learner")
+        reply = proc.role_call(0, "probe_modules",
+                               {"load": list(CHILD_MODULES)})
+        assert reply["modules"] == ["numpy"]
+
+
+def test_proc_transport_refuses_without_cuda(monkeypatch):
+    from repro_torch.cluster import ProcTransport
+    _no_cuda(monkeypatch)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ProcTransport()
+    assert ProcTransport(device="cpu").device.type == "cpu"
 
 
 def _no_cuda(monkeypatch):

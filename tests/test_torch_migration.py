@@ -8,6 +8,7 @@ and zamba2-1.2b SMOKE, fp32, the same weights in both packages."""
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_threads import one_thread  # noqa: E402,F401
 
 import numpy as np  # noqa: E402
 

@@ -5,6 +5,7 @@ the qwen3-0.6b SMOKE config in fp32, with the same weights."""
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_threads import one_thread  # noqa: E402,F401
 
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402

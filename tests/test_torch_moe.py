@@ -7,6 +7,7 @@ lookup draft and of the serve launcher -- each against the JAX package's."""
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_threads import one_thread  # noqa: E402,F401
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402

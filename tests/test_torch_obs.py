@@ -23,6 +23,7 @@ import sys
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_threads import one_thread  # noqa: E402,F401
 
 import numpy as np  # noqa: E402
 
@@ -49,17 +50,6 @@ ARCH = "qwen3-0.6b"
 KW = dict(num_slots=2, cache_len=24, page_size=4)
 TIGHT = 6
 _CACHE = {}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """SMOKE shapes gain nothing from intra-op threads, and in a run of
-    the suite over several processes those threads oversubscribe the
-    cores (each process would start one a core)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _events(mod):
@@ -183,9 +173,13 @@ def test_recorder_registry_and_bench_report_equal_jax(tmp_path):
         null = mod.NullRecorder()
         assert null.span("a") is null.span("b", host=1) and not null.enabled
         report = {"workers": 4, "modes": {"sync": {"goodput": 8.0}}}
-        path = mod.bench_report("unit", report, tmp_path / name)
+        # a bench name of this test's own: the registry is process-global,
+        # and tests/test_obs.py fills `bench.unit` in the JAX package's
+        # when an earlier file in the same process
+        path = mod.bench_report("torch_obs_parity", report, tmp_path / name)
         out[name] = ([e.as_dict() for e in rec.events], rec.metrics(),
-                     path.read_bytes(), mod.registry_view("bench.unit"))
+                     path.read_bytes(),
+                     mod.registry_view("bench.torch_obs_parity"))
         assert json.loads(path.read_text()) == report
     assert out["t"] == out["j"]
     assert out["t"][1] == {"n": 3.0, "g": 0.5, "h": 7}

@@ -8,6 +8,7 @@ fault, not a tie."""
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_threads import one_thread  # noqa: E402,F401
 
 import numpy as np  # noqa: E402
 

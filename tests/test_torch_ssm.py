@@ -6,6 +6,7 @@ zamba2-1.2b SMOKE widths in fp32 with the same weights."""
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_threads import one_thread  # noqa: E402,F401
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402

@@ -26,6 +26,7 @@ import json
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_threads import one_thread  # noqa: E402,F401
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -54,17 +55,6 @@ ARCHS = {"zamba2-1.2b": dict(num_layers=2),
          "qwen3-moe-30b-a3b": {}}
 B, S = 2, 32           # S a whole number of zamba2's 32-token SSD chunks
 PEAK_LR = 3e-3
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """SMOKE shapes gain nothing from intra-op threads, and in a run of
-    the suite over several processes those threads oversubscribe the
-    cores (each process would start one a core)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _configs(arch):
