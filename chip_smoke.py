@@ -142,7 +142,41 @@ Phases (each raises on failure, and then no result is printed):
      and one step's compressed gradients through the kernels and the
      plain versions bit-identical, leaf by leaf, and their global norms
      equal; the raw gradients' non-finite elements are counted (phi-3's
-     zero-patch prefix overflows at depth: ROADMAP queue 3).
+     zero-patch prefix overflows at depth: ROADMAP queue 3); then
+     phi-3-vision-4.2b once more on patches drawn from a seed, fed through
+     the batch's `extra_embeds` (fresh weights, 4 AdamW steps on one
+     batch): every gradient norm finite, the loss falling;
+  7. qwen3-0.6b through `core/data_parallel` (S-SGD, local SGD, EASGD),
+     the reshard and stacked save of its params on the card, and the
+     Coordinator over ProcTransport worker processes;
+  8. elastic training of qwen3-0.6b at full width through
+     `repro_torch.launch.train --elastic`: sync over 4 workers (batch 4 x
+     2048, compressed gradients, a save every 4 steps, 2 kept) with worker
+     1 killed at wall 6: step 4 restored (2 steps lost), the restored
+     params and moments bit-equal to the save read back, final_alive
+     (0, 2, 3), 10 finite losses, nc_pack / nc_unpack launched exactly 14
+     leaves x the 12 steps run and nothing else, one step's compressed
+     gradients bit-identical to the plain path's (ms a step, the save
+     pauses, the restore time); local_sgd and async_ps over 2 workers of
+     1024 tokens with a death at wall 2: no step lost, final_alive (0,),
+     finite losses (peak memory); `run_elastic` on the card against the
+     CPU in all five modes (transitions, recoveries, sim_time, goodput
+     equal, losses within 1e-5) and a sync run over ProcTransport equal to
+     its SimTransport run; the checkpoints deleted after;
+  9. the serving fleet: `repro_torch.launch.serve --replicas 3 --paged`
+     with qwen3-0.6b at full width (one param set, one ServeProgram) on
+     phase 4's request shapes, failure-free, then with replica 1 killed
+     mid-stream at a wall tick where each of its requests has emitted:
+     every request finished once with its full budget, one drain, every
+     in-flight request re-admitted by KV migration (migrated_admits ==
+     readmitted), each install read back bit-equal, no preemption,
+     flash / paged launches one a layer an admit / a decode tick summed
+     over the fleet's engines (the dead one's included), the stitched
+     streams equal to the failure-free run's (or, past a bf16 near-tie,
+     the share reported and the comparison gated in fp32 at 4 layers);
+     then `--hedged` with replica 2 hung: at least one hedge, each request
+     delivered once, every hedge resolved (fleet tokens/s, wall ticks,
+     peak memory).
 
 The serve runs of phase 4 are timed warm: one short batch goes through
 the same engine first (cuBLAS handles, allocator growth, first launches).
@@ -246,6 +280,33 @@ DP_W, DP_SEQ, DP_TIMED = 2, 4096, 3
 EQ_SEQ, EQ_LR, EQ_TOL = 512, 0.1, 1e-4
 LOCAL_K, LOCAL_SEQ, LOCAL_LR = 2, 1024, 1e-2
 COORD_STEPS = 6
+# phase 6's phi-3-vision-4.2b run on patches drawn from a seed (ROADMAP
+# queue 3's decision): PATCH_STEPS AdamW steps at peak PATCH_LR on one
+# batch, its patches from seed PATCH_SEED on the card
+PATCH_STEPS, PATCH_LR, PATCH_SEED = 4, 1e-3, 1234
+# phase 8: elastic training of qwen3-0.6b at full width through the
+# launcher.  (a) sync: EL_W workers sharing a global batch of EL_BATCH x
+# EL_SEQ, compressed gradients, a save every EL_CKPT_EVERY steps, EL_KEEP
+# kept, worker 1 killed at wall EL_FAIL_AT; (b, c) local_sgd and async_ps
+# on EL_LOCAL_W workers of EL_LOCAL_SEQ, worker 1 killed at EL_LOCAL_FAIL;
+# (d) run_elastic on the card against the CPU in all five modes, on
+# tests/test_elastic.py's single-failure trace (EL_SIM_FAIL of
+# EL_SIM_STEPS)
+EL_W, EL_BATCH, EL_SEQ, EL_STEPS = 4, 4, 2048, 10
+EL_CKPT_EVERY, EL_KEEP, EL_FAIL_AT = 4, 2, 6
+EL_LOCAL_W, EL_LOCAL_BATCH, EL_LOCAL_SEQ = 2, 8, 1024
+EL_LOCAL_STEPS, EL_LOCAL_FAIL = 4, 2
+EL_SIM_STEPS, EL_SIM_FAIL = 60, 23
+ELASTIC_MODES = ("sync", "local_sgd", "easgd", "async_ps", "ssp")
+# phase 9: FLEET_REPLICAS replicas of qwen3-0.6b at full width on phase
+# 4's request shapes; replica FLEET_VICTIM killed at the first wall tick
+# from FLEET_MIN_WALL on at which every request on it has emitted and
+# none waits in its queue (so each re-admits by KV migration); the
+# hedged run hangs replica FLEET_HUNG.  If a bf16 near-tie parts the
+# killed run's streams from the failure-free run's, the same comparison
+# is gated in fp32 with the depth cut to FLEET_FP32_LAYERS
+FLEET_REPLICAS, FLEET_VICTIM, FLEET_HUNG, FLEET_MIN_WALL = 3, 1, 2, 10
+FLEET_FP32_LAYERS = 4
 # the nc wire format: code 1..127 <=> |value| 2^-69 .. 2^57
 NC_LO, NC_HI = 2.0 ** -69, 2.0 ** 57
 
@@ -1862,6 +1923,8 @@ def family_train_phase(torch, card, ops, NC):
         del params, grads
         gc.collect()
         torch.cuda.empty_cache()
+        patches = (seeded_patch_train(torch, card, cfg, B, S)
+                   if cfg.arch_type == "vlm" else None)
         prefix = f" plus {cfg.num_patches} patches" if cfg.arch_type == \
             "vlm" else ""
         r = {"arch": arch, "params": total, "batch": B, "seq": S,
@@ -1870,6 +1933,7 @@ def family_train_phase(torch, card, ops, NC):
              "tok_s": B * S / (ms / 1e3), "peak_mem_gb": peak / 1e9,
              "launches": launches, "n_leaves": n_leaves,
              "grad_elements": n, "grad_nonfinite": nonfinite,
+             "seeded_patches": patches,
              "seconds": time.perf_counter() - t_model}
         out.append(r)
         print(f"train [{card}]: {arch} {total / 1e9:.2f}B params bf16, "
@@ -1882,6 +1946,56 @@ def family_train_phase(torch, card, ops, NC):
               f"compression on {n_leaves} leaves ({n} elements, {nonfinite} "
               f"not finite before it): gradients bit-identical, global "
               f"norms equal; {r['seconds']:.1f} s")
+    return out
+
+
+def seeded_patch_train(torch, card, cfg, B, S):
+    """ROADMAP queue 3's decision on the vlm stub's zero patches: the
+    launchers keep them (the JAX launcher's), and this run feeds
+    phi-3-vision-4.2b patches drawn from seed PATCH_SEED on the card
+    through the batch's `extra_embeds`, as a caller of the train step
+    may.  Fresh weights (seed 0), PATCH_STEPS steps of the launcher's
+    step (AdamW, warmup 1 to PATCH_LR, compressed gradients, in place) on
+    one batch of B x S tokens: every gradient norm finite, the loss
+    falls."""
+    import gc
+    from repro_torch.data import make_pipeline
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import model as MD
+    from repro_torch.models.common import torch_dtype
+    from repro_torch.optim.optimizers import adamw, warmup_cosine
+    t = time.perf_counter()
+    params = MD.init_model(cfg, torch.Generator(device="cuda").manual_seed(0))
+    opt = adamw(warmup_cosine(PATCH_LR, 1, PATCH_STEPS))
+    state = opt.init(params)
+    step = make_train_step(cfg, opt, compress_grads=True)
+    b = {k: torch.from_numpy(v).cuda() for k, v in
+         next(iter(make_pipeline(cfg.vocab_size, B, S, seed=0))).items()}
+    g = torch.Generator(device="cuda").manual_seed(PATCH_SEED)
+    b["extra_embeds"] = torch.randn(
+        (B, cfg.num_patches, MD.VISION_EMBED_DIM), generator=g,
+        device="cuda").to(torch_dtype(cfg.compute_dtype))
+    losses, gnorms = [], []
+    for i in range(PATCH_STEPS):
+        params, state, m = step(params, state, b, torch.Generator(
+            device="cuda").manual_seed(PATCH_SEED + 1 + i))
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["gnorm"]))
+    del params, state, b
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not (finite(gnorms) and finite(losses)
+            and losses[-1] < losses[0]):
+        fail(f"{cfg.name} on seeded patches: losses {losses}, gradient "
+             f"norms {gnorms}")
+    out = {"steps": PATCH_STEPS, "lr": PATCH_LR, "losses": losses,
+           "gnorms": gnorms, "seconds": time.perf_counter() - t}
+    print(f"train [{card}]: {cfg.name} on patches drawn from seed "
+          f"{PATCH_SEED} (ROADMAP queue 3), {PATCH_STEPS} steps on one "
+          f"batch of {B} x {S}: gradient norms "
+          f"{[round(x, 4) for x in gnorms]} (finite), losses "
+          f"{[round(x, 4) for x in losses]} (falling); "
+          f"{out['seconds']:.1f} s")
     return out
 
 
@@ -2780,6 +2894,494 @@ def swa_phase(torch, card, ops, MD):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 8: elastic training
+# ---------------------------------------------------------------------------
+def equals_saved(torch, ckpt_dir, step, tree):
+    """Every leaf of `tree` bit-equal to checkpoint `step` read back from
+    `ckpt_dir`, a leaf at a time (bf16 leaves are stored as float32)."""
+    import numpy as np
+    from repro_torch.checkpoint.ckpt import _flatten
+    d = os.path.join(ckpt_dir, f"step_{step:08d}")
+    for key, t in _flatten(tree).items():
+        saved = torch.from_numpy(np.load(os.path.join(d, f"{key}.npy")))
+        if saved.shape != t.shape or not torch.equal(
+                bits(torch, saved.to(t.dtype)), bits(torch, t.cpu())):
+            return False
+    return True
+
+
+def elastic_phase(torch, card, ops, NC):
+    """Phase 8: qwen3-0.6b at full width (bf16, block remat, AdamW)
+    trained by `repro_torch.launch.train.train([... "--elastic" ...])`.
+    (a) sync over EL_W workers with compressed gradients and asynchronous
+    saves, worker 1 killed at wall EL_FAIL_AT: the restore of step 4 (2
+    steps lost) bit-equal to the save read back from disk, final_alive
+    (0, 2, 3), EL_STEPS finite losses, nc_pack / nc_unpack launched one a
+    gradient leaf a step actually run (the redone ones included) and no
+    other kernel, then one step's compressed gradients through the kernels
+    and the plain versions bit-identical; (b, c) local_sgd and async_ps,
+    worker 1 killed at wall EL_LOCAL_FAIL: no step lost, final_alive (0,),
+    finite losses, no kernel launched; (d) run_elastic on the card against
+    the CPU in every mode (transitions, recoveries, simulated time and
+    goodput equal, losses at rtol 1e-5 / atol 1e-8), and a sync run over
+    ProcTransport worker processes equal to its SimTransport run.  The
+    checkpoints are deleted at the end."""
+    import gc
+    import shutil
+    from repro_torch import obs
+    from repro_torch.cluster import ProcTransport
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_pipeline
+    from repro_torch.elastic import (ElasticProblem, FailureTrace,
+                                     run_elastic)
+    from repro_torch.elastic import recovery as RC
+    from repro_torch.launch.steps import loss_and_grads
+    from repro_torch.launch.train import train
+    from repro_torch.models import model as MD
+    from repro_torch.models.common import tree_leaves
+    t_phase = time.perf_counter()
+    cfg = get_config(ARCH)
+    n_leaves = len(tree_leaves(MD.model_descs(cfg)))
+    base = os.path.join(ROOT, "build", "elastic_smoke")
+    shutil.rmtree(base, ignore_errors=True)
+    os.makedirs(base)
+    out = {}
+    names = ("nc_pack", "nc_unpack", "flash_attention", "paged_attention",
+             "ssd_scan")
+
+    def trace_file(name, step):
+        path = os.path.join(base, name)
+        with open(path, "w") as fh:
+            json.dump([{"step": step, "kind": "fail", "worker": 1}], fh)
+        return path
+
+    def launcher(argv):
+        """One launcher run from zeroed counters and peak, recorded."""
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        rec = obs.Recorder()
+        t = time.perf_counter()
+        with obs.recording(rec):
+            res = train(argv + ["--log-every", "1000"])
+        torch.cuda.synchronize()
+        return (res, rec, time.perf_counter() - t,
+                {n: getattr(ops, n).launches for n in names},
+                torch.cuda.max_memory_allocated() / 1e9)
+
+    try:
+        # (a) sync: checkpoint, kill, restore, rewind ---------------------
+        ckpt_dir = os.path.join(base, "ckpt")
+        real_recover = RC.SyncCheckpointRestore.recover
+        restored = {}
+
+        def checked_recover(self, params, opt_state):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            p, o, step = real_recover(self, params, opt_state)
+            torch.cuda.synchronize()
+            restored.update(step=step, seconds=time.perf_counter() - t,
+                            equal=equals_saved(torch, self.ckpt_dir, step,
+                                               {"params": p}))
+            return p, o, step
+
+        RC.SyncCheckpointRestore.recover = checked_recover
+        try:
+            res, rec, wall, launches, peak = launcher([
+                "--elastic", "--mode", "sync", "--workers", str(EL_W),
+                "--batch", str(EL_BATCH), "--seq", str(EL_SEQ),
+                "--steps", str(EL_STEPS), "--compress-grads",
+                "--ckpt-dir", ckpt_dir, "--ckpt-every", str(EL_CKPT_EVERY),
+                "--keep-last", str(EL_KEEP),
+                "--failure-trace", trace_file("sync.json", EL_FAIL_AT)])
+        finally:
+            RC.SyncCheckpointRestore.recover = real_recover
+        recs = [(r.wall_step, r.worker, r.cause, r.lost_steps)
+                for r in res["recoveries"]]
+        lost = EL_FAIL_AT - (EL_FAIL_AT // EL_CKPT_EVERY) * EL_CKPT_EVERY
+        if recs != [(EL_FAIL_AT, 1, "fail", lost)] or \
+                restored.get("step") != EL_FAIL_AT - lost:
+            fail(f"elastic sync: recoveries {recs}, restored step "
+                 f"{restored.get('step')}")
+        if tuple(res["final_alive"]) != (0, 2, 3):
+            fail(f"elastic sync: final_alive {res['final_alive']}")
+        losses = res["losses"]
+        if len(losses) != EL_STEPS or not finite(losses):
+            fail(f"elastic sync: losses {losses}")
+        if not restored["equal"]:
+            fail("elastic sync: the params just after the restore differ "
+                 "from the save read back")
+        spans = {}
+        for e in rec.events:
+            spans.setdefault(e.name, []).append(1e3 * e.dur)
+        run = len(spans.get("lm.step", ()))
+        want = n_leaves * run
+        if run != EL_STEPS + lost or launches["nc_pack"] != want or \
+                launches["nc_unpack"] != want or any(
+                    launches[n] for n in names[2:]):
+            fail(f"elastic sync: {run} steps run, launches {launches}, "
+                 f"want {want} nc_pack and nc_unpack ({n_leaves} leaves "
+                 f"x {run} steps) and nothing else")
+        step_ms = spans["lm.step"]
+        b = {k: torch.from_numpy(v).cuda() for k, v in next(iter(
+            make_pipeline(cfg.vocab_size, EL_BATCH, EL_SEQ, seed=1))).items()}
+        _, grads = loss_and_grads(res["params"], cfg, b)
+        n, nonfinite = leafwise_roundtrip_check(torch, ops, NC, grads,
+                                                seed=EL_STEPS + 1)
+        final_alive = tuple(res["final_alive"])
+        del res, grads, b
+        timed = sorted(step_ms[1:])
+        out["sync"] = {
+            "recoveries": recs, "restored_step": restored["step"],
+            "restore_s": restored["seconds"], "losses": losses,
+            "steps_run": run, "launches": launches, "step_ms": step_ms,
+            "ms_per_step": sum(timed) / len(timed),
+            "save_pause_ms": spans.get("ckpt.snapshot", []),
+            "recovery_span_ms": spans.get("recovery", []),
+            "peak_mem_gb": peak, "wall_s": wall, "grad_elements": n,
+            "grad_nonfinite": nonfinite}
+        print(f"elastic sync [{card}]: {ARCH} bf16, {EL_W} workers x "
+              f"{EL_BATCH // EL_W} x seq {EL_SEQ}, compressed gradients, a "
+              f"save every {EL_CKPT_EVERY} steps (keep {EL_KEEP}), worker 1 "
+              f"killed at wall {EL_FAIL_AT}: restored step "
+              f"{restored['step']} in {restored['seconds']:.2f} s (bit-equal "
+              f"to the save read back), {lost} steps lost, final_alive "
+              f"{final_alive}, {run} steps run at "
+              f"{out['sync']['ms_per_step']:.1f} ms/step (median "
+              f"{timed[len(timed) // 2]:.1f}, max {timed[-1]:.1f}), save "
+              f"pauses (ckpt.snapshot) "
+              f"{[round(x, 1) for x in out['sync']['save_pause_ms']]} ms, "
+              f"peak memory {peak:.2f} GB, launches {launches}, losses "
+              f"{[round(x, 4) for x in losses]}; one step's compressed "
+              f"gradients, kernels vs plain: bit-identical; {wall:.1f} s")
+
+        # (b, c) local_sgd and async_ps: a death costs no step -------------
+        for mode in ("local_sgd", "async_ps"):
+            res, rec, wall, launches, peak = launcher([
+                "--elastic", "--mode", mode, "--workers", str(EL_LOCAL_W),
+                "--batch", str(EL_LOCAL_BATCH), "--seq", str(EL_LOCAL_SEQ),
+                "--steps", str(EL_LOCAL_STEPS),
+                "--failure-trace", trace_file(f"{mode}.json",
+                                              EL_LOCAL_FAIL)])
+            losses = res["losses"]
+            lost = [r.lost_steps for r in res["recoveries"]]
+            if lost != [0] or tuple(res["final_alive"]) != (0,):
+                fail(f"elastic {mode}: lost steps {lost}, final_alive "
+                     f"{res['final_alive']}")
+            if len(losses) != EL_LOCAL_STEPS or not finite(losses):
+                fail(f"elastic {mode}: losses {losses}")
+            if any(launches.values()):
+                fail(f"elastic {mode}: a kernel launched: {launches}")
+            del res
+            spans = {}
+            for e in rec.events:
+                if e.ph == "X":
+                    spans[e.name] = spans.get(e.name, 0.0) + e.dur
+            out[mode] = {"losses": losses, "lost_steps": lost,
+                         "peak_mem_gb": peak, "wall_s": wall,
+                         "span_s": spans}
+            print(f"elastic {mode} [{card}]: {ARCH} bf16, {EL_LOCAL_W} "
+                  f"workers, batch {EL_LOCAL_BATCH} x seq {EL_LOCAL_SEQ}, "
+                  f"{EL_LOCAL_STEPS} steps, worker 1 killed at wall "
+                  f"{EL_LOCAL_FAIL}: lost steps {lost}, final_alive (0,), "
+                  f"losses {[round(x, 4) for x in losses]}, peak memory "
+                  f"{peak:.2f} GB, {wall:.1f} s (spans, s: "
+                  f"{json.dumps({k: round(v, 2) for k, v in spans.items()})})")
+
+        # (d) run_elastic on the card against the CPU -----------------------
+        sim = {}
+        for mode in ELASTIC_MODES:
+            runs, secs = {}, {}
+            for dev in ("cpu", "cuda"):
+                t = time.perf_counter()
+                runs[dev] = run_elastic(
+                    ElasticProblem(device=dev), mode=mode,
+                    steps=EL_SIM_STEPS,
+                    trace=FailureTrace.single_failure(EL_SIM_FAIL, 1),
+                    ckpt_dir=os.path.join(base, f"{mode}_{dev}"))
+                secs[dev] = time.perf_counter() - t
+            c, g = runs["cpu"], runs["cuda"]
+            same = ([x.as_tuple() for x in g.transitions]
+                    == [x.as_tuple() for x in c.transitions]
+                    and [(r.wall_step, r.worker, r.cause, r.lost_steps,
+                          r.latency) for r in g.recoveries]
+                    == [(r.wall_step, r.worker, r.cause, r.lost_steps,
+                         r.latency) for r in c.recoveries]
+                    and (g.sim_time, g.goodput, g.samples, g.final_alive)
+                    == (c.sim_time, c.goodput, c.samples, c.final_alive))
+            err = max(abs(a - b) / max(abs(b), 1e-3)
+                      for a, b in zip(g.losses, c.losses))
+            close = len(g.losses) == len(c.losses) and all(
+                abs(a - b) <= 1e-8 + 1e-5 * abs(b)
+                for a, b in zip(g.losses, c.losses))
+            if not (same and close):
+                fail(f"run_elastic {mode}: the card's run differs from the "
+                     f"CPU's (clock equal {same}, losses close {close})")
+            sim[mode] = {"sim_time": g.sim_time, "goodput": g.goodput,
+                         "lost": [r.lost_steps for r in g.recoveries],
+                         "loss_err": err, "cuda_s": secs["cuda"],
+                         "cpu_s": secs["cpu"], "final_loss": g.final_loss}
+        t = time.perf_counter()
+        proc = run_elastic(
+            ElasticProblem(device="cuda"), mode="sync", steps=EL_SIM_STEPS,
+            transport=ProcTransport(
+                inject=FailureTrace.single_failure(EL_SIM_FAIL, 1),
+                device="cuda"),
+            ckpt_dir=os.path.join(base, "sync_proc"))
+        proc_s = time.perf_counter() - t
+        ref = run_elastic(ElasticProblem(device="cuda"), mode="sync",
+                          steps=EL_SIM_STEPS,
+                          trace=FailureTrace.single_failure(EL_SIM_FAIL, 1),
+                          ckpt_dir=os.path.join(base, "sync_sim"))
+        if ([x.as_tuple() for x in proc.transitions]
+                != [x.as_tuple() for x in ref.transitions]
+                or proc.losses != ref.losses
+                or proc.final_loss != ref.final_loss
+                or proc.sim_time != ref.sim_time):
+            fail("run_elastic sync over ProcTransport differs from its "
+                 "SimTransport run")
+        sim["sync_proc_s"] = proc_s
+        out["run_elastic"] = sim
+        print(f"elastic run_elastic [{card}]: least squares, "
+              f"{EL_SIM_STEPS} steps, worker 1 killed at {EL_SIM_FAIL}, "
+              f"card vs CPU: transitions, recoveries, sim_time and goodput "
+              f"equal, losses within 1e-5 in every mode "
+              f"({json.dumps({m: {k: round(v, 6) if isinstance(v, float) else v for k, v in r.items()} for m, r in sim.items() if m in ELASTIC_MODES})}); "
+              f"sync over ProcTransport equal to SimTransport ("
+              f"{proc_s:.2f} s)")
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"elastic [{card}]: phase 8 took {out['seconds']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the serving fleet
+# ---------------------------------------------------------------------------
+def fleet_phase(torch, card, ops, MD):
+    """Phase 9: FLEET_REPLICAS replicas of qwen3-0.6b at full width (bf16,
+    one param set, one ServeProgram) served by
+    `repro_torch.launch.serve.serve([... "--replicas" ...])` on phase 4's
+    request shapes through the paged engine.  A failure-free run, then the
+    same stream with replica FLEET_VICTIM killed mid-stream: every request
+    finished once with its full budget, one drain, each of the victim's
+    requests re-admitted by KV migration (migrated_admits == readmitted),
+    each installed page and row read back bit-equal, no preemption, and
+    flash and paged launched one a layer an admit and a decode tick over
+    the fleet's engines (the killed one's included); the stitched streams
+    equal to the failure-free run's (else the share of equal tokens is
+    reported and the comparison gated in fp32 at FLEET_FP32_LAYERS
+    layers).  Then a hedged fleet whose replica FLEET_HUNG hangs: at
+    least one hedge, each request delivered exactly once, every hedge
+    resolved, launches exact."""
+    import argparse
+    import gc
+    import shutil
+    import numpy as np
+    from repro_torch.launch.serve import _make_stream, serve
+    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.serving import ServeEngine, ServeFleet
+    t_phase = time.perf_counter()
+    cfg = kernel_cfg(ARCH)
+    L = cfg.num_layers
+    base = os.path.join(ROOT, "build", "fleet_smoke")
+    shutil.rmtree(base, ignore_errors=True)
+    os.makedirs(base)
+    argv = ["--continuous", "--paged", "--replicas", str(FLEET_REPLICAS),
+            "--requests", str(REQUESTS), "--batch", str(SLOTS),
+            "--prompt-len", str(PLEN[1]), "--gen", str(GEN[1]),
+            "--page-size", str(PAGE)]
+    stream = _make_stream(cfg, argparse.Namespace(
+        seed=0, prompt_len=PLEN[1], gen=GEN[1], requests=REQUESTS),
+        torch.device("cpu"))
+    budget = {r.rid: r.max_new_tokens for r in stream}
+    names = ("flash_attention", "paged_attention", "ssd_scan")
+    out = {}
+
+    def trace_file(name, kind, worker, step):
+        path = os.path.join(base, name)
+        with open(path, "w") as fh:
+            json.dump([{"step": step, "kind": kind, "worker": worker}], fh)
+        return path
+
+    def run(what, extra=()):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        t = time.perf_counter()
+        res = serve(argv + list(extra))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launches = {n: getattr(ops, n).launches for n in names}
+        es = res["engine_stats"]
+        want = {"flash_attention": L * es["prefill_ticks"],
+                "paged_attention": L * es["decode_ticks"], "ssd_scan": 0}
+        if launches != want:
+            fail(f"fleet {what}: launches {launches}, want {want} "
+                 f"({es['prefill_ticks']} admits with a prefill, "
+                 f"{es['decode_ticks']} decode ticks)")
+        fins = res["finished"]
+        if [f.rid for f in fins] != sorted(budget):
+            fail(f"fleet {what}: finished {[f.rid for f in fins]}")
+        for f in fins:
+            if len(f.tokens) != budget[f.rid]:
+                fail(f"fleet {what}: request {f.rid} finished with "
+                     f"{len(f.tokens)} tokens, budget {budget[f.rid]}")
+        st = res["stats"]
+        rec = {"stats": st, "engine_stats": es, "launches": launches,
+               "wall_s": wall, "tok_s": st["delivered_tokens"] / wall,
+               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+        print(f"fleet {what} [{card}]: {ARCH} bf16, {FLEET_REPLICAS} "
+              f"replicas x {SLOTS} slots, {REQUESTS} requests: "
+              f"{st['delivered_tokens']} tokens in {wall:.2f} s = "
+              f"{rec['tok_s']:.1f} tok/s, {st['wall']} wall ticks, drains "
+              f"{st['drains']}, readmitted {st['readmitted']}, migrated "
+              f"admits {st['migrated_admits']}, preemptions "
+              f"{st['preemptions']}, routed {st['routed']}, peak memory "
+              f"{rec['peak_mem_gb']:.2f} GB, launches {launches}")
+        return fins, rec
+
+    # the failure-free run, watched a wall tick at a time: the first tick
+    # from FLEET_MIN_WALL on where the victim's every request has emitted
+    # and none is queued or waits for its first token
+    real_step = ServeFleet.step
+    watch = []
+
+    def watched(self):
+        real_step(self)
+        state = {}
+        for rid, rep in self.replicas.items():
+            eng = rep.engine
+            act = [int(s) for s in np.flatnonzero(eng.pool.active)]
+            state[rid] = (len(act), eng.scheduler.pending == 0
+                          and not eng._pending_first
+                          and all(eng.pool.generated[s] for s in act))
+        watch.append((self.wall, state))
+    ServeFleet.step = watched
+    try:
+        free, out["failure_free"] = run("failure-free")
+    finally:
+        ServeFleet.step = real_step
+    last = watch[-1][0]
+    kill = next((w for w, st in watch if w >= FLEET_MIN_WALL
+                 and st[FLEET_VICTIM][0] >= 2 and st[FLEET_VICTIM][1]), None)
+    hang = next((w for w, st in watch if w >= FLEET_MIN_WALL
+                 and st[FLEET_HUNG][0] >= 1), None)
+    if kill is None or hang is None or kill > last // 2:
+        fail(f"fleet: no mid-stream wall tick to kill replica "
+             f"{FLEET_VICTIM} at ({kill}) or hang replica {FLEET_HUNG} at "
+             f"({hang}) in {last} ticks")
+
+    # the kill: each install read back right after it
+    real_install = ServeEngine._admit_migrated
+    installs = []
+
+    def read_back(self, req, slot):
+        real_install(self, req, slot)
+        kv = req.kv_seed
+        n = next(iter(kv.pages.values())).shape[1]
+        ids = torch.as_tensor(self.pages.owned[slot][:n],
+                              device=self.device).long()
+        held = {k: self.cache[k][:, ids].cpu() for k in kv.pages}
+        rows = {k: tree_map(lambda t: t[:, slot].cpu(), self.cache[k])
+                for k in kv.rows}
+        installs.append(all(
+            torch.equal(bits(torch, h), bits(torch, k)) for h, k in zip(
+                tree_leaves(held) + tree_leaves(rows),
+                tree_leaves(kv.pages) + tree_leaves(kv.rows))))
+    ServeEngine._admit_migrated = read_back
+    try:
+        fins, out["killed"] = run(f"replica {FLEET_VICTIM} killed at wall "
+                                  f"{kill}", ["--failure-trace", trace_file(
+                                      "kill.json", "fail", FLEET_VICTIM,
+                                      kill)])
+    finally:
+        ServeEngine._admit_migrated = real_install
+    st = out["killed"]["stats"]
+    if st["drains"] != 1 or st["preemptions"]:
+        fail(f"fleet kill: drains {st['drains']}, preemptions "
+             f"{st['preemptions']}")
+    if not (st["migrated_admits"] == st["readmitted"] == len(installs) >= 2):
+        fail(f"fleet kill: migrated admits {st['migrated_admits']}, "
+             f"readmitted {st['readmitted']}, installs {len(installs)}")
+    if not all(installs):
+        fail("fleet kill: an installed page or row differs from its "
+             "harvest")
+    share = same_share(fins, free)
+    out["killed"].update(kill_wall=kill, same_token_share=share)
+    if share != 1.0:
+        out["fp32"] = fleet_fp32(torch, MD, stream, kill)
+    print(f"fleet kill [{card}]: replica {FLEET_VICTIM} killed at wall "
+          f"{kill} of {out['failure_free']['stats']['wall']}: "
+          f"{st['readmitted']} requests re-admitted, all by KV migration, "
+          f"{len(installs)} installs read back bit-equal, no preemption; "
+          f"stitched tokens equal to the failure-free run's: {share:.4f}"
+          + ("" if share == 1.0 else " (fp32 at "
+             f"{FLEET_FP32_LAYERS} layers: equal)"))
+
+    # hedged decode through the backup role ------------------------------
+    hfins, out["hedged"] = run(
+        f"hedged, replica {FLEET_HUNG} hung at wall {hang}",
+        ["--hedged", "--failure-trace",
+         trace_file("hang.json", "hang", FLEET_HUNG, hang)])
+    hs = out["hedged"]["stats"]
+    keys = ("hedges_launched", "hedges_won_primary", "hedges_won_backup")
+    if not all(k in hs for k in keys) or hs["hedges_launched"] < 1 or \
+            hs["hedges_won_primary"] + hs["hedges_won_backup"] != \
+            hs["hedges_launched"] or hs["finished"] != REQUESTS:
+        fail(f"fleet hedged: {json.dumps({k: hs.get(k) for k in keys + ('finished',)})}")
+    out["hedged"].update(hang_wall=hang,
+                         same_token_share=same_share(hfins, free))
+    print(f"fleet hedged [{card}]: replica {FLEET_HUNG} hung at wall {hang}"
+          f": {hs['hedges_launched']} hedges launched, "
+          f"{hs['hedges_won_primary']} won by the primary, "
+          f"{hs['hedges_won_backup']} by the backup; every request "
+          f"delivered once; tokens equal to the failure-free run's "
+          f"{out['hedged']['same_token_share']:.4f} (a hedge re-prefills)")
+    shutil.rmtree(base, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"fleet [{card}]: phase 9 took {out['seconds']:.1f} s")
+    return out
+
+
+def fleet_fp32(torch, MD, stream, kill):
+    """The kill's comparison once more in fp32 with the depth cut to
+    FLEET_FP32_LAYERS (the kernels on): the stitched streams must equal
+    the failure-free fleet's."""
+    from repro_torch.elastic import FailureTrace, TraceEvent
+    from repro_torch.serving import Request, ServeFleet
+    cfg = kernel_cfg(ARCH).with_(num_layers=FLEET_FP32_LAYERS,
+                                 param_dtype="float32",
+                                 compute_dtype="float32")
+    params = MD.init_model(cfg, torch.Generator(device="cuda").manual_seed(0))
+
+    def fleet(trace):
+        f = ServeFleet(params, cfg, replicas=FLEET_REPLICAS,
+                       num_slots=SLOTS, cache_len=PLEN[1] + GEN[1],
+                       page_size=PAGE, trace=trace, device="cuda")
+        return f.run([Request(rid=r.rid, prompt=r.prompt,
+                              max_new_tokens=r.max_new_tokens)
+                      for r in stream]), f.stats()
+    free, _ = fleet(None)
+    fins, st = fleet(FailureTrace([TraceEvent(kill, "fail", FLEET_VICTIM)]))
+    share = same_share(fins, free)
+    if share != 1.0 or st["migrated_admits"] != st["readmitted"]:
+        fail(f"fleet fp32 ({FLEET_FP32_LAYERS} layers): tokens equal "
+             f"{share}, migrated admits {st['migrated_admits']}, "
+             f"readmitted {st['readmitted']}")
+    del params
+    torch.cuda.empty_cache()
+    return {"layers": FLEET_FP32_LAYERS, "same_token_share": share}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
@@ -2943,6 +3545,8 @@ def main(argv=None) -> int:
     print(f"train [{card}]: the other families took "
           f"{time.perf_counter() - t_fam:.1f} s")
     dp = dp_phase(torch, card, ops, tr["ms_per_step"])           # phase 7
+    elastic = elastic_phase(torch, card, ops, NC)                # phase 8
+    fleet = fleet_phase(torch, card, ops, MD)                    # phase 9
 
     # launches by path: each counted from zero over its own main-path run
     by_path = {f"{p['arch']} serve": p["launches"]
@@ -2961,6 +3565,10 @@ def main(argv=None) -> int:
     by_path.update({f"{r['arch']} train": {n: r["launches"][n] for n in
                                             ("nc_pack", "nc_unpack")}
                     for r in fam_train})
+    by_path[f"{ARCH} elastic"] = {n: elastic["sync"]["launches"][n]
+                                  for n in ("nc_pack", "nc_unpack")}
+    by_path[f"{ARCH} fleet"] = fleet["killed"]["launches"]
+    by_path[f"{ARCH} fleet, hedged"] = fleet["hedged"]["launches"]
     timing.update(nc_pack=nc_t["embed"]["nc_pack"],
                   nc_unpack=nc_t["embed"]["nc_unpack"])
     kernels = []
@@ -3010,7 +3618,7 @@ def main(argv=None) -> int:
               "drain": drains, "nc_checks": nc_rows,
               "timing": dict(timing, nc=nc_t),
               "train": tr, "async_ckpt": ckpt, "train_families": fam_train,
-              "dp": dp}
+              "dp": dp, "elastic": elastic, "fleet": fleet}
     if args.out:
         os.makedirs(args.out, exist_ok=True)
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as fh:

@@ -79,6 +79,36 @@ class SimTransport(Transport):
             raise KeyError(f"host {host}: {reply['err']}")
         return reply
 
+    # -- the parameter-server verbs, in process -------------------------
+    # The float32 wire codec is exact, so the in-process shard takes the
+    # arrays themselves: the same shard state, values, versions and spans
+    # as the round trip through `encode_entries` that `Transport` makes,
+    # without pushing a model's worth of bytes through base64 at every
+    # push and pull (a full-width LM's 3 GB of fp32 entries a call).
+    def ps_open(self, ps_id: int, lr: float, entries: Dict[str, Any],
+                momentum: float = 0.0) -> None:
+        from repro_torch.core.param_server import PSShard
+        with obs.get().span("ps.open", host=f"ps{ps_id}", cat="ps"):
+            shard = PSShard(lr, momentum=momentum)
+            shard.init(entries)
+            self._roles[(ps_id, "ps")] = shard
+
+    def _shard(self, ps_id: int):
+        shard = self._roles.get((ps_id, "ps"))
+        if shard is None:
+            raise KeyError(f"host {ps_id}: role 'ps' not open on this host")
+        return shard
+
+    def ps_push(self, ps_id: int, worker: int, clock: int,
+                grads: Dict[str, Any]) -> int:
+        with obs.get().span("ps.push", host=f"ps{ps_id}", cat="ps",
+                            worker=worker, clock=clock):
+            return self._shard(ps_id).push(worker, clock, grads)
+
+    def ps_pull(self, ps_id: int) -> Tuple[int, Dict[str, Any]]:
+        with obs.get().span("ps.pull", host=f"ps{ps_id}", cat="ps"):
+            return self._shard(ps_id).pull()
+
     def _role_states(self, host: int) -> Dict[str, Any]:
         """View of one host's role states as the name->state dict the
         shared `roles.dispatch` expects (state is still stored flat,

@@ -62,15 +62,21 @@ class PSShard:
             self.store[k] = np.array(v, np.float32)
 
     def push(self, worker: int, clock: int, grads: Entries) -> int:
+        # in place on the shard's own arrays, in the JAX package's order
+        # of float32 operations (m * vel + g, then w - lr * g): the same
+        # bits, without a model-sized temporary per operation
         for k, g in grads.items():
             g = np.asarray(g, np.float32)
             if self.momentum:
                 vel = self._vel.get(k)
-                vel = g if vel is None else (self.momentum * vel + g
-                                             ).astype(np.float32)
+                if vel is None:
+                    vel = g.copy()
+                else:
+                    vel *= np.float32(self.momentum)
+                    vel += g
                 self._vel[k] = vel
                 g = vel
-            self.store[k] = (self.store[k] - self.lr * g).astype(np.float32)
+            self.store[k] -= g * np.float32(self.lr)
         self.version += 1
         self.clocks[int(worker)] = int(clock)
         return self.version

@@ -1,20 +1,59 @@
 """Shared launcher plumbing for the ``repro_torch.launch`` entry points.
 
-The port's counterpart of the JAX package's ``launch/cli.py``, so far its
-observability half: the "record the run and write a Perfetto trace"
-wrapper (``--trace-out``) that the train and serve launchers share, so
-the flag's spelling and semantics cannot drift between them.
+The port's counterpart of the JAX package's ``launch/cli.py``.  The train
+and serve launchers grow the same cluster surface — which transport backs
+the control plane (``--transport``), where injected failures come from
+(``--failure-trace``), where dying workers flush their flight rings
+(``--flight-dir``) — plus the same "record the run and write a Perfetto
+trace" wrapper (``--trace-out``).  They live here once, so a flag's
+spelling, default and semantics cannot drift between entry points:
 
-* `add_trace_args(ap)`   — the observability flag group
-* `run_traced(args, fn)` — run under a Recorder, write trace.json
+* `add_cluster_args(ap, ...)`   — the cluster flag group
+* `add_trace_args(ap)`          — the observability flag group
+* `load_failure_trace(args)`    — ``--failure-trace`` JSON -> FailureTrace
+* `make_transport(args, trace)` — flags -> SimTransport / ProcTransport
+* `run_traced(args, fn)`        — run under a Recorder, write trace.json
 
-The cluster flags (``--transport``, ``--failure-trace``, ``--flight-dir``)
-come with the cluster control plane (ROADMAP.md).
+Every port import is lazy: parsing ``--help`` does not import torch.
 """
 from __future__ import annotations
 
 import argparse
-from typing import Any, Callable
+from typing import Any, Callable, Optional
+
+
+def add_cluster_args(ap: argparse.ArgumentParser, *,
+                     context: str = "the fleet",
+                     workers: Optional[int] = None,
+                     workers_help: Optional[str] = None):
+    """Add the shared cluster control-plane flags.
+
+    ``context`` names the launcher's fleet in help text (``"--elastic"``,
+    ``"--replicas"``).  ``--workers`` is added only when a default is
+    given: serve sizes its fleet with ``--replicas`` instead.
+    """
+    g = ap.add_argument_group(
+        "cluster", "control plane shared by every launcher "
+        "(repro_torch.cluster; see repro_torch.launch.cli)")
+    g.add_argument("--transport", default="sim", choices=["sim", "proc"],
+                   help=f"{context} control plane: 'sim' replays the "
+                        "failure trace on the simulated clock; 'proc' "
+                        "runs real worker processes with per-host "
+                        "heartbeat RPC and injects the trace against "
+                        "them (repro_torch.cluster.ProcTransport)")
+    g.add_argument("--failure-trace", default=None,
+                   help="JSON trace of fail/hang/recover/join/slow "
+                        "events to inject "
+                        "(repro_torch.elastic.membership.FailureTrace)")
+    g.add_argument("--flight-dir", default=None,
+                   help="--transport=proc: directory where dying/"
+                        "stopped workers flush their flight-recorder "
+                        "ring (flight_host<id>.json)")
+    if workers is not None:
+        g.add_argument("--workers", type=int, default=workers,
+                       help=workers_help
+                       or f"logical workers in {context}")
+    return g
 
 
 def add_trace_args(ap: argparse.ArgumentParser):
@@ -25,6 +64,32 @@ def add_trace_args(ap: argparse.ArgumentParser):
                         "trace.json here (open in ui.perfetto.dev); "
                         "see repro_torch.obs")
     return g
+
+
+def load_failure_trace(args, default=None):
+    """``--failure-trace`` JSON -> FailureTrace (``default`` if the flag
+    was absent or the launcher never added the group)."""
+    path = getattr(args, "failure_trace", None)
+    if not path:
+        return default
+    from repro_torch.elastic.membership import FailureTrace
+    return FailureTrace.load(path)
+
+
+def make_transport(args, trace=None, device=None):
+    """Transport from the shared cluster flags: sim replays ``trace`` on
+    the simulated clock, proc injects it against real worker processes
+    (flight rings land in ``--flight-dir``) whose state rows live on
+    ``device``, the launcher's (``ProcTransport``'s own rule: the card
+    unless the CPU is asked for)."""
+    if getattr(args, "transport", "sim") == "proc":
+        from repro_torch.cluster.proc import ProcTransport
+        return ProcTransport(inject=trace,
+                             flight_dir=getattr(args, "flight_dir", None),
+                             device=device)
+    from repro_torch.cluster.sim import SimTransport
+    from repro_torch.elastic.membership import FailureTrace
+    return SimTransport(trace or FailureTrace())
 
 
 def run_traced(args, fn: Callable[[], Any]) -> Any:

@@ -12,6 +12,16 @@ draft-verify rounds (`repro_torch.serving.SpecDecodeEngine`): an n-gram
 lookup draft, or with --draft-arch a smaller model of the same vocabulary
 (weights from --seed + 7).
 
+Elastic fleet (--replicas N): N continuous-batching replicas behind the
+straggler-aware router (`repro_torch.serving.ServeFleet`), sharing one
+parameter set and one `ServeProgram`, driven by the same trace-driven
+membership machine as elastic training: a replica's death drains its
+in-flight requests and re-admits them across the survivors (with --paged
+their KV pages migrate), a SUSPECT replica is drained preemptively, or
+with --hedged keeps its work while a backup copy races it on a healthy
+replica.  --failure-trace replays crash / hang / recover / join / slow
+events; without one the fleet runs failure-free.
+
 Runs on the CUDA card (the attention kernels, and for the hybrid family
 the SSD scan kernel, on) unless --device cpu, where the kernel wrappers
 take their plain PyTorch versions.  --arch takes every config of the
@@ -40,11 +50,12 @@ Usage:
       --arch qwen3-moe-30b-a3b --continuous --paged --requests 16 --batch 8
   PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b \
       --smoke --device cpu --continuous --requests 6 --batch 2
+  PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
+      --replicas 3 --paged --page-size 4 --requests 12 --batch 2 \
+      --prompt-len 16 --gen 8 --failure-trace trace.json [--hedged]
 
 --trace-out PATH records the run (the engine's `serve.*` events and
 `request` spans) and writes a Perfetto trace, also when the run fails.
-
-Not ported yet: --replicas, --hedged and the transports.
 """
 from __future__ import annotations
 
@@ -139,6 +150,45 @@ def _make_stream(cfg, args, device):
             for i in range(args.requests)]
 
 
+def _serve_fleet(params, cfg, args, device):
+    from repro_torch.serving import ServeFleet
+
+    trace = cli.load_failure_trace(args)
+    transport = (cli.make_transport(args, trace, device)
+                 if args.transport == "proc" else None)
+    fleet = ServeFleet(params, cfg, replicas=args.replicas,
+                       num_slots=args.batch,
+                       cache_len=args.prompt_len + args.gen
+                       + MD.n_prefix(cfg),
+                       trace=None if transport else trace,
+                       transport=transport,
+                       page_size=args.page_size if args.paged else None,
+                       num_pages=args.num_pages if args.paged else None,
+                       hedged_decode=args.hedged, device=device)
+    reqs = _make_stream(cfg, args, device)
+    t0 = time.time()
+    try:
+        finished = fleet.run(reqs)
+        _sync(device)
+    finally:
+        fleet.close()
+    dt = time.time() - t0
+    st = fleet.stats()
+    print(f"arch={cfg.name} device={device} replicas={args.replicas} "
+          f"slots={args.batch} requests={args.requests} trace="
+          f"{args.failure_trace or '<failure-free>'}")
+    print(f"fleet: {dt:.3f}s wall={st['wall']} ticks  "
+          f"{st['delivered_tokens']} tokens "
+          f"({st['delivered_tokens'] / max(dt, 1e-9):.1f} tok/s)  "
+          f"goodput={st['goodput']:.2f} tok/wall-tick  "
+          f"drains={st['drains']} readmitted={st['readmitted']}  "
+          f"survivors={st['replicas']}")
+    print(f"routing: {st['routed']}")
+    print("sample generation (first request):", finished[0].tokens[:16])
+    return {"finished": finished, "stats": st, "t_total": dt,
+            "engine_stats": fleet.engine_stats()}
+
+
 def _serve_continuous(params, cfg, args, device):
     from repro_torch.serving import (LookupDraft, ModelDraft, ServeEngine,
                                      SpecDecodeEngine)
@@ -204,8 +254,12 @@ def serve(argv=None) -> dict:
     ap.add_argument("--continuous", action="store_true",
                     help="continuous batching over a slot pool "
                          "(repro_torch.serving.ServeEngine)")
+    ap.add_argument("--replicas", type=int, default=0,
+                    help="elastic fleet of N continuous-batching replicas "
+                         "(repro_torch.serving.ServeFleet); --batch = slots "
+                         "per replica")
     ap.add_argument("--requests", type=int, default=16,
-                    help="--continuous: requests in the stream")
+                    help="--continuous/--replicas: requests in the stream")
     ap.add_argument("--paged", action="store_true",
                     help="paged KV-cache pool: slots share fixed-size "
                          "pages instead of reserving max-length rows")
@@ -224,7 +278,12 @@ def serve(argv=None) -> dict:
                     help="--speculative: ported arch drafting for --arch "
                          "(e.g. qwen3-0.6b for qwen3-1.7b); default: "
                          "model-free n-gram lookup draft")
+    ap.add_argument("--hedged", action="store_true",
+                    help="--replicas: hedged decode: SUSPECT replicas "
+                         "keep serving while a backup continuation races "
+                         "them on a healthy replica (first token wins)")
     ap.add_argument("--seed", type=int, default=0)
+    cli.add_cluster_args(ap, context="--replicas")
     cli.add_trace_args(ap)
     args = ap.parse_args(argv)
     return cli.run_traced(args, lambda: _serve(args))
@@ -247,6 +306,8 @@ def _serve(args) -> dict:
     cfg = _device_config(args.arch, args.smoke, device)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = MD.init_model(cfg, gen)
+    if args.replicas:
+        return _serve_fleet(params, cfg, args, device)
     if args.continuous:
         return _serve_continuous(params, cfg, args, device)
     return _serve_static(params, cfg, args, device)

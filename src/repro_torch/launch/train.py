@@ -1,4 +1,4 @@
-"""Training launcher: the non-elastic single-device loop.
+"""Training launcher: the single-device loop, or with --elastic the elastic loops.
 
 The PyTorch counterpart of the JAX package's ``launch/train.py``.  Runs
 on the CUDA card unless ``--device cpu``.  On the card the config's dtypes
@@ -24,6 +24,17 @@ Perfetto trace, also when the run fails.
 Every ``--arch`` trains: the vlm and audio batches carry the stub
 frontends' zeros (`launch.steps.make_extra`), as the JAX launcher's do.
 
+``--elastic`` hands the loop to `repro_torch.elastic.elastic_lm_loop`:
+``--workers`` logical data-parallel workers, each with its own pipeline
+shard, under a ``--failure-trace`` of fail/hang/recover/join/slow events
+(the cluster flags of `launch.cli`, ``--transport sim|proc``).
+``--mode`` picks the strategy: sync (checkpoint and rewind on a death;
+needs ``--ckpt-dir``), local_sgd or easgd (per-worker replicas, a death
+drops a row), async_ps or ssp (push/pull against a parameter server;
+``--staleness`` bounds ssp's clock gap).  ``--keep-last`` bounds the
+checkpoints kept, and saves are asynchronous by default under
+``--elastic`` (``--no-async-ckpt`` blocks).
+
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \
       --steps 25 --batch 4 --seq 64 --compress-grads
@@ -32,9 +43,12 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-1.2b \
       --smoke --device cpu --steps 3 --batch 2 --seq 64 --compress-grads \
       --ckpt-dir /tmp/ck --async-ckpt --trace-out /tmp/trace.json
+  PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \
+      --steps 16 --batch 4 --seq 32 --elastic --workers 4 \
+      --ckpt-dir /tmp/ck --ckpt-every 4 --keep-last 2 \
+      --failure-trace trace.json [--mode local_sgd]
 
-Not ported yet: the mesh (--env/--data/--model), --elastic and --mode
-(with --keep-last and the cluster flags).
+Not ported yet: the mesh (--env/--data/--model).
 """
 from __future__ import annotations
 
@@ -75,14 +89,43 @@ def train(argv=None) -> dict:
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--compress-grads", action="store_true",
                     help="natural compression on gradients (survey ref 75)")
+    ap.add_argument("--elastic", action="store_true",
+                    help="elastic training: survive worker death/join/"
+                         "slowdown from a failure trace (repro_torch.elastic)")
+    cli.add_cluster_args(ap, context="--elastic", workers=4,
+                         workers_help="logical data-parallel workers "
+                                      "for --elastic")
+    cli.add_trace_args(ap)
+    ap.add_argument("--mode", default="sync",
+                    choices=["sync", "local_sgd", "easgd", "async_ps",
+                             "ssp"],
+                    help="--elastic training mode (repro_torch.elastic."
+                         "modes): sync all-reduce with checkpoint/rewind "
+                         "recovery (default); local_sgd/easgd per-worker "
+                         "replicas with survivor continuation; async_ps/ssp "
+                         "parameter-server push/pull on the cluster "
+                         "transport")
+    ap.add_argument("--staleness", type=int, default=2,
+                    help="--mode=ssp staleness bound s: a worker may run "
+                         "at most s clocks ahead of the slowest")
+    ap.add_argument("--keep-last", type=int, default=3,
+                    help="checkpoint retention for --elastic")
     ap.add_argument("--async-ckpt", dest="async_ckpt", action="store_true",
-                    default=False,
+                    default=None,
                     help="non-blocking checkpoint saves on a background "
-                         "writer (repro_torch.checkpoint.AsyncCheckpointer)")
+                         "writer (repro_torch.checkpoint.AsyncCheckpointer); "
+                         "default: on for --elastic, off otherwise")
     ap.add_argument("--no-async-ckpt", dest="async_ckpt",
                     action="store_false")
-    cli.add_trace_args(ap)
     args = ap.parse_args(argv)
+    if args.elastic and args.mode == "sync" and not args.ckpt_dir:
+        ap.error("--elastic --mode=sync requires --ckpt-dir (sync "
+                 "recovery restores from the last checkpoint); other "
+                 "modes checkpoint only when --ckpt-dir is given")
+    if args.async_ckpt is None:
+        # elastic checkpoints every few steps: a blocking save there
+        # steals a whole step from every worker, so async is the default
+        args.async_ckpt = args.elastic
     return cli.run_traced(args, lambda: _train(args))
 
 
@@ -114,6 +157,20 @@ def _train(args) -> dict:
     step_fn = make_train_step(cfg, opt, compress_grads=args.compress_grads)
     pipe = make_pipeline(cfg.vocab_size, args.batch, args.seq, seed=args.seed)
     entropy_floor = pipe.source.entropy_nats
+    if args.elastic:
+        from repro_torch.elastic import elastic_lm_loop
+        out = elastic_lm_loop(
+            args=args, cfg=cfg, step_fn=step_fn, params=params,
+            opt_state=opt_state,
+            pipe_factory=lambda shard, num: make_pipeline(
+                cfg.vocab_size, args.batch, args.seq, shard_id=shard,
+                num_shards=num, seed=args.seed),
+            step0=step0, opt=opt,
+            loss_fn=lambda p, b: MD.lm_loss(p, cfg, b), device=device)
+        return {"losses": out["losses"], "entropy_floor": entropy_floor,
+                "params": out["params"], "recoveries": out["recoveries"],
+                "final_alive": out["final_alive"],
+                "transitions": out["transitions"]}
     batches = iter(pipe)
     for _ in range(step0):       # the batches the restored steps consumed
         next(batches)

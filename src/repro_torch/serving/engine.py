@@ -42,7 +42,10 @@ span from admit to finish, `serve.first_token`, `serve.preempt`,
 gauges in `stats()`.  With the default null recorder they cost a method
 call and allocate nothing.
 
-Not ported yet (ROADMAP.md): `program=` and `chunk_cap=`.
+Engines of one (cfg, cache_len, page_size) may share one `ServeProgram`
+(`program=`): the step half carries no request state, so a serving
+fleet's replicas, present and future, run one program.  `chunk_cap=`
+bounds the decode ticks between host syncs (default `CHUNK_CAP`).
 """
 from __future__ import annotations
 
@@ -193,10 +196,12 @@ class ServeProgram:
 
 class ServeEngine:
     def __init__(self, params, cfg: ModelConfig, *, num_slots: int,
-                 cache_len: int, page_size: Optional[int] = None,
+                 cache_len: int, chunk_cap: int = CHUNK_CAP,
+                 page_size: Optional[int] = None,
                  num_pages: Optional[int] = None,
+                 program: Optional[ServeProgram] = None,
                  device: DeviceLike = None, host: Any = "serve"):
-        self.host = host  # obs lane
+        self.host = host  # obs lane (fleet replicas pass their id)
         self.device = torch.empty(0, device=resolve_device(device)).device
         if cfg.attention_kind == "sliding_window":
             raise ValueError(
@@ -211,6 +216,7 @@ class ServeEngine:
         self.cfg = cfg
         self.num_slots = num_slots
         self.cache_len = cache_len
+        self.chunk_cap = chunk_cap
         self.page_size = page_size
         self.paged = page_size is not None
         if self.paged:
@@ -228,8 +234,14 @@ class ServeEngine:
         else:
             self.num_pages = 0
         self.n_prefix = MD.n_prefix(cfg)
-        self.program = ServeProgram(cfg, cache_len=cache_len,
-                                    page_size=page_size)
+        if program is not None and (program.cache_len != cache_len
+                                    or program.page_size != page_size):
+            raise ValueError(f"program (cache_len={program.cache_len}, "
+                             f"page_size={program.page_size}) != engine "
+                             f"(cache_len={cache_len}, page_size="
+                             f"{page_size})")
+        self.program = program or ServeProgram(cfg, cache_len=cache_len,
+                                               page_size=page_size)
         self.reset()
 
     def reset(self) -> None:
@@ -480,8 +492,8 @@ class ServeEngine:
     def _decode_chunk(self, remaining: List[int]) -> None:
         """k decode ticks, one host sync.  k = the largest power of two <=
         the smallest remaining budget (so budget retirements land on chunk
-        boundaries), capped at CHUNK_CAP."""
-        m = min(min(remaining), CHUNK_CAP)
+        boundaries), capped at chunk_cap."""
+        m = min(min(remaining), self.chunk_cap)
         k = 1 << (m.bit_length() - 1)
         bt = None
         if self.paged:

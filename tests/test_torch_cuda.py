@@ -953,3 +953,75 @@ def test_place_rows_onto_the_card():
     for k, v in tree.items():
         assert placed[k].is_cuda and torch.equal(placed[k].cpu(), v)
     assert Coordinator(SimTransport(), 2).place_rows(tree, [0, 1]) is tree
+
+
+@pytest.mark.parametrize("mode", ["sync", "local_sgd", "easgd", "async_ps",
+                                  "ssp"])
+def test_run_elastic_on_card_matches_cpu(mode, tmp_path):
+    """run_elastic on the card against the same run on the CPU, on the
+    single-failure trace of tests/test_elastic.py: transitions,
+    recoveries, simulated time, goodput and final_alive equal, losses
+    within rtol 1e-5 (fp32, TF32 off)."""
+    _cuda()
+    from repro_torch.elastic import ElasticProblem, FailureTrace, run_elastic
+    out = {}
+    for dev in ("cpu", "cuda"):
+        out[dev] = run_elastic(ElasticProblem(device=dev), mode=mode,
+                               steps=30,
+                               trace=FailureTrace.single_failure(23, 1),
+                               ckpt_dir=str(tmp_path / dev))
+    c, g = out["cpu"], out["cuda"]
+    assert [t.as_tuple() for t in g.transitions] == \
+        [t.as_tuple() for t in c.transitions]
+    assert [(r.wall_step, r.worker, r.cause, r.lost_steps, r.latency)
+            for r in g.recoveries] == \
+        [(r.wall_step, r.worker, r.cause, r.lost_steps, r.latency)
+         for r in c.recoveries]
+    assert (g.sim_time, g.goodput, g.final_alive, g.splits_replanned) == \
+        (c.sim_time, c.goodput, c.final_alive, c.splits_replanned)
+    np.testing.assert_allclose(g.losses, c.losses, rtol=1e-5, atol=1e-8)
+    if g.stacked_params is not None:
+        assert g.stacked_params["w"].is_cuda
+
+
+@pytest.mark.parametrize("hedged", [False, True])
+def test_smoke_fleet_on_card_matches_cpu(hedged):
+    """A paged qwen3 SMOKE fleet (fp32) through the attention kernels on
+    the card against the plain path on the CPU, a replica killed (or hung
+    and hedged) mid-stream: the same greedy streams and stats(); flash
+    launches one a layer an admit and paged one a layer a decode tick,
+    summed over the fleet's engines, the killed one's included."""
+    _cuda()
+    from repro_torch.configs import get_config
+    from repro_torch.elastic import FailureTrace, TraceEvent
+    from repro_torch.models import model as MD
+    from repro_torch.models.common import tree_map
+    from repro_torch.serving import Request, ServeFleet
+    cfg = get_config("qwen3-0.6b", smoke=True).with_(
+        param_dtype="float32", compute_dtype="float32")
+    params = MD.init_model(cfg, torch.Generator().manual_seed(0))
+    r = np.random.RandomState(0)
+    spec = [(i, r.randint(0, cfg.vocab_size, size=int(r.choice((6, 10)))),
+             int(r.choice((4, 8)))) for i in range(10)]
+    event = TraceEvent(3, "hang", 2) if hedged else TraceEvent(4, "fail", 1)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        c = cfg.with_(use_flash_kernel=dev == "cuda",
+                      use_paged_kernel=dev == "cuda")
+        fleet = ServeFleet(tree_map(lambda t: t.to(dev), params), c,
+                           replicas=3, num_slots=2, cache_len=24,
+                           page_size=4, trace=FailureTrace([event]),
+                           hedged_decode=hedged, device=dev)
+        ops.reset_launches()
+        fins = fleet.run([Request(rid=i, prompt=p.copy(), max_new_tokens=g)
+                          for i, p, g in spec])
+        out[dev] = ([(f.rid, f.tokens) for f in fins], fleet.stats(),
+                    fleet.engine_stats(),
+                    {n: getattr(ops, n).launches
+                     for n in ("flash_attention", "paged_attention")})
+    (ct, cs, _, _), (gt, gs, ge, gl) = out["cpu"], out["cuda"]
+    assert gt == ct and gs == cs
+    L = cfg.num_layers
+    assert gl == {"flash_attention": L * ge["prefill_ticks"],
+                  "paged_attention": L * ge["decode_ticks"]}
+    assert gs["drains"] == 1 or gs.get("hedges_launched", 0) >= 1

@@ -3,8 +3,9 @@ fp32): the projected patch prefix, the logits cropped by it, decode past
 it, the paged engine's greedy streams (a tight pool that preempts and
 re-admits included), a drain and migrated install, and the speculative
 engine with the lookup draft — against the JAX package on the same
-weights and numpy inputs; and the gradients at depth with the stub
-frontend's zero patches, non-finite where JAX's are."""
+weights and numpy inputs; the gradients at depth with the stub
+frontend's zero patches, non-finite where JAX's are; and a train step on
+patches drawn from a seed, finite and equal to JAX's."""
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -168,3 +169,46 @@ def test_zero_patches_make_jax_s_nonfinite_gradients_at_depth():
         for a, c in zip(t, j):
             np.testing.assert_array_equal(a, c)
         assert any(not a.all() for a in t) == bad
+
+
+def test_seeded_patches_train_step_matches_jax():
+    """The decision on the zero patches (ROADMAP queue 3): the launchers
+    keep JAX's zeros, and `chip_smoke.py` phase 6 trains phi-3 on patches
+    drawn from a seed, which the caller puts in the batch's
+    `extra_embeds`.  At 16 SMOKE layers, where zero patches already give
+    non-finite gradients, one AdamW train step on seeded patches (numpy,
+    the same in both packages) has a finite gradient norm in both, and
+    the port's step matches JAX's `make_train_step`: loss and gnorm at
+    rtol 1e-4, params and moments as `test_torch_train.py` holds them
+    (all but 1 in 10^4 elements within rtol 1e-4 / atol 1e-5, every one
+    within the learning rate)."""
+    from repro.launch.steps import make_train_step as jax_train_step
+    from repro.optim import optimizers as JO
+    from repro_torch.bridge import params_from_numpy
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import optimizers as TO
+    from test_torch_train import _close_but_few
+
+    jcfg = jax_get_config(ARCH, smoke=True).with_(num_layers=16)
+    tcfg = torch_get_config(ARCH, smoke=True).with_(num_layers=16)
+    tp = TMD.init_model(tcfg, torch.Generator().manual_seed(0))
+    jp = jax.tree_util.tree_map(jnp.asarray, params_to_numpy(tp))
+    r = np.random.RandomState(7)
+    toks = r.randint(0, tcfg.vocab_size, size=(1, 33)).astype(np.int32)
+    b = {"tokens": toks[:, :-1], "labels": toks[:, 1:],
+         "extra_embeds": r.randn(1, tcfg.num_patches, 1024).astype(
+             np.float32)}
+    lr = 3e-3
+    jopt = JO.adamw(JO.warmup_cosine(lr, 1, 4))
+    topt = TO.adamw(TO.warmup_cosine(lr, 1, 4))
+    jp2, js2, jm = jax.jit(jax_train_step(jcfg, jopt))(
+        jp, jopt.init(jp), jax.tree_util.tree_map(jnp.asarray, b))
+    tp2, ts2, tm = make_train_step(tcfg, topt)(
+        tp, topt.init(tp), {k: torch.from_numpy(v) for k, v in b.items()})
+    assert np.isfinite(float(jm["gnorm"])) and np.isfinite(float(tm["gnorm"]))
+    for k in ("loss", "gnorm"):
+        np.testing.assert_allclose(float(tm[k]), float(jm[k]), rtol=1e-4)
+    _close_but_few(tp2, params_from_numpy(
+        jax.tree_util.tree_map(np.asarray, jp2), "cpu"), lr)
+    _close_but_few(ts2["mu"], params_from_numpy(
+        jax.tree_util.tree_map(np.asarray, js2["mu"]), "cpu"), lr)
