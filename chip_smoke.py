@@ -176,7 +176,18 @@ Phases (each raises on failure, and then no result is printed):
      the share reported and the comparison gated in fp32 at 4 layers);
      then `--hedged` with replica 2 hung: at least one hedge, each request
      delivered once, every hedge resolved (fleet tokens/s, wall ticks,
-     peak memory).
+     peak memory);
+ 10. model parallelism and the mesh on a world of one (an NCCL group of
+     one rank, `make_device_mesh(1, 1)`), qwen3-0.6b at full width: one
+     train step at phase 6's shape under each of the launcher's envs
+     (dp, tp, dp_tp, fsdp) from the same state as the plain unsharded
+     step, parameters, moments, loss and gnorm bit-equal and nc launches
+     one a leaf, a second step's ms beside phase 6's; a tp prefill
+     through flash bit-equal to the unsharded one (28 flash launches);
+     DDG over the 28 layers as 4 modules of 7 for 12 ticks (JAX's fill
+     sequence of active modules, finite and falling losses) and K = 1 at
+     2 layers bit-equal to sequential_step; pipeline_apply at S = 1 over
+     the 28 blocks bit-equal to sequential_apply.
 
 The serve runs of phase 4 are timed warm: one short batch goes through
 the same engine first (cuBLAS handles, allocator growth, first launches).
@@ -307,6 +318,11 @@ ELASTIC_MODES = ("sync", "local_sgd", "easgd", "async_ps", "ssp")
 # is gated in fp32 with the depth cut to FLEET_FP32_LAYERS
 FLEET_REPLICAS, FLEET_VICTIM, FLEET_HUNG, FLEET_MIN_WALL = 3, 1, 2, 10
 FLEET_FP32_LAYERS = 4
+# phase 10: DDG over DDG_K modules on one batch of DDG_B x DDG_S tokens
+# for DDG_TICKS ticks at SGD rate DDG_LR; pipeline_apply over a batch of
+# PP_B x PP_S, also in PP_M microbatches
+DDG_K, DDG_B, DDG_S, DDG_TICKS, DDG_LR = 4, 2, 1024, 12, 0.05
+PP_B, PP_S, PP_M = 2, 1024, 2
 # the nc wire format: code 1..127 <=> |value| 2^-69 .. 2^57
 NC_LO, NC_HI = 2.0 ** -69, 2.0 ** 57
 
@@ -3382,6 +3398,332 @@ def fleet_fp32(torch, MD, stream, kill):
     return {"layers": FLEET_FP32_LAYERS, "same_token_share": share}
 
 
+# ---------------------------------------------------------------------------
+# phase 10: model parallelism and the mesh, on a world of one
+# ---------------------------------------------------------------------------
+def mesh_phase(torch, card, ops, train_ms):
+    """qwen3-0.6b at full width on a world of one: an NCCL group of one
+    rank (a file:// store) and `make_device_mesh(1, 1)`.
+
+    10a. for each of the train launcher's envs (dp, tp, dp_tp, fsdp) one
+         train step at phase 6's shape (batch 2 x 4096, compressed
+         gradients, in place) from the same state as the plain unsharded
+         step: parameters, moments, loss and gnorm bit-equal, nc_pack /
+         nc_unpack launched once a gradient leaf; then a second step
+         timed, beside phase 6's ms a step;
+    10b. a tp prefill with use_flash_kernel: logits and cache bit-equal
+         to the unsharded prefill's, one flash launch a layer;
+    10c. DDG over the 28 layers as K = 4 modules of 7 (the embedding in
+         module 0, the final norm and lm_head in module 3), one batch of
+         2 x 1024 for DDG_TICKS ticks: active_modules follows JAX's fill
+         (0 at the first tick, rising to K), every loss finite and the
+         loss falling; and K = 1 at 2 layers bit-equal to sequential_step;
+    10d. pipeline_apply at S = 1 over the 28 blocks bit-equal to
+         sequential_apply (M = 1), and at M = PP_M to sequential_apply of
+         each microbatch; bubble_fraction(4, 8) printed."""
+    import logging
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_device_mesh
+    from repro_torch.launch.train import ENVS
+    cfg = get_config(ARCH)
+    t_phase = time.perf_counter()
+    out = {}
+    # DTensor's notes on per-dim collectives are not the phase's output
+    logging.getLogger("torch.distributed").setLevel(logging.ERROR)
+    torch.cuda.set_device(0)
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
+                                rank=0, world_size=1)
+        try:
+            mesh = make_device_mesh(1, 1)
+            out["train"] = mesh_train(torch, card, ops, cfg, mesh, ENVS,
+                                      train_ms)
+            out["prefill"] = mesh_prefill(torch, card, ops, cfg, mesh)
+            out["ddg"] = ddg_phase(torch, card, cfg)
+            out["pp"] = pp_phase(torch, card, cfg)
+        finally:
+            dist.destroy_process_group()
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"mesh [{card}]: phase 10 took {out['seconds']:.1f} s")
+    return out
+
+
+def mesh_train(torch, card, ops, cfg, mesh, envs, train_ms):
+    from repro_torch.core import sharding as SH
+    from repro_torch.data import make_pipeline
+    from repro_torch.launch.steps import batch_pspecs, make_train_step
+    from repro_torch.models import model as MD
+    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.optim.optimizers import adamw, warmup_cosine
+
+    B, S = TRAIN_BATCH, TRAIN_SEQ
+    params0 = MD.init_model(cfg, torch.Generator(device="cuda").manual_seed(0))
+    n_leaves = len(tree_leaves(params0))
+    opt = adamw(warmup_cosine(3e-3, TRAIN_WARMUP, 1 + TRAIN_STEPS))
+    step_fn = make_train_step(cfg, opt, compress_grads=True)
+    batches = iter(make_pipeline(cfg.vocab_size, B, S, seed=0))
+    data = [{k: torch.from_numpy(v).cuda() for k, v in
+             next(batches).items()} for _ in range(2)]
+
+    def noise(step):
+        return torch.Generator(device="cuda").manual_seed(1 + step)
+
+    def fresh():
+        return tree_map(torch.clone, params0)
+
+    def local(tree):
+        return tree_map(lambda t: t.to_local() if SH.is_dtensor(t) else t,
+                        tree)
+
+    plain_p = fresh()
+    plain_p, plain_s, plain_m = step_fn(plain_p, opt.init(plain_p), data[0],
+                                        noise(0))
+    out = {"envs": {}, "n_leaves": n_leaves}
+    for name, env in envs.items():
+        with SH.axis_env(env):
+            p = MD.distribute_params(fresh(), cfg, mesh)
+            st = opt.init(p)
+            with SH.use_mesh(mesh):
+                specs = batch_pspecs(cfg, data[0])
+                bs = [{k: SH.distribute(v, specs[k], mesh)
+                       for k, v in b.items()} for b in data]
+                ops.reset_launches()
+                p, st, m = step_fn(p, st, bs[0], noise(0))
+                launches = {n: getattr(ops, n).launches
+                            for n in ("nc_pack", "nc_unpack")}
+                same = {
+                    "params": same_tree_bits(torch, local(p), plain_p),
+                    "mu": same_tree_bits(torch, local(st["mu"]),
+                                         plain_s["mu"]),
+                    "nu": same_tree_bits(torch, local(st["nu"]),
+                                         plain_s["nu"]),
+                    "loss": same_tree_bits(torch, m["loss"],
+                                           plain_m["loss"]),
+                    "gnorm": same_tree_bits(torch, m["gnorm"],
+                                            plain_m["gnorm"])}
+                if not all(same.values()):
+                    fail(f"mesh train {name}: not bit-equal to the "
+                         f"unsharded step: {same} (loss {float(m['loss'])!r}"
+                         f" against {float(plain_m['loss'])!r})")
+                if any(v != n_leaves for v in launches.values()):
+                    fail(f"mesh train {name}: nc launches {launches}, "
+                         f"want {n_leaves} each")
+                placed = {k: str(tuple(v.placements)) for k, v in
+                          (("embed", p["embed"]),
+                           ("blocks.attn.wq", p["blocks"]["attn"]["wq"]))}
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                p, st, m2 = step_fn(p, st, bs[1], noise(1))
+                loss2 = float(m2["loss"])
+                ms = 1e3 * (time.perf_counter() - t0)
+                # both steps' launches: the path's count
+                launches = {n: getattr(ops, n).launches for n in launches}
+                if any(v != 2 * n_leaves for v in launches.values()):
+                    fail(f"mesh train {name}: nc launches {launches} over "
+                         f"two steps, want {2 * n_leaves} each")
+            del p, st, bs
+        out["envs"][name] = {"ms": ms, "launches": launches,
+                             "loss": float(m["loss"]), "loss2": loss2,
+                             "placements": placed}
+        print(f"mesh train [{card}]: {name} on a 1x1 mesh ({placed}), "
+              f"batch {B} x {S}: params, moments, loss and gnorm "
+              f"bit-equal to the unsharded step, nc launches {launches} "
+              f"over two steps; the second {ms:.1f} ms (phase 6: "
+              f"{train_ms:.1f} ms/step)")
+    return out
+
+
+def mesh_prefill(torch, card, ops, cfg, mesh):
+    from repro_torch.core import sharding as SH
+    from repro_torch.models import model as MD
+    cfg = kernel_cfg(cfg.name)
+    plen = PLEN[1]
+    params = MD.init_model(cfg, torch.Generator(device="cuda").manual_seed(0))
+    g = torch.Generator(device="cuda").manual_seed(3)
+    tokens = torch.randint(0, cfg.vocab_size, (1, plen), generator=g,
+                           device="cuda")
+    C = plen + GEN[1]
+    with torch.no_grad():
+        ops.reset_launches()
+        logits0, _, cache0 = MD.forward(params, cfg, tokens,
+                                        return_cache=True, cache_len=C)
+        plain_flash = ops.flash_attention.launches
+        with SH.axis_env(SH.TP_ENV):
+            dparams = MD.distribute_params(params, cfg, mesh)
+            with SH.use_mesh(mesh):
+                tok = SH.distribute(tokens, SH.logical("batch", None), mesh)
+                ops.reset_launches()
+                logits, _, cache = MD.forward(dparams, cfg, tok,
+                                              return_cache=True,
+                                              cache_len=C)
+                flash = ops.flash_attention.launches
+                logits = SH.whole(logits)
+    want = cfg.num_layers if cfg.use_flash_kernel else 0
+    if flash != want or plain_flash != want:
+        fail(f"mesh prefill: flash launches {flash} (unsharded "
+             f"{plain_flash}), want {want}")
+    if not (same_tree_bits(torch, logits, logits0)
+            and same_tree_bits(torch, cache, cache0)):
+        fail("mesh prefill: logits or cache differ from the unsharded "
+             "prefill's")
+    print(f"mesh prefill [{card}]: tp on a 1x1 mesh, a {plen}-token "
+          f"prompt: logits and cache bit-equal to the unsharded prefill, "
+          f"{flash} flash launches")
+    return {"launches": {"flash_attention": flash}, "prompt": plen}
+
+
+def _ddg_modules(torch, cfg, params, K):
+    """qwen3's stack as K modules of L/K layers: module 0 starts with the
+    embedding lookup, module K-1 ends with the final norm and lm_head.
+    Returns (per-module params, fns)."""
+    from repro_torch.models import model as MD
+    from repro_torch.models.common import (dense, embed_lookup, rms_norm,
+                                           torch_dtype, tree_map)
+    L = cfg.num_layers
+    per = L // K
+    mods = []
+    for k in range(K):
+        pk = {"blocks": tree_map(lambda t: t[k * per:(k + 1) * per].clone(),
+                                 params["blocks"])}
+        if k == 0:
+            pk["embed"] = params["embed"].clone()
+        if k == K - 1:
+            pk["final_norm"] = params["final_norm"].clone()
+            pk["lm_head"] = params["lm_head"].clone()
+        mods.append(pk)
+
+    def make(k):
+        def fn(p, x):
+            if k == 0:
+                x = embed_lookup(p["embed"], x).to(
+                    torch_dtype(cfg.compute_dtype))
+            B, S = x.shape[:2]
+            pos = torch.arange(S, device=x.device)[None].expand(B, S)
+            for i in range(per):
+                lp = tree_map(lambda t: t[i], p["blocks"])
+                x = MD._block(lp, x, pos, cfg)[0]
+            if k == K - 1:
+                x = dense(rms_norm(x, p["final_norm"], cfg.norm_eps),
+                          p["lm_head"])
+            return x
+        return fn
+    return mods, [make(k) for k in range(K)]
+
+
+def _ddg_loss(torch):
+    def loss_fn(logits, batch):
+        logits = logits.float()
+        gold = logits.gather(-1, batch["labels"].long()[..., None])[..., 0]
+        return (torch.logsumexp(logits, -1) - gold).mean()
+    return loss_fn
+
+
+def ddg_phase(torch, card, cfg):
+    from repro_torch.core import decoupled as DD
+    from repro_torch.data import make_pipeline
+    from repro_torch.models import model as MD
+    from repro_torch.models.common import tree_leaves
+    B, S = DDG_B, DDG_S
+    # fp32 weights (bf16 compute): SGD steps this small vanish in bf16
+    cfg = cfg.with_(param_dtype="float32", remat="none")
+    params = MD.init_model(cfg, torch.Generator(device="cuda").manual_seed(0))
+    b = next(iter(make_pipeline(cfg.vocab_size, B, S, seed=0)))
+    batch = {"x": torch.from_numpy(b["tokens"]).cuda(),
+             "labels": torch.from_numpy(b["labels"]).cuda()}
+    loss_fn = _ddg_loss(torch)
+    mods, fns = _ddg_modules(torch, cfg, params, DDG_K)
+    del params
+    state = DD.ddg_init(mods)
+    actives, losses = [], []
+    t0 = time.perf_counter()
+    for _ in range(DDG_TICKS):
+        state, m = DD.ddg_tick(state, fns, loss_fn, batch, lr=DDG_LR)
+        actives.append(m["active_modules"])
+        losses.append(None if m["loss"] is None else float(m["loss"]))
+    torch.cuda.synchronize()
+    tick_ms = 1e3 * (time.perf_counter() - t0) / DDG_TICKS
+    K = DDG_K
+    # JAX's fill: none at first, the head from tick K-1, one more module
+    # a tick after, never falling, all K at the end
+    fill = [max(0, t - (K - 2)) if t >= K - 1 else 0
+            for t in range(DDG_TICKS)]
+    fill = [min(K, f) for f in fill]
+    got = [x for x in losses if x is not None]
+    if actives != fill:
+        fail(f"ddg: active_modules {actives}, want {fill}")
+    if not got or not all(x == x and abs(x) != float("inf") for x in got):
+        fail(f"ddg: non-finite or missing losses {losses}")
+    if not got[-1] < got[0]:
+        fail(f"ddg: the loss did not fall: {got}")
+    del state, mods
+    # K = 1 at 2 layers: no staleness, joint backprop bit for bit
+    c2 = cfg.with_(num_layers=2)
+    p2 = MD.init_model(c2, torch.Generator(device="cuda").manual_seed(1))
+    m1, f1 = _ddg_modules(torch, c2, p2, 1)
+    st1 = DD.ddg_init(m1)
+    seq = [dict(m1[0])]
+    for _ in range(3):
+        st1, _ = DD.ddg_tick(st1, f1, loss_fn, batch, lr=DDG_LR)
+        seq, _ = DD.sequential_step(seq, f1, loss_fn, batch, lr=DDG_LR)
+    if not same_tree_bits(torch, st1.params[0], seq[0]):
+        fail("ddg: K = 1 differs from sequential_step")
+    print(f"ddg [{card}]: {cfg.num_layers} layers as {K} modules, batch "
+          f"{B} x {S}, {DDG_TICKS} ticks ({tick_ms:.1f} ms a tick): "
+          f"active_modules {actives}, losses "
+          f"{[round(x, 4) for x in got]}; K = 1 at 2 layers bit-equal to "
+          f"sequential_step over 3 steps ({len(tree_leaves(seq[0]))} "
+          f"leaves)")
+    return {"actives": actives, "losses": losses, "tick_ms": tick_ms}
+
+
+def pp_phase(torch, card, cfg):
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.core.pipeline import (bubble_fraction, pipeline_apply,
+                                           sequential_apply)
+    from repro_torch.models import model as MD
+    from repro_torch.models.common import embed_lookup, torch_dtype
+    B, S = PP_B, PP_S
+    params = MD.init_model(cfg, torch.Generator(device="cuda").manual_seed(0))
+    g = torch.Generator(device="cuda").manual_seed(4)
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=g,
+                           device="cuda")
+    x = embed_lookup(params["embed"], tokens).to(
+        torch_dtype(cfg.compute_dtype))
+    smesh = init_device_mesh("cuda", (1,), mesh_dim_names=("stage",))
+
+    def block_fn(lp, h):
+        pos = torch.arange(h.shape[1], device=h.device)[None].expand(
+            h.shape[0], h.shape[1])
+        return MD._block(lp, h, pos, cfg)[0]
+
+    with torch.no_grad():
+        seq = sequential_apply(block_fn, params["blocks"], x)
+        y1 = pipeline_apply(block_fn, params["blocks"], x, smesh,
+                            num_microbatches=1)
+        yM = pipeline_apply(block_fn, params["blocks"], x, smesh,
+                            num_microbatches=PP_M)
+        per_mb = torch.cat([sequential_apply(block_fn, params["blocks"], xm)
+                            for xm in x.chunk(PP_M)])
+    if not same_tree_bits(torch, y1, seq):
+        fail("pipeline_apply at S = 1, M = 1 differs from sequential_apply")
+    if not same_tree_bits(torch, yM, per_mb):
+        fail(f"pipeline_apply at S = 1, M = {PP_M} differs from "
+             f"sequential_apply of each microbatch")
+    diff = float((yM.float() - seq.float()).abs().max())
+    bub = bubble_fraction(4, 8)
+    print(f"pp [{card}]: pipeline_apply over {cfg.num_layers} blocks at "
+          f"S = 1, batch {B} x {S}: bit-equal to sequential_apply (M = 1) "
+          f"and to it a microbatch (M = {PP_M}; against the whole batch "
+          f"max|diff| {diff:.3g}); bubble_fraction(S 4, M 8) = {bub:.4f}")
+    return {"m_diff": diff, "bubble_4_8": bub}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
@@ -3547,6 +3889,7 @@ def main(argv=None) -> int:
     dp = dp_phase(torch, card, ops, tr["ms_per_step"])           # phase 7
     elastic = elastic_phase(torch, card, ops, NC)                # phase 8
     fleet = fleet_phase(torch, card, ops, MD)                    # phase 9
+    mesh = mesh_phase(torch, card, ops, tr["ms_per_step"])      # phase 10
 
     # launches by path: each counted from zero over its own main-path run
     by_path = {f"{p['arch']} serve": p["launches"]
@@ -3569,6 +3912,9 @@ def main(argv=None) -> int:
                                   for n in ("nc_pack", "nc_unpack")}
     by_path[f"{ARCH} fleet"] = fleet["killed"]["launches"]
     by_path[f"{ARCH} fleet, hedged"] = fleet["hedged"]["launches"]
+    by_path.update({f"{ARCH} mesh train, {env}": r["launches"]
+                    for env, r in mesh["train"]["envs"].items()})
+    by_path[f"{ARCH} mesh prefill"] = mesh["prefill"]["launches"]
     timing.update(nc_pack=nc_t["embed"]["nc_pack"],
                   nc_unpack=nc_t["embed"]["nc_unpack"])
     kernels = []
@@ -3618,7 +3964,7 @@ def main(argv=None) -> int:
               "drain": drains, "nc_checks": nc_rows,
               "timing": dict(timing, nc=nc_t),
               "train": tr, "async_ckpt": ckpt, "train_families": fam_train,
-              "dp": dp, "elastic": elastic, "fleet": fleet}
+              "dp": dp, "elastic": elastic, "fleet": fleet, "mesh": mesh}
     if args.out:
         os.makedirs(args.out, exist_ok=True)
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as fh:

@@ -6,6 +6,13 @@ Each wrapper carries ``launches``, a plain integer that counts kernel
 launches (and nothing else), so a run can show that it went through the
 kernels.
 
+A kernel works on local shards.  Given DTensors (a step under a mesh,
+``core/sharding.py``), `flash_attention`, `paged_attention` and
+`nc_roundtrip` take each rank's local tensors, launch the kernel on the
+local heads (or, for nc, the local elements), and wrap the result back
+as a DTensor with the input's placements; ``launches`` counts each local
+launch.
+
 The attention kernels and the SSD scan have no backward, as the TPU
 kernels they replace have none (``jax.grad`` through them raises): their
 wrappers refuse inputs that require a gradient while autograd records, on
@@ -17,6 +24,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core import sharding as SH
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import nat_compress as _nc
 from repro_torch.kernels import paged_attention as _pa
@@ -38,6 +46,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     the kernel masks keys past T, where the TPU kernel pads them and so
     refuses a non-causal T that is not a multiple of its 128-key block
     (the whisper encoder's 1500 frames)."""
+    if SH.is_dtensor(q):
+        return SH.local_heads(
+            lambda q, k, v: flash_attention(q, k, v, causal=causal,
+                                            window=window), q, k, v)
     _refuse_autograd("flash_attention", q, k, v)
     if not q.is_cuda:
         return _ref.attention_ref(q, k, v, causal=causal, window=window)
@@ -59,6 +71,12 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
     pos: (B,) int32.  logical_len crops the block table to
     ceil(logical_len / P) pages, so tables wider than the engine's
     cache_len cost nothing for their dead pages."""
+    if SH.is_dtensor(q):
+        # the pools hold the same heads as q on each rank
+        out = paged_attention(q.to_local(), _local(k_pool), _local(v_pool),
+                              _local(block_tables), _local(pos),
+                              logical_len=logical_len)
+        return _like(out, q)
     _refuse_autograd("paged_attention", q, k_pool, v_pool)
     if logical_len is not None:
         P = k_pool.shape[1]
@@ -120,8 +138,30 @@ nc_unpack.launches = 0
 
 def nc_roundtrip(x: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     """pack + unpack: the on-device view of a compressed gradient
-    (unbiased: E[nc_roundtrip(x, u)] = x over u, on the wire's range)."""
+    (unbiased: E[nc_roundtrip(x, u)] = x over u, on the wire's range).
+    For a DTensor x, u is whole (x's global shape): each rank packs its
+    own elements with its own slice of u."""
+    if SH.is_dtensor(x):
+        return _like(nc_roundtrip(x.to_local(), _local_of(u, x)), x)
     return nc_unpack(nc_pack(x, u), dtype=x.dtype)
+
+
+def _local(t):
+    return t.to_local() if SH.is_dtensor(t) else t
+
+
+def _like(out: torch.Tensor, x) -> torch.Tensor:
+    """The local result `out` as a DTensor laid out as x."""
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(out, x.device_mesh, x.placements,
+                              run_check=False)
+
+
+def _local_of(whole: torch.Tensor, x) -> torch.Tensor:
+    """This rank's slice of the whole tensor `whole`, laid out as x."""
+    from torch.distributed.tensor import distribute_tensor
+    return distribute_tensor(whole, x.device_mesh, x.placements,
+                             src_data_rank=None).to_local()
 
 
 def reset_launches() -> None:

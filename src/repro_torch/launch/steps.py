@@ -1,23 +1,102 @@
-"""Step builders: the train step, prefill and decode ticks over the model.
+"""Step builders: the train step, prefill and decode ticks over the model,
+with the sharding specs of their inputs and outputs.
 
 The PyTorch counterpart of the JAX package's ``launch/steps.py``.
 PyTorch runs eagerly, so a builder returns a plain closure where the JAX
-one returns a function for ``jax.jit``.  The sharding specs and abstract
-inputs of the JAX module belong to meshes and ahead-of-time lowering,
-which the port does not have yet (ROADMAP.md).
+one returns a function for ``jax.jit``.  Under a mesh (``core/sharding``)
+the same closures run on DTensors: the train step's gradients are laid
+out as their parameters, the global norm counts each element once, and
+the update runs on each rank's own shard.  `build_plan` gives a step's
+function, its inputs as ``device="meta"`` tensors and the specs and
+placements of every input and output.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Optional, Union
+import dataclasses
+from typing import Any, Callable, Dict, Optional, Tuple, Union
 
 import torch
 
+from repro_torch.configs import InputShape
+from repro_torch.core import sharding as SH
 from repro_torch.core.compression import wire_roundtrip
 from repro_torch.core.data_parallel import value_and_grad
 from repro_torch.models import model as MD
-from repro_torch.models.common import torch_dtype
+from repro_torch.models.common import torch_dtype, tree_map
 from repro_torch.models.config import ModelConfig
-from repro_torch.optim.optimizers import clip_leaf, clip_scale
+from repro_torch.optim.optimizers import (clip_leaf, clip_scale,
+                                          get_optimizer, warmup_cosine)
+
+
+# ---------------------------------------------------------------------------
+# Cache and batch sharding specs
+# ---------------------------------------------------------------------------
+def _kv_cache_names(cfg: ModelConfig) -> tuple:
+    """KV cache (L,B,C,Hk,dh) names: heads on the model axis when they
+    divide it; otherwise the cache length C is split (context sharding),
+    rather than a whole cache gathered again at every decode step."""
+    shards = SH.axis_size(SH.get_axis_env().resolve("model"))
+    if shards <= 1 or cfg.num_kv_heads % shards == 0:
+        return ("layers", "batch", None, "model", None)
+    return ("layers", "batch", "model", None, None)
+
+
+def _cache_spec_names(cfg: ModelConfig) -> Dict[str, Any]:
+    at = cfg.arch_type
+    kv = _kv_cache_names(cfg)
+    if at in ("dense", "vlm", "moe", "audio"):
+        names = {"k": kv, "v": kv}
+        if at == "audio":
+            names["ck"] = kv
+            names["cv"] = kv
+        return names
+    if at == "hybrid":
+        return {"ssm": ("layers", "batch", "model", None, None),
+                "conv": {"x": ("layers", "batch", None, "model"),
+                         "B": ("layers", "batch", None, None),
+                         "C": ("layers", "batch", None, None)},
+                "sk": kv, "sv": kv}
+    if at == "ssm":
+        return {"wkv": ("layers", "batch", "model", None, None),
+                "tm": ("layers", "batch", None),
+                "cm": ("layers", "batch", None)}
+    raise ValueError(at)
+
+
+def _shape(leaf) -> Tuple[int, ...]:
+    """A tensor's shape, or the shape of a (shape, dtype) spec."""
+    return tuple(leaf.shape) if hasattr(leaf, "shape") else tuple(leaf[0])
+
+
+def cache_pspecs(cfg: ModelConfig, cache_abstract) -> Any:
+    """Specs of a cache tree (tensors, or `MD.cache_specs`' (shape, dtype)
+    leaves) under the active AxisEnv and mesh."""
+    return tree_map(lambda leaf, names: SH.resolve_spec(_shape(leaf), names),
+                    cache_abstract, _cache_spec_names(cfg))
+
+
+def batch_abstract(cfg: ModelConfig, B: int, S: int, train: bool = True):
+    """The batch as ``device="meta"`` tensors."""
+    def meta(shape, dt):
+        return torch.empty(shape, dtype=dt, device="meta")
+    out = {"tokens": meta((B, S), torch.int32)}
+    if train:
+        out["labels"] = meta((B, S), torch.int32)
+    if cfg.arch_type == "vlm":
+        out["extra_embeds"] = meta((B, cfg.num_patches, MD.VISION_EMBED_DIM),
+                                   torch.bfloat16)
+    if cfg.arch_type == "audio":
+        out["extra_embeds"] = meta((B, cfg.encoder_seq, cfg.d_model),
+                                   torch.bfloat16)
+    return out
+
+
+def batch_pspecs(cfg: ModelConfig, batch_abs):
+    """Every batch leaf split on its leading (batch) dim."""
+    def spec(t):
+        shape = _shape(t)
+        return SH.resolve_spec(shape, ("batch",) + (None,) * (len(shape) - 1))
+    return tree_map(spec, batch_abs)
 
 
 # ---------------------------------------------------------------------------
@@ -26,8 +105,20 @@ from repro_torch.optim.optimizers import clip_leaf, clip_scale
 def loss_and_grads(params, cfg: ModelConfig, batch):
     """(loss, grads) of ``lm_loss``: the port's ``jax.value_and_grad``.
     grads mirror params (a parameter that the loss does not reach gets
-    zeros, as in JAX); params themselves are left untouched."""
-    return value_and_grad(lambda p, b: MD.lm_loss(p, cfg, b), params, batch)
+    zeros, as in JAX); params themselves are left untouched.  A DTensor
+    parameter's gradient comes back laid out as the parameter (its
+    partial sums over the data axes reduced: the data-parallel
+    all-reduce)."""
+    loss, grads = value_and_grad(lambda p, b: MD.lm_loss(p, cfg, b), params,
+                                 batch)
+    return loss, tree_map(_like_param, grads, params)
+
+
+def _like_param(g, p):
+    if not SH.is_dtensor(g) or tuple(g.placements) == tuple(p.placements):
+        return g
+    return g.redistribute(p.device_mesh, p.placements)
+
 
 
 def _leaf_paths(tree, prefix=()):
@@ -89,9 +180,16 @@ def apply_grads(opt, params, opt_state, grads, max_norm: float = 1.0):
     step = opt_state["step"]
     moments = [k for k in opt_state if k != "step"]
     new_step = None
+    if SH.is_dtensor(scale):
+        # DTensor leaves: the norm summed over each element once; an
+        # elementwise update then runs on each rank's own shard
+        scale = scale.full_tensor()
     for path in _leaf_paths(params):
         p, g = _at(params, path), _at(grads, path)
         leaf = {k: _at(opt_state[k], path) for k in moments}
+        if SH.is_dtensor(p) and opt.elementwise:
+            p, g = p.to_local(), g.to_local()
+            leaf = tree_map(lambda t: t.to_local(), leaf)
         for sl in leaf_slices(p, opt.elementwise):
             sub = {k: {"x": _index(v, sl)} for k, v in leaf.items()}
             sub["step"] = step
@@ -127,7 +225,8 @@ def make_train_step(cfg: ModelConfig, opt,
                     int(step))
             grads = wire_roundtrip(grads, noise)
         params, opt_state, gnorm = apply_grads(opt, params, opt_state, grads)
-        return params, opt_state, {"loss": loss, "gnorm": gnorm}
+        return params, opt_state, {"loss": SH.whole(loss),
+                                   "gnorm": SH.whole(gnorm)}
     return train_step
 
 
@@ -204,3 +303,104 @@ def make_paged_serve_cb_step(cfg: ModelConfig, logical_len: int) -> Callable:
         nxt = torch.where(active[:, None], nxt, tokens)
         return nxt, new_cache
     return serve_cb_paged_step
+
+
+# ---------------------------------------------------------------------------
+# Step plans: the function, abstract inputs and the layout of everything
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass
+class StepPlan:
+    name: str
+    fn: Callable
+    args: Tuple[Any, ...]          # ``device="meta"`` tensors
+    in_specs: Tuple[Any, ...]      # spec trees (the port's tuples)
+    out_specs: Any
+    in_placements: Tuple[Any, ...]  # DTensor placements over the mesh
+    out_placements: Any
+    donate_argnums: Tuple[int, ...] = ()
+
+
+def _placements(mesh, specs):
+    return tree_map(lambda sp: SH.placements(sp, mesh), specs)
+
+
+def _plan(mesh, name, fn, args, in_specs, out_specs, donate=()):
+    return StepPlan(name, fn, args, in_specs, out_specs,
+                    tuple(_placements(mesh, sp) for sp in in_specs),
+                    _placements(mesh, out_specs), donate)
+
+
+def build_plan(cfg: ModelConfig, shape: InputShape, mesh,
+               optimizer: str = "adamw") -> StepPlan:
+    """The (fn, abstract args, layouts) plan of one arch x shape.  `mesh`
+    is a DeviceMesh or anything with ``mesh_dim_names`` and ``shape``;
+    call under the AxisEnv the step runs in.  A scalar's spec is ()."""
+    prev = SH.get_mesh()
+    SH.set_mesh(mesh)      # specs resolve against it; no op runs on it
+    try:
+        return _build_plan(cfg, shape, mesh, optimizer)
+    finally:
+        SH.set_mesh(prev)
+
+
+def _build_plan(cfg, shape, mesh, optimizer):
+    params_abs = MD.model_abstract(cfg)
+    pspecs = MD.model_pspecs(cfg)
+    B, S = shape.global_batch, shape.seq_len
+    scalar = ()
+
+    if shape.kind == "train":
+        opt = get_optimizer(optimizer, warmup_cosine(3e-4, 100, 10_000))
+        opt_state_abs = opt.init(params_abs)
+        opt_specs = opt.state_specs(pspecs)
+        batch_abs = batch_abstract(cfg, B, S, train=True)
+        bspecs = batch_pspecs(cfg, batch_abs)
+        return _plan(mesh, f"train[{cfg.name}x{shape.name}]",
+                     make_train_step(cfg, opt),
+                     (params_abs, opt_state_abs, batch_abs),
+                     (pspecs, opt_specs, bspecs),
+                     (pspecs, opt_specs, {"loss": scalar, "gnorm": scalar}),
+                     donate=(0, 1))
+
+    if shape.kind == "prefill":
+        batch_abs = batch_abstract(cfg, B, S, train=False)
+        bspecs = batch_pspecs(cfg, batch_abs)
+        # the VLM prepends patch embeddings: the cache must hold them too
+        S_cache = S + (cfg.num_patches if cfg.arch_type == "vlm" else 0)
+        cspecs = cache_pspecs(cfg, MD.cache_specs(cfg, B, S_cache))
+        logit_spec = SH.resolve_spec((B, 1, cfg.vocab_size),
+                                     ("batch", None, "model"))
+        return _plan(mesh, f"prefill[{cfg.name}x{shape.name}]",
+                     make_prefill_step(cfg, S_cache),
+                     (params_abs, batch_abs), (pspecs, bspecs),
+                     (logit_spec, cspecs))
+
+    if shape.kind in ("decode", "decode_cb"):
+        cache_abs = _meta_cache(cfg, B, S)
+        cspecs = cache_pspecs(cfg, cache_abs)
+        tok_abs = torch.empty((B, 1), dtype=torch.int32, device="meta")
+        tok_spec = SH.resolve_spec((B, 1), ("batch", None))
+        if shape.kind == "decode":
+            pos_abs = torch.empty((), dtype=torch.int32, device="meta")
+            return _plan(mesh, f"decode[{cfg.name}x{shape.name}]",
+                         make_serve_step(cfg),
+                         (params_abs, cache_abs, tok_abs, pos_abs),
+                         (pspecs, cspecs, tok_spec, scalar),
+                         (tok_spec, cspecs), donate=(1,))
+        # continuous batching: per-slot position vector + active mask,
+        # both split like the batch dim (a slot lives on one data shard)
+        pos_abs = torch.empty((B,), dtype=torch.int32, device="meta")
+        act_abs = torch.empty((B,), dtype=torch.bool, device="meta")
+        row_spec = SH.resolve_spec((B,), ("batch",))
+        return _plan(mesh, f"decode_cb[{cfg.name}x{shape.name}]",
+                     make_serve_cb_step(cfg),
+                     (params_abs, cache_abs, tok_abs, pos_abs, act_abs),
+                     (pspecs, cspecs, tok_spec, row_spec, row_spec),
+                     (tok_spec, cspecs), donate=(1,))
+
+    raise ValueError(shape.kind)
+
+
+def _meta_cache(cfg: ModelConfig, B: int, C: int):
+    return tree_map(lambda s: torch.empty(s[0], dtype=s[1], device="meta"),
+                    MD.cache_specs(cfg, B, C))

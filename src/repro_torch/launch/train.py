@@ -35,9 +35,20 @@ drops a row), async_ps or ssp (push/pull against a parameter server;
 checkpoints kept, and saves are asynchronous by default under
 ``--elastic`` (``--no-async-ckpt`` blocks).
 
+``--env {dp,dp_tp,tp,fsdp}`` with ``--data D --model M`` trains over a
+(D, M) ``DeviceMesh`` (``core/sharding.py``: the axis env maps the
+model's logical axes onto it).  When D*M > 1 the launcher spawns D*M
+ranks itself: gloo on ``--device cpu``, one card a rank over NCCL on
+``cuda`` (it raises with fewer cards than ranks).  Every rank draws the
+same whole parameters from the seed and keeps its own shard; the batches
+are the unsharded run's, split on their batch dim; rank 0 prints the
+summary.  A 1x1 mesh is the unsharded step.
+
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \
       --steps 25 --batch 4 --seq 64 --compress-grads
+  PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \
+      --env dp_tp --data 2 --model 2 --steps 3 --batch 8 --seq 32
   PYTHONPATH=src python -m repro_torch.launch.train --steps 10 --batch 2 \
       --seq 4096 --compress-grads
   PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-1.2b \
@@ -47,12 +58,14 @@ Usage:
       --steps 16 --batch 4 --seq 32 --elastic --workers 4 \
       --ckpt-dir /tmp/ck --ckpt-every 4 --keep-last 2 \
       --failure-trace trace.json [--mode local_sgd]
-
-Not ported yet: the mesh (--env/--data/--model).
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
+import json
+import os
+import tempfile
 import time
 
 import torch
@@ -61,12 +74,21 @@ from repro_torch import resolve_device
 from repro_torch.checkpoint import (AsyncCheckpointer, latest_step,
                                     restore_checkpoint, save_checkpoint)
 from repro_torch.configs import get_config
+from repro_torch.core import sharding as SH
 from repro_torch.data import make_pipeline
 from repro_torch.launch import cli
-from repro_torch.launch.steps import make_extra, make_train_step
+from repro_torch.launch.steps import (batch_pspecs, make_extra,
+                                      make_train_step)
 from repro_torch.models import model as MD
 from repro_torch.obs import recorder as obs
 from repro_torch.optim.optimizers import get_optimizer, warmup_cosine
+
+ENVS = {
+    "dp": SH.DP_ENV,
+    "dp_tp": SH.DP_TP_ENV,
+    "tp": SH.TP_ENV,
+    "fsdp": SH.TRAIN_ENV,
+}
 
 
 def train(argv=None) -> dict:
@@ -82,6 +104,10 @@ def train(argv=None) -> dict:
                     help="warmup steps of the warmup-cosine schedule")
     ap.add_argument("--optimizer", default="adamw",
                     choices=("adamw", "sgd", "adafactor"))
+    ap.add_argument("--env", default="dp_tp", choices=list(ENVS),
+                    help="axis env of the mesh (core/sharding.py)")
+    ap.add_argument("--data", type=int, default=1, help="data mesh dim")
+    ap.add_argument("--model", type=int, default=1, help="model mesh dim")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--ckpt-dir", default=None)
@@ -126,13 +152,86 @@ def train(argv=None) -> dict:
         # elastic checkpoints every few steps: a blocking save there
         # steals a whole step from every worker, so async is the default
         args.async_ckpt = args.elastic
+    if args.data * args.model > 1:
+        if args.elastic:
+            ap.error("--elastic runs its own logical workers; it takes no "
+                     "mesh larger than 1x1 (--data/--model)")
+        if args.ckpt_dir or args.resume or args.trace_out:
+            ap.error("--ckpt-dir, --resume and --trace-out are not ported "
+                     "for a mesh larger than 1x1 (--data/--model)")
+        if args.optimizer == "adafactor":
+            ap.error("--optimizer adafactor reads whole leaves; under a "
+                     "mesh only the elementwise adamw and sgd run")
+        return _train_spawned(args)
     return cli.run_traced(args, lambda: _train(args))
 
 
-def _train(args) -> dict:
+def _train_spawned(args) -> dict:
+    """data*model ranks, one process each; rank 0's summary."""
+    import torch.multiprocessing as mp
+    world = args.data * args.model
+    device = resolve_device(args.device)
+    if device.type == "cuda":
+        n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if n < world:
+            raise RuntimeError(f"--data {args.data} --model {args.model} "
+                               f"needs {world} CUDA devices, one a rank; "
+                               f"{n} found")
+    # the ranks share this process's intra-op threads
+    threads = max(1, torch.get_num_threads() // world)
+    with tempfile.TemporaryDirectory() as tmp:
+        mp.spawn(_rank_main, args=(args, world, tmp, threads), nprocs=world,
+                 join=True)
+        with open(os.path.join(tmp, "summary.json")) as f:
+            return json.load(f)
+
+
+def _rank_main(rank: int, args, world: int, tmp: str,
+               threads: int) -> None:
+    import logging
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_device_mesh, make_host_mesh
+    # DTensor's notes on gloo's missing all-to-all and on per-dim
+    # all-reduces are not a run's business
+    logging.getLogger("torch.distributed").setLevel(logging.ERROR)
+    cpu = resolve_device(args.device).type == "cpu"
+    if cpu:
+        torch.set_num_threads(threads)
+    else:
+        torch.cuda.set_device(rank)
+    dist.init_process_group("gloo" if cpu else "nccl",
+                            init_method=f"file://{os.path.join(tmp, 'store')}",
+                            rank=rank, world_size=world)
+    try:
+        mesh = (make_host_mesh if cpu else make_device_mesh)(args.data,
+                                                            args.model)
+        out = _train(args, mesh=mesh)
+        if rank == 0:
+            ls = out["losses"]
+            print(f"trained {len(ls)} steps on a {args.data}x{args.model} "
+                  f"{args.env} mesh ({world} ranks, {args.device}): loss "
+                  f"{ls[0]:.4f} -> {ls[-1]:.4f}", flush=True)
+            with open(os.path.join(tmp, "summary.json"), "w") as f:
+                json.dump({"losses": out["losses"],
+                           "entropy_floor": out["entropy_floor"],
+                           "env": args.env, "mesh": [args.data, args.model]},
+                          f)
+    finally:
+        dist.destroy_process_group()
+
+
+def _train(args, mesh=None) -> dict:
+    """The loop; with `mesh`, on this rank's shards of it (every rank of
+    the mesh runs it)."""
     device = resolve_device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda: no CUDA device available")
+    if mesh is not None and device.type == "cuda":
+        device = torch.device("cuda", torch.cuda.current_device())
+    main = mesh is None or torch.distributed.get_rank() == 0
+    env = ENVS[args.env]
     cfg = get_config(args.arch, smoke=args.smoke)
     if device.type == "cpu":
         # fp32 params on CPU for small-scale training stability
@@ -142,6 +241,10 @@ def _train(args) -> dict:
                         warmup_cosine(args.lr, args.warmup, args.steps))
     params = MD.init_model(cfg,
                            torch.Generator(device=device).manual_seed(args.seed))
+    if mesh is not None:
+        # whole on every rank from the seed, then each keeps its shard
+        with SH.axis_env(env):
+            params = MD.distribute_params(params, cfg, mesh)
     opt_state = opt.init(params)
 
     step0 = 0
@@ -196,18 +299,21 @@ def _train(args) -> dict:
             extra = make_extra(cfg, args.batch, device)
             if extra is not None:     # the stub frontends' zeros, as JAX
                 batch["extra_embeds"] = extra
+            if mesh is not None:      # the unsharded batch, split
+                batch = _split_batch(batch, cfg, mesh, env)
             noise = None
             if args.compress_grads:
                 noise = torch.Generator(device=device).manual_seed(
                     args.seed + 1 + step)
             # the span ends after the loss is read back, so on the card
             # it holds the whole step, not its launch
-            with obs.get().span("train.step", cat="train", step=step):
+            with obs.get().span("train.step", cat="train", step=step), \
+                    _on_mesh(mesh, env):
                 params, opt_state, metrics = step_fn(params, opt_state,
                                                      batch, noise)
                 loss = float(metrics["loss"])
             losses.append(loss)
-            if step % args.log_every == 0:
+            if main and step % args.log_every == 0:
                 dt = time.time() - t0
                 print(f"step {step:5d} loss {loss:.4f} "
                       f"(floor~{entropy_floor:.3f}) "
@@ -225,6 +331,22 @@ def _train(args) -> dict:
             saver.close(wait=False)  # never leak the writer thread
     return {"losses": losses, "entropy_floor": entropy_floor,
             "params": params}
+
+
+@contextlib.contextmanager
+def _on_mesh(mesh, env):
+    """`mesh` and `env` active for the block; nothing without a mesh."""
+    if mesh is None:
+        yield
+        return
+    with SH.use_mesh(mesh), SH.axis_env(env):
+        yield
+
+
+def _split_batch(batch, cfg, mesh, env):
+    with _on_mesh(mesh, env):
+        specs = batch_pspecs(cfg, batch)
+    return {k: SH.distribute(v, specs[k], mesh) for k, v in batch.items()}
 
 
 if __name__ == "__main__":

@@ -13,6 +13,8 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.core import sharding as SH
+from repro_torch.core.sharding import shard
 from repro_torch.models.common import (ParamDesc, apply_rope, dense,
                                        head_rms_norm)
 from repro_torch.models.config import ModelConfig
@@ -25,22 +27,35 @@ def attn_descs(cfg: ModelConfig,
     dt = dtype or cfg.param_dtype
     d = cfg.d_model
     descs = {
-        "wq": ParamDesc((d, cfg.q_dim), dt, fan_in=d),
-        "wk": ParamDesc((d, cfg.kv_dim), dt, fan_in=d),
-        "wv": ParamDesc((d, cfg.kv_dim), dt, fan_in=d),
-        "wo": ParamDesc((cfg.q_dim, d), dt, fan_in=cfg.q_dim),
+        "wq": ParamDesc((d, cfg.q_dim), dt, fan_in=d, spec=(None, "model")),
+        "wk": ParamDesc((d, cfg.kv_dim), dt, fan_in=d, spec=(None, "model")),
+        "wv": ParamDesc((d, cfg.kv_dim), dt, fan_in=d, spec=(None, "model")),
+        "wo": ParamDesc((cfg.q_dim, d), dt, fan_in=cfg.q_dim,
+                        spec=("model", None)),
     }
     if cfg.qk_norm:
-        descs["q_scale"] = ParamDesc((cfg.head_dim,), dt, init="ones")
-        descs["k_scale"] = ParamDesc((cfg.head_dim,), dt, init="ones")
+        descs["q_scale"] = ParamDesc((cfg.head_dim,), dt, init="ones",
+                                     spec=(None,))
+        descs["k_scale"] = ParamDesc((cfg.head_dim,), dt, init="ones",
+                                     spec=(None,))
     return descs
 
 
+def _split_heads(t, H: int, dh: int):
+    """(B, S, H*dh) -> (B, S, H, dh).  Under a mesh whose model axes do
+    not divide H, the projection's split of H*dh is undone first (DTensor
+    cannot split a sharded dim unevenly)."""
+    B, S = t.shape[:2]
+    if SH.is_dtensor(t) and SH.resolve_spec((H,), ("model",))[0] is None:
+        t = shard(t, "batch", None, None)
+    return t.reshape(B, S, H, dh)
+
+
 def _project_qkv(p, x, positions, cfg: ModelConfig):
-    B, S, _ = x.shape
-    q = dense(x, p["wq"]).reshape(B, S, cfg.num_heads, cfg.head_dim)
-    k = dense(x, p["wk"]).reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
-    v = dense(x, p["wv"]).reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
+    H, Hk, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q = _split_heads(dense(x, p["wq"]), H, dh)
+    k = _split_heads(dense(x, p["wk"]), Hk, dh)
+    v = _split_heads(dense(x, p["wv"]), Hk, dh)
     if cfg.qk_norm:
         q = head_rms_norm(q, p["q_scale"], cfg.norm_eps)
         k = head_rms_norm(k, p["k_scale"], cfg.norm_eps)
@@ -82,8 +97,7 @@ def causal_mask(S: int, T: int, offset: int = 0,
 def _cross_q(p, x, cfg: ModelConfig):
     """The cross-attention query of x (B,S,d): no rope, as the encoder's
     keys carry the frames' positions."""
-    B, S, _ = x.shape
-    q = dense(x, p["wq"]).reshape(B, S, cfg.num_heads, cfg.head_dim)
+    q = _split_heads(dense(x, p["wq"]), cfg.num_heads, cfg.head_dim)
     if cfg.qk_norm:
         q = head_rms_norm(q, p["q_scale"], cfg.norm_eps)
     return q
@@ -102,8 +116,13 @@ def attention(p, x, positions, cfg: ModelConfig, *,
         q, k, v = _project_qkv(p, x, positions, cfg)
     window = (cfg.sliding_window
               if cfg.attention_kind == "sliding_window" else None)
+    q = shard(q, "batch", None, "model", None)
+    k = shard(k, "batch", None, "model", None)
+    v = shard(v, "batch", None, "model", None)
     out = gqa_attend(q, k, v, cfg, causal=causal, window=window)
-    return dense(out.reshape(B, S, -1), p["wo"])
+    out = shard(out, "batch", None, "model", None)
+    y = dense(out.reshape(B, S, -1), p["wo"])
+    return shard(y, "batch", "seq", None)
 
 
 def gqa_attend(q, k, v, cfg: ModelConfig, *, causal: bool = True,
@@ -115,6 +134,14 @@ def gqa_attend(q, k, v, cfg: ModelConfig, *, causal: bool = True,
     if cfg.use_flash_kernel and S > 1:
         from repro_torch.kernels import ops as K
         return K.flash_attention(q, k, v, causal=causal, window=window)
+    # under a mesh, on each rank's own rows and heads
+    return SH.local_heads(
+        lambda q, k, v: _gqa_plain(q, k, v, cfg, causal, window), q, k, v)
+
+
+def _gqa_plain(q, k, v, cfg: ModelConfig, causal: bool,
+               window: Optional[int]) -> torch.Tensor:
+    S = q.shape[1]
     if cfg.attn_q_chunk and S > cfg.attn_q_chunk:
         return _gqa_chunked(q, k, v, cfg, causal=causal, window=window)
     scores = _gqa_scores(q, k)
@@ -153,9 +180,8 @@ def _gqa_chunked(q, k, v, cfg: ModelConfig, *, causal: bool,
 
 def encoder_kv(p, enc_x, cfg: ModelConfig):
     """Cross-attention K/V from the encoder output (cached at prefill)."""
-    B, T, _ = enc_x.shape
-    k = dense(enc_x, p["wk"]).reshape(B, T, cfg.num_kv_heads, cfg.head_dim)
-    v = dense(enc_x, p["wv"]).reshape(B, T, cfg.num_kv_heads, cfg.head_dim)
+    k = _split_heads(dense(enc_x, p["wk"]), cfg.num_kv_heads, cfg.head_dim)
+    v = _split_heads(dense(enc_x, p["wv"]), cfg.num_kv_heads, cfg.head_dim)
     if cfg.qk_norm:
         k = head_rms_norm(k, p["k_scale"], cfg.norm_eps)
     return k, v
@@ -242,7 +268,7 @@ def attention_decode(p, x, cache_k, cache_v, pos, cfg: ModelConfig, *,
                                     block_tables.int(), pos_b.int(),
                                     logical_len=C)
             y = dense(out.reshape(B, 1, -1), p["wo"])
-            return y, cache_k, cache_v
+            return shard(y, "batch", None, None), cache_k, cache_v
         k = _paged_gather(cache_k, block_tables, C)
         v = _paged_gather(cache_v, block_tables, C)
     else:
@@ -273,12 +299,13 @@ def attention_decode(p, x, cache_k, cache_v, pos, cfg: ModelConfig, *,
         valid = (idx <= (pos_b % C)[:, None]) | (pos_b[:, None] >= C)
     else:
         valid = idx <= pos_b[:, None]
+    q = shard(q, "batch", None, "model", None)
     scores = _gqa_scores(q, k)  # (B,Hk,G,1,C)
     scores = torch.where(valid[:, None, None, None], scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1)
     out = _gqa_out(probs, v)
     y = dense(out.reshape(B, 1, -1), p["wo"])
-    return y, cache_k, cache_v
+    return shard(y, "batch", None, None), cache_k, cache_v
 
 
 def attention_verify(p, x, cache_k, cache_v, pos, cfg: ModelConfig, *,
@@ -353,9 +380,10 @@ def attention_verify(p, x, cache_k, cache_v, pos, cfg: ModelConfig, *,
                 keep, v1[:, i].to(cache_v.dtype), cache_v[rows, slot])
         k, v = cache_k, cache_v
     valid = torch.arange(C, device=x.device)[None, None] <= qpos[:, :, None]
+    q = shard(q, "batch", None, "model", None)
     scores = _gqa_scores(q, k)  # (B,Hk,G,S,C)
     scores = torch.where(valid[:, None, None], scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1)
     out = _gqa_out(probs, v)
     y = dense(out.reshape(B, S, -1), p["wo"])
-    return y, cache_k, cache_v
+    return shard(y, "batch", None, None), cache_k, cache_v

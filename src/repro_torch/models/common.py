@@ -1,9 +1,11 @@
 """Shared building blocks: parameter descriptors, norms, RoPE, activations.
 
 The PyTorch counterpart of the JAX package's ``models/common.py``.  The
-descriptor tree is the single source of truth for parameter shapes and
-initializers; ``init_params`` materializes it from a ``torch.Generator``.
-Weights keep the JAX layout: ``dense`` takes ``w`` as ``(in, *out)``.
+descriptor tree is the single source of truth for parameter shapes, logical
+axis names and initializers; ``init_params`` materializes it from a
+``torch.Generator`` and ``param_pspecs`` resolves its names to specs under
+the active axis env and mesh (``core/sharding.py``).  Weights keep the JAX
+layout: ``dense`` takes ``w`` as ``(in, *out)``.
 """
 from __future__ import annotations
 
@@ -31,6 +33,14 @@ class ParamDesc:
     dtype: str = "bfloat16"
     init: str = "normal"  # normal | zeros | ones | small_normal
     fan_in: Optional[int] = None  # for 'normal': scale = 1/sqrt(fan_in)
+    # logical axis name per dim (None | "model" | "layers"), resolved by
+    # the active AxisEnv; None: every dim replicated
+    spec: Optional[Tuple[Optional[str], ...]] = None
+
+    @property
+    def names(self) -> Tuple[Optional[str], ...]:
+        return self.spec if self.spec is not None else (None,) * len(
+            self.shape)
 
 
 # elements drawn in one piece (4 GiB of fp32)
@@ -85,6 +95,13 @@ def init_params(tree: Dict[str, Any], generator: torch.Generator,
     """Materialize a descriptor tree; leaves are drawn in sorted-key order
     from ``generator``, which must live on ``device``."""
     return tree_map(lambda d: _materialize(d, generator, device), tree)
+
+
+def param_pspecs(tree):
+    """Resolve the logical names of a descriptor tree to specs under the
+    active AxisEnv and mesh (FSDP included)."""
+    from repro_torch.core.sharding import resolve_param_spec
+    return tree_map(lambda d: resolve_param_spec(d.shape, d.names), tree)
 
 
 # --------------------------------------------------------------------------
@@ -147,3 +164,78 @@ def dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     w2 = w.reshape(w.shape[0], -1).to(x.dtype)
     y = torch.matmul(x, w2)
     return y.reshape(out_shape)
+
+
+# --------------------------------------------------------------------------
+# Vocab-parallel embedding gather
+# --------------------------------------------------------------------------
+class _VocabGather(torch.autograd.Function):
+    """Rows `ids` of a table whose local shard holds vocab rows [lo, hi):
+    the forward gathers the local rows, zeroes ids outside the range and
+    sums the partial results over `groups` (the mesh dims the vocab is
+    split over); the backward scatter-adds the output gradient into the
+    local rows, with no communication (every rank holds the whole output
+    gradient)."""
+
+    @staticmethod
+    def forward(ctx, table, ids, lo: int, groups):
+        hi = lo + table.shape[0]
+        inside = (ids >= lo) & (ids < hi)
+        local = torch.where(inside, ids - lo, 0)
+        out = table[local] * inside[..., None].to(table.dtype)
+        for g in groups:
+            torch.distributed.all_reduce(out, group=g)
+        ctx.save_for_backward(local, inside)
+        ctx.rows = table.shape[0]
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        local, inside = ctx.saved_tensors
+        g = grad * inside[..., None].to(grad.dtype)
+        # the accumulating index_put of plain indexing's own backward
+        # (deterministic on the card), so a whole table's gradient is
+        # bit for bit the plain lookup's
+        out = grad.new_zeros((ctx.rows, grad.shape[-1]))
+        out.index_put_((local,), g, accumulate=True)
+        return out, None, None, None
+
+
+def embed_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``table[ids]``.  For a DTensor table (vocab rows split over some
+    mesh dims, the model axis of ``("model", None)``), a vocab-parallel
+    gather: DTensor's own embedding op fails on a row-sharded table
+    (its masked partial result reaches no matmul intact, and its
+    backward cannot redistribute it).  A table dim 1 split by FSDP is
+    gathered first.  The result is split over the mesh dims that split
+    the ids (the batch) and replicated over the others."""
+    from repro_torch.core.sharding import is_dtensor
+    if not is_dtensor(table):
+        return table[ids.long()]
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    mesh = table.device_mesh
+    want = [Shard(0) if p == Shard(0) else Replicate()
+            for p in table.placements]
+    vocab_dims = [i for i, p in enumerate(want) if p == Shard(0)]
+    if is_dtensor(ids):
+        # a mesh dim cannot split both the ids and the vocab
+        id_pl = [Replicate() if i in vocab_dims else p
+                 for i, p in enumerate(ids.placements)]
+        ids = ids.redistribute(mesh, id_pl).to_local()
+    else:
+        id_pl = [Replicate()] * mesh.ndim
+    # the table gradient: a partial sum over the mesh dims that split the
+    # ids, its own rows over the vocab dims
+    grad_pl = [Partial() if isinstance(id_pl[i], Shard) else want[i]
+               for i in range(mesh.ndim)]
+    local = table.redistribute(mesh, want).to_local(grad_placements=grad_pl)
+    coord = mesh.get_coordinate()
+    lo, span = 0, table.shape[0]
+    for i in vocab_dims:      # mesh-dim-major chunks, as DTensor splits
+        span //= mesh.size(i)
+        lo += coord[i] * span
+    out = _VocabGather.apply(local, ids.long(), lo,
+                             [mesh.get_group(i) for i in vocab_dims])
+    out_pl = [Shard(0) if isinstance(p, Shard) else Replicate()
+              for p in id_pl]
+    return DTensor.from_local(out, mesh, out_pl, run_check=False)

@@ -15,6 +15,8 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import sharding as SH
+from repro_torch.core.sharding import shard
 from repro_torch.models.common import ParamDesc, dense
 from repro_torch.models.config import ModelConfig
 
@@ -24,11 +26,11 @@ def mlp_descs(cfg: ModelConfig, d_ff: Optional[int] = None,
     dt = dtype or cfg.param_dtype
     d, ff = cfg.d_model, d_ff or cfg.d_ff
     descs = {
-        "w1": ParamDesc((d, ff), dt, fan_in=d),
-        "w2": ParamDesc((ff, d), dt, fan_in=ff),
+        "w1": ParamDesc((d, ff), dt, fan_in=d, spec=(None, "model")),
+        "w2": ParamDesc((ff, d), dt, fan_in=ff, spec=("model", None)),
     }
     if cfg.activation == "swiglu":
-        descs["w3"] = ParamDesc((d, ff), dt, fan_in=d)
+        descs["w3"] = ParamDesc((d, ff), dt, fan_in=d, spec=(None, "model"))
     return descs
 
 
@@ -40,6 +42,7 @@ def mlp(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     else:
         # jax.nn.gelu defaults to the tanh approximation
         h = F.gelu(dense(x, p["w1"]), approximate="tanh")
+    h = shard(h, "batch", None, "model")
     return dense(h, p["w2"])
 
 
@@ -52,12 +55,16 @@ def moe_descs(cfg: ModelConfig,
     d, E, ffe = cfg.d_model, cfg.num_experts, cfg.expert_d_ff
     descs = {
         # the router stays fp32 in a bf16 model, as in the reference
-        "router": ParamDesc((d, E), "float32", fan_in=d),
-        "w1": ParamDesc((E, d, ffe), dt, fan_in=d),
-        "w2": ParamDesc((E, ffe, d), dt, fan_in=ffe),
+        "router": ParamDesc((d, E), "float32", fan_in=d, spec=(None, None)),
+        # experts on the model axis: expert parallelism
+        "w1": ParamDesc((E, d, ffe), dt, fan_in=d,
+                        spec=("model", None, None)),
+        "w2": ParamDesc((E, ffe, d), dt, fan_in=ffe,
+                        spec=("model", None, None)),
     }
     if cfg.activation == "swiglu":
-        descs["w3"] = ParamDesc((E, d, ffe), dt, fan_in=d)
+        descs["w3"] = ParamDesc((E, d, ffe), dt, fan_in=d,
+                                spec=("model", None, None))
     if cfg.moe_dense_residual:
         descs["dense"] = mlp_descs(cfg, cfg.dense_residual_d_ff, dt)
     return descs
@@ -132,34 +139,73 @@ def moe(p, x: torch.Tensor, cfg: ModelConfig, groups: Optional[int] = None):
         raise ValueError(f"moe: {N} tokens do not split into {G} groups")
     n = N // G
     C = moe_capacity(cfg, n)
-    xg = x.reshape(G, n, d)
+    # routing is per group: each rank routes its own groups (all of them
+    # where the group dim is not split), on local tensors
+    xg = shard(x.reshape(G, n, d), "batch", None, None)
+    grp = _GroupLayout(xg)
 
     logits = xg.float() @ p["router"].float()
     probs = torch.softmax(logits, dim=-1)
-    gate, idx = top_k(probs, k)                          # (G, n, k)
+    gate, idx = top_k(grp.local(probs), k)               # (G, n, k)
     gate = gate / gate.sum(-1, keepdim=True).clamp(min=1e-9)
 
     # Switch-style load-balance auxiliary loss (global statistics)
-    density = F.one_hot(idx[..., 0], E).float().mean(dim=(0, 1))
+    density = grp.wrap(F.one_hot(idx[..., 0], E).float()).mean(dim=(0, 1))
     aux = E * torch.sum(density * probs.mean(dim=(0, 1)))
 
-    rows, slot_to_src = moe_slots(idx.reshape(G, n * k), E, C)
+    rows, slot_to_src = moe_slots(idx.reshape(-1, n * k), E, C)
     # dispatch: slot <- its choice's token (choice j of token t is source
     # t*k + j, as in the reference's token-repeated rows); empty slots
     # read the zero row n
     src = slot_to_src[:, :E * C]
     tok = torch.where(src < n * k, src // k, n)
-    xpad = torch.cat([xg, xg.new_zeros(G, 1, d)], dim=1)
-    eb = xpad.gather(1, tok[:, :, None].expand(G, E * C, d))
-    out = _experts(p, eb.reshape(G, E, C, d), cfg)
+    xl = grp.local(xg)
+    Gl = xl.shape[0]
+    xpad = torch.cat([xl, xl.new_zeros(Gl, 1, d)], dim=1)
+    eb = xpad.gather(1, tok[:, :, None].expand(Gl, E * C, d))
+    eb = grp.wrap(eb.reshape(Gl, E, C, d))
+    eb = shard(eb, "batch", "model", None, None)  # <- all-to-all (d -> E)
+    out = shard(_experts(p, eb, cfg), "batch", "model", None, None)
 
-    # combine: each choice reads its slot (dropped ones the zero row E*C)
-    flat = torch.cat([out.reshape(G, E * C, d), out.new_zeros(G, 1, d)],
-                     dim=1)
-    gathered = flat.gather(1, rows[:, :, None].expand(G, n * k, d))
-    gathered = gathered.reshape(G, n, k, d)
-    y = torch.sum(gathered * gate[..., None].to(out.dtype), dim=2)
+    # combine: each choice reads its slot (dropped ones the zero row E*C);
+    # all-to-all back (E -> d) first
+    flat = torch.cat([out.reshape(G, E * C, d),
+                      grp.wrap(xl.new_zeros(Gl, 1, d))], dim=1)
+    flat = shard(flat, "batch", None, "model")
+    fl = grp.local(flat)
+    dl = fl.shape[-1]
+    gathered = fl.gather(1, rows[:, :, None].expand(Gl, n * k, dl))
+    # the gate product under DTensor, whose backward sums the gate's
+    # gradient over the mesh dims that split d
+    gathered = grp.wrap(gathered.reshape(Gl, n, k, dl), like=flat, d_dim=3)
+    y = torch.sum(gathered * grp.wrap(gate)[..., None].to(out.dtype), dim=2)
     y = y.reshape(B, S, d)
     if cfg.moe_dense_residual:
         y = y + mlp(p["dense"], x, cfg)
-    return y, aux
+    return shard(y, "batch", "seq", None), aux
+
+
+class _GroupLayout:
+    """The MoE's routing tensors are each rank's own groups: the local
+    rows of the group dim of `xg`, laid out as ("batch", None, None).
+    `local` takes a DTensor's local tensor; `wrap` makes a local (G_l,
+    ...) tensor a DTensor again, with xg's placements (or those of
+    `like`, of the same rank).  Without a mesh both are identities."""
+
+    def __init__(self, xg):
+        self.xg = xg if SH.is_dtensor(xg) else None
+
+    def local(self, t):
+        return t.to_local() if self.xg is not None else t
+
+    def wrap(self, t, like=None, d_dim=None):
+        """`like`'s split of its last dim goes to dim `d_dim` of t."""
+        if self.xg is None:
+            return t
+        from torch.distributed.tensor import DTensor, Shard
+        like = self.xg if like is None else like
+        pl = like.placements
+        if d_dim is not None:
+            pl = [Shard(d_dim) if isinstance(q, Shard) and q.dim != 0 else q
+                  for q in pl]
+        return DTensor.from_local(t, like.device_mesh, pl, run_check=False)

@@ -28,8 +28,11 @@ from repro_torch.models import attention as A
 from repro_torch.models import mlp as M
 from repro_torch.models import rwkv as RW
 from repro_torch.models import ssm as SSM
-from repro_torch.models.common import (ParamDesc, dense, init_params,
-                                       rms_norm, torch_dtype, tree_map)
+from repro_torch.core import sharding as SH
+from repro_torch.core.sharding import shard
+from repro_torch.models.common import (ParamDesc, dense, embed_lookup,
+                                       init_params, param_pspecs, rms_norm,
+                                       torch_dtype, tree_map)
 from repro_torch.models.config import ModelConfig
 
 # the attention families: a position-indexed K/V cache, one per layer
@@ -44,11 +47,13 @@ VISION_EMBED_DIM = 1024  # stub ViT output dim (CLIP ViT-L) for VLM backbones
 
 def _stack(tree, L: int):
     return tree_map(lambda d: ParamDesc((L,) + d.shape, d.dtype, d.init,
-                                        d.fan_in), tree)
+                                        d.fan_in, ("layers",) + d.names),
+                    tree)
 
 
 def _norm_desc(cfg):
-    return ParamDesc((cfg.d_model,), cfg.param_dtype, init="ones")
+    return ParamDesc((cfg.d_model,), cfg.param_dtype, init="ones",
+                     spec=(None,))
 
 
 def _attn_mlp_block_descs(cfg: ModelConfig, cross: bool = False):
@@ -79,12 +84,13 @@ def block_descs(cfg: ModelConfig) -> Dict[str, Any]:
 def model_descs(cfg: ModelConfig) -> Dict[str, Any]:
     dt = cfg.param_dtype
     descs = {
+        # vocab-parallel: rows on the model axis (`_embed`)
         "embed": ParamDesc((cfg.vocab_size, cfg.d_model), dt,
-                           init="small_normal"),
+                           init="small_normal", spec=("model", None)),
         "blocks": _stack(block_descs(cfg), cfg.num_layers),
         "final_norm": _norm_desc(cfg),
         "lm_head": ParamDesc((cfg.d_model, cfg.vocab_size), dt,
-                             fan_in=cfg.d_model),
+                             fan_in=cfg.d_model, spec=(None, "model")),
     }
     if cfg.arch_type == "hybrid":
         # one attention+MLP block, applied after every hybrid_attn_every
@@ -96,7 +102,8 @@ def model_descs(cfg: ModelConfig) -> Dict[str, Any]:
         descs["enc_final_norm"] = _norm_desc(cfg)
     if cfg.arch_type == "vlm":
         descs["vproj"] = ParamDesc((VISION_EMBED_DIM, cfg.d_model), dt,
-                                   fan_in=VISION_EMBED_DIM)
+                                   fan_in=VISION_EMBED_DIM,
+                                   spec=(None, None))
     return descs
 
 
@@ -109,6 +116,27 @@ def n_prefix(cfg: ModelConfig) -> int:
 def init_model(cfg: ModelConfig, generator: torch.Generator):
     """Random weights drawn from `generator`, on the generator's device."""
     return init_params(model_descs(cfg), generator, generator.device)
+
+
+def model_abstract(cfg: ModelConfig):
+    """The parameters as ``device="meta"`` tensors (shapes and dtypes)."""
+    return tree_map(lambda d: torch.empty(d.shape, dtype=torch_dtype(d.dtype),
+                                          device="meta"), model_descs(cfg))
+
+
+def model_pspecs(cfg: ModelConfig):
+    """The parameters' specs under the active AxisEnv and mesh."""
+    return param_pspecs(model_descs(cfg))
+
+
+def distribute_params(params, cfg: ModelConfig, mesh):
+    """Whole parameters (the same on every rank: `init_model` from one
+    seed, or `bridge.params_from_numpy`) as DTensors laid out by
+    `model_pspecs` over `mesh`, so their values do not depend on the
+    mesh.  Call under the AxisEnv the step runs in."""
+    with SH.use_mesh(mesh):
+        specs = model_pspecs(cfg)
+    return tree_map(lambda t, sp: SH.distribute(t, sp, mesh), params, specs)
 
 
 def _layer(blocks, i: int):
@@ -126,9 +154,13 @@ def _attn_sublayer(p, x, positions, cfg):
     B, S = pre.shape[:2]
     window = (cfg.sliding_window
               if cfg.attention_kind == "sliding_window" else None)
+    q = shard(q, "batch", None, "model", None)
+    k = shard(k, "batch", None, "model", None)
+    v = shard(v, "batch", None, "model", None)
     out = A.gqa_attend(q, k, v, cfg, causal=True, window=window)
+    out = shard(out, "batch", None, "model", None)
     y = dense(out.reshape(B, S, -1), p["attn"]["wo"])
-    return x + y, (k, v)
+    return x + shard(y, "batch", "seq", None), (k, v)
 
 
 def _ffn(p, h, cfg):
@@ -150,7 +182,7 @@ def _apply_attn_mlp(p, x, positions, cfg, enc=None):
         x = x + A.attention(p["cross"], h, positions, cfg, encoder_kv=ekv)
         kv = kv + ekv
     y, aux = _ffn(p, rms_norm(x, p["ln2"], cfg.norm_eps), cfg)
-    return x + y, kv, aux
+    return shard(x + y, "batch", "seq", None), kv, aux
 
 
 def _block(p, x, positions, cfg, enc=None):
@@ -211,7 +243,9 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *,
     under ``torch.utils.checkpoint`` (the JAX package's ``jax.checkpoint``
     of the scan body): its activations are recomputed in the backward."""
     at = cfg.arch_type
-    x = params["embed"][tokens.long()].to(torch_dtype(cfg.compute_dtype))
+    x = embed_lookup(params["embed"], tokens).to(
+        torch_dtype(cfg.compute_dtype))
+    x = shard(x, "batch", None, None)
     n_prefix = 0
     if at == "vlm":
         if extra_embeds is None:
@@ -237,7 +271,7 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *,
         x, aux, cache = _run_dense(params, cfg, x, positions, return_cache,
                                    C, remat, enc)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = dense(x, params["lm_head"])
+    logits = shard(dense(x, params["lm_head"]), "batch", None, "model")
     if n_prefix:
         logits = logits[:, n_prefix:]
     return logits, aux, cache
@@ -264,9 +298,9 @@ def _run_dense(params, cfg, x, positions, return_cache, C, remat, enc):
                               use_reentrant=False)
         else:
             x, kv, a = _apply_attn_mlp(lp, x, positions, cfg, enc)
-            if return_cache:
+            if return_cache:     # a whole cache under a mesh
                 for n, t in zip(("k", "v", "ck", "cv"), kv):
-                    cache[n][i, :, :t.shape[1]] = t
+                    cache[n][i, :, :t.shape[1]] = SH.whole(t)
         if a is not None:
             aux = aux + a
     return x, aux, cache
@@ -285,7 +319,7 @@ def _run_rwkv(params, cfg, x, return_cache, remat):
         x, st = RW.rwkv_block(lp, x, cfg)
         if return_cache:
             for n, t in st.items():
-                cache[n][i] = t
+                cache[n][i] = SH.whole(t)
     return x, torch.zeros((), dtype=torch.float32, device=x.device), cache
 
 
@@ -313,15 +347,15 @@ def _run_hybrid(params, cfg, x, positions, return_cache, C, remat):
         y, (st, conv) = SSM.ssm_block(lp["ssm"], pre, cfg)
         x = x + y
         if return_cache:
-            cache["ssm"][i] = st
+            cache["ssm"][i] = SH.whole(st)
             for n, ring in conv.items():
-                cache["conv"][n][i] = ring
+                cache["conv"][n][i] = SH.whole(ring)
         if with_shared:
             x, (k, v), _ = _apply_attn_mlp(shared, x, positions, cfg)
             if return_cache:
                 j = i // cfg.hybrid_attn_every
-                cache["sk"][j, :, :S] = k
-                cache["sv"][j, :, :S] = v
+                cache["sk"][j, :, :S] = SH.whole(k)
+                cache["sv"][j, :, :S] = SH.whole(v)
     return x, torch.zeros((), dtype=torch.float32, device=x.device), cache
 
 
@@ -348,7 +382,9 @@ def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor, pos, cache,
         raise ValueError("active mask requires a per-row pos vector")
     if block_tables is not None and at == "ssm":
         raise ValueError("arch_type ssm has no KV cache to page")
-    x = params["embed"][tokens.long()].to(torch_dtype(cfg.compute_dtype))
+    x = embed_lookup(params["embed"], tokens).to(
+        torch_dtype(cfg.compute_dtype))
+    x = shard(x, "batch", None, None)
     if at == "hybrid":
         x = _decode_hybrid(params, cfg, x, pos, cache, active=active,
                            block_tables=block_tables,
@@ -376,7 +412,7 @@ def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor, pos, cache,
             pre2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
             x = x + _ffn(lp, pre2, cfg)[0]
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return dense(x, params["lm_head"]), cache
+    return shard(dense(x, params["lm_head"]), "batch", None, "model"), cache
 
 
 def _decode_rwkv(params, cfg, x, cache, active):
@@ -446,7 +482,9 @@ def verify_step(params, cfg: ModelConfig, tokens: torch.Tensor, pos, cache,
     at = cfg.arch_type
     if at not in ("dense", "vlm", "moe"):
         raise ValueError(f"verify_step: unsupported arch_type {at}")
-    x = params["embed"][tokens.long()].to(torch_dtype(cfg.compute_dtype))
+    x = embed_lookup(params["embed"], tokens).to(
+        torch_dtype(cfg.compute_dtype))
+    x = shard(x, "batch", None, None)
     for i in range(cfg.num_layers):
         lp = _layer(params["blocks"], i)
         pre = rms_norm(x, lp["ln1"], cfg.norm_eps)
@@ -458,7 +496,7 @@ def verify_step(params, cfg: ModelConfig, tokens: torch.Tensor, pos, cache,
         pre2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
         x = x + _ffn(lp, pre2, cfg)[0]
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return dense(x, params["lm_head"]), cache
+    return shard(dense(x, params["lm_head"]), "batch", None, "model"), cache
 
 
 # ---------------------------------------------------------------------------
@@ -576,7 +614,8 @@ def lm_loss(params, cfg: ModelConfig, batch, aux_weight: float = 0.01):
     Mean next-token cross-entropy over fp32 logits, plus aux_weight * aux."""
     logits, aux, _ = forward(params, cfg, batch["tokens"],
                              extra_embeds=batch.get("extra_embeds"))
-    logits = logits.float()
+    # vocab-sharded logits gathered whole before the softmax statistics
+    logits = shard(logits, "batch", None, None).float()
     logz = torch.logsumexp(logits, dim=-1)
     gold = logits.gather(-1, batch["labels"].long()[..., None])[..., 0]
     return (logz - gold).mean() + aux_weight * aux

@@ -15,6 +15,8 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import sharding as SH
+from repro_torch.core.sharding import shard
 from repro_torch.models.common import ParamDesc, dense, rms_norm, torch_dtype
 from repro_torch.models.config import ModelConfig
 
@@ -26,25 +28,27 @@ def rwkv_descs(cfg: ModelConfig,
     H, K = cfg.rwkv_heads, cfg.rwkv_head_dim
     return {
         # time-mix coefficients (token shift interpolation) for r,k,v,w,g
-        "mix": ParamDesc((5, d), dt, init="small_normal"),
-        "wr": ParamDesc((d, d), dt, fan_in=d),
-        "wk": ParamDesc((d, d), dt, fan_in=d),
-        "wv": ParamDesc((d, d), dt, fan_in=d),
-        "wg": ParamDesc((d, d), dt, fan_in=d),
-        "wo": ParamDesc((d, d), dt, fan_in=d),
+        "mix": ParamDesc((5, d), dt, init="small_normal", spec=(None, None)),
+        "wr": ParamDesc((d, d), dt, fan_in=d, spec=(None, "model")),
+        "wk": ParamDesc((d, d), dt, fan_in=d, spec=(None, "model")),
+        "wv": ParamDesc((d, d), dt, fan_in=d, spec=(None, "model")),
+        "wg": ParamDesc((d, d), dt, fan_in=d, spec=(None, "model")),
+        "wo": ParamDesc((d, d), dt, fan_in=d, spec=("model", None)),
         # data-dependent decay: w = exp(-exp(w0 + tanh(x@A)@B)), fp32
         # leaves in a bf16 model, as in the reference
-        "w0": ParamDesc((d,), "float32", init="zeros"),
-        "wA": ParamDesc((d, r), dt, fan_in=d),
-        "wB": ParamDesc((r, d), dt, init="small_normal"),
-        "u": ParamDesc((H, K), "float32", init="small_normal"),
-        "ln_x": ParamDesc((d,), dt, init="ones"),
+        "w0": ParamDesc((d,), "float32", init="zeros", spec=(None,)),
+        "wA": ParamDesc((d, r), dt, fan_in=d, spec=(None, None)),
+        "wB": ParamDesc((r, d), dt, init="small_normal", spec=(None, None)),
+        "u": ParamDesc((H, K), "float32", init="small_normal",
+                       spec=(None, None)),
+        "ln_x": ParamDesc((d,), dt, init="ones", spec=(None,)),
         # channel mix
-        "mix_cm": ParamDesc((2, d), dt, init="small_normal"),
-        "ck": ParamDesc((d, ff), dt, fan_in=d),
-        "cv": ParamDesc((ff, d), dt, fan_in=ff),
-        "ln1": ParamDesc((d,), dt, init="ones"),
-        "ln2": ParamDesc((d,), dt, init="ones"),
+        "mix_cm": ParamDesc((2, d), dt, init="small_normal",
+                            spec=(None, None)),
+        "ck": ParamDesc((d, ff), dt, fan_in=d, spec=(None, "model")),
+        "cv": ParamDesc((ff, d), dt, fan_in=ff, spec=("model", None)),
+        "ln1": ParamDesc((d,), dt, init="ones", spec=(None,)),
+        "ln2": ParamDesc((d,), dt, init="ones", spec=(None,)),
     }
 
 
@@ -107,10 +111,16 @@ def rwkv_block(p, x, cfg: ModelConfig, state=None):
     logw = -torch.exp(torch.clamp(p["w0"].float() + lora, -8.0, 8.0))
     w = torch.exp(logw).reshape(B, S, H, K)  # in (0,1)
 
+    heads = ("batch", None, "model", None)
+    r, k, v, w = (shard(t, *heads) for t in (r, k, v, w))
     if state is None or S > 1:
         if state is not None:  # as in the reference
             raise NotImplementedError("chunked continuation not needed")
-        y, wkv_new = wkv_scan(r, k, v, w, p["u"])
+        # under a mesh, on each rank's own rows and heads
+        y, wkv_new = SH.local_map(
+            wkv_scan, (r, k, v, w, p["u"]), (heads,) * 4 + (("model", None),),
+            [((B, S, H, K), heads),
+             ((B, H, K, K), ("batch", "model", None, None))])
     else:
         yv, wkv_new = wkv_step(state["wkv"], r[:, 0].float(),
                                k[:, 0].float(), v[:, 0].float(),
@@ -118,15 +128,15 @@ def rwkv_block(p, x, cfg: ModelConfig, state=None):
         y = yv[:, None]
     y = y.reshape(B, S, d).to(x.dtype)
     y = rms_norm(y, p["ln_x"], cfg.norm_eps) * g
-    x = x + dense(y, p["wo"])
+    x = x + shard(dense(y, p["wo"]), "batch", None, None)
 
     # ---- channel mix ----
     xc = rms_norm(x, p["ln2"], cfg.norm_eps)
     xs2 = _token_shift(xc, prev_cm)
     mix_cm = p["mix_cm"].to(x.dtype)
     xk = xc + (xs2 - xc) * mix_cm[0]
-    h = F.relu(dense(xk, p["ck"])).square()
-    y_final = x + dense(h, p["cv"])
+    h = shard(F.relu(dense(xk, p["ck"])).square(), "batch", None, "model")
+    y_final = x + shard(dense(h, p["cv"]), "batch", None, None)
     return y_final, {"wkv": wkv_new, "tm": xa[:, -1], "cm": xc[:, -1]}
 
 

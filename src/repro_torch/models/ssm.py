@@ -15,6 +15,8 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import sharding as SH
+from repro_torch.core.sharding import shard
 from repro_torch.kernels.ref import ssd_scan_ref
 from repro_torch.models.common import (ParamDesc, dense, rms_norm,
                                        torch_dtype, tree_map)
@@ -27,19 +29,22 @@ def ssm_descs(cfg: ModelConfig,
     d, din, n, h, w = (cfg.d_model, cfg.ssm_d_inner, cfg.ssm_state,
                        cfg.ssm_heads, cfg.ssm_conv_width)
     return {
-        "wz": ParamDesc((d, din), dt, fan_in=d),
-        "wx": ParamDesc((d, din), dt, fan_in=d),
-        "wB": ParamDesc((d, n), dt, fan_in=d),
-        "wC": ParamDesc((d, n), dt, fan_in=d),
-        "wdt": ParamDesc((d, h), dt, fan_in=d),
-        "conv_x": ParamDesc((w, din), dt, init="small_normal"),
-        "conv_B": ParamDesc((w, n), dt, init="small_normal"),
-        "conv_C": ParamDesc((w, n), dt, init="small_normal"),
-        "A_log": ParamDesc((h,), "float32", init="zeros"),
-        "D": ParamDesc((h,), "float32", init="ones"),
-        "dt_bias": ParamDesc((h,), "float32", init="zeros"),
-        "norm": ParamDesc((din,), dt, init="ones"),
-        "wo": ParamDesc((din, d), dt, fan_in=din),
+        "wz": ParamDesc((d, din), dt, fan_in=d, spec=(None, "model")),
+        "wx": ParamDesc((d, din), dt, fan_in=d, spec=(None, "model")),
+        "wB": ParamDesc((d, n), dt, fan_in=d, spec=(None, None)),
+        "wC": ParamDesc((d, n), dt, fan_in=d, spec=(None, None)),
+        "wdt": ParamDesc((d, h), dt, fan_in=d, spec=(None, "model")),
+        "conv_x": ParamDesc((w, din), dt, init="small_normal",
+                            spec=(None, "model")),
+        "conv_B": ParamDesc((w, n), dt, init="small_normal",
+                            spec=(None, None)),
+        "conv_C": ParamDesc((w, n), dt, init="small_normal",
+                            spec=(None, None)),
+        "A_log": ParamDesc((h,), "float32", init="zeros", spec=(None,)),
+        "D": ParamDesc((h,), "float32", init="ones", spec=(None,)),
+        "dt_bias": ParamDesc((h,), "float32", init="zeros", spec=(None,)),
+        "norm": ParamDesc((din,), dt, init="ones", spec=(None,)),
+        "wo": ParamDesc((din, d), dt, fan_in=din, spec=("model", None)),
     }
 
 
@@ -112,14 +117,22 @@ def ssm_block(p, x: torch.Tensor, cfg: ModelConfig, state=None,
         xc, ncx = _causal_conv(xr, p["conv_x"])
         bc, ncb = _causal_conv(braw, p["conv_B"])
         cc, ncc = _causal_conv(craw, p["conv_C"])
-        xh = xc.reshape(B, S, H, P)
-        y, new_state = ssd_chunked(xh, dt, p["A_log"], bc, cc, p["D"],
-                                   cfg.ssm_chunk, cfg.use_ssd_kernel)
+        heads = ("batch", None, "model", None)
+        xh = shard(xc.reshape(B, S, H, P), *heads)
+        # under a mesh, on each rank's own rows and heads
+        rows = ("batch", None, None)
+        y, new_state = SH.local_map(
+            lambda *a: ssd_chunked(*a, cfg.ssm_chunk, cfg.use_ssd_kernel),
+            (xh, dt, p["A_log"], bc, cc, p["D"]),
+            (heads, heads[:3], ("model",), rows, rows, ("model",)),
+            [((B, S, H, P), heads),
+             ((B, H, cfg.ssm_state, P), ("batch", "model", None, None))])
         y = y.reshape(B, S, H * P)
     new_conv = {"x": ncx, "B": ncb, "C": ncc}
 
     y = rms_norm(y * F.silu(z.float()).to(y.dtype), p["norm"], cfg.norm_eps)
-    return dense(y, p["wo"]), (new_state, new_conv)
+    out = shard(dense(y, p["wo"]), "batch", "seq", None)
+    return out, (new_state, new_conv)
 
 
 def ssm_state_specs(cfg: ModelConfig, batch: int, layers: int):

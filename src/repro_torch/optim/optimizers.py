@@ -5,9 +5,10 @@ parameter and state trees and leaves its inputs unchanged.
 State trees mirror the parameters with float32 moments and an int32
 ``step`` and use the JAX package's keys (``mu``, ``nu``, ``f``/``r``/``c``/
 ``v``, ``step``), so a checkpoint carries them across the two packages.
-A bf16 parameter updates in float32 and is cast back, as there.  The JAX
-optimizers' sharding specs have no counterpart on one card and are not
-ported.
+A bf16 parameter updates in float32 and is cast back, as there.  Under a
+mesh the moments of a DTensor parameter are DTensors laid out as it is
+(``state_specs``: the moments take their parameters' specs, ``step`` is
+replicated).
 """
 from __future__ import annotations
 
@@ -23,6 +24,8 @@ class Optimizer(NamedTuple):
     init: Callable[[Any], Any]
     # update(grads, state, params) -> (new params, new state)
     update: Callable[[Any, Any, Any], Tuple[Any, Any]]
+    # state_specs(param_specs) -> the state tree of specs
+    state_specs: Callable[[Any], Any]
     # the update is elementwise within a leaf (AdamW, SGD), so it may run
     # on slices of a leaf; Adafactor's factored moments and update clip
     # read the whole leaf
@@ -30,7 +33,9 @@ class Optimizer(NamedTuple):
 
 
 def _zeros_f32(p: torch.Tensor) -> torch.Tensor:
-    return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    """fp32 zeros of p's shape on p's device (a DTensor p: laid out as p)."""
+    return torch.zeros_like(p, dtype=torch.float32,
+                            memory_format=torch.contiguous_format)
 
 
 def _step0(params) -> torch.Tensor:
@@ -86,7 +91,10 @@ def sgd_momentum(lr: Callable, momentum: float = 0.9) -> Optimizer:
                          params, mu)
         return new_p, {"mu": mu, "step": step + 1}
 
-    return Optimizer(init, update)
+    def state_specs(pspecs):
+        return {"mu": pspecs, "step": ()}
+
+    return Optimizer(init, update, state_specs)
 
 
 def adamw(lr: Callable, b1: float = 0.9, b2: float = 0.95,
@@ -115,7 +123,10 @@ def adamw(lr: Callable, b1: float = 0.9, b2: float = 0.95,
         return (tree_map(upd, params, mu, nu),
                 {"mu": mu, "nu": nu, "step": step})
 
-    return Optimizer(init, update)
+    def state_specs(pspecs):
+        return {"mu": pspecs, "nu": pspecs, "step": ()}
+
+    return Optimizer(init, update, state_specs)
 
 
 def adafactor(lr: Callable, eps: float = 1e-30,
@@ -163,7 +174,22 @@ def adafactor(lr: Callable, eps: float = 1e-30,
         return (tree_map(lambda o: o[0], out),
                 {"f": tree_map(lambda o: o[1], out), "step": step})
 
-    return Optimizer(init, update, elementwise=False)
+    def state_specs(pspecs):
+        def mk(spec):
+            # row stats drop the last dim's split, col stats the 2nd-last
+            if len(spec) >= 2:
+                return {"r": spec[:-1], "c": spec[:-2] + spec[-1:]}
+            return {"v": spec}
+        return {"f": _spec_map(mk, pspecs), "step": ()}
+
+    return Optimizer(init, update, state_specs, elementwise=False)
+
+
+def _spec_map(fn, tree):
+    """Map over the specs (tuples) of a nested dict."""
+    if isinstance(tree, dict):
+        return {k: _spec_map(fn, tree[k]) for k in sorted(tree)}
+    return fn(tree)
 
 
 def get_optimizer(name: str, lr_fn) -> Optimizer:

@@ -1,0 +1,259 @@
+"""Rank body for tests/test_torch_mesh.py: one world of 4 gloo ranks that
+runs every mesh check of the port and hands rank 0's results back.
+
+Imports no JAX: the JAX references are computed in the pytest process
+and arrive here as numpy arrays (`refs`); this side returns numpy arrays
+(each DTensor made whole, which every rank must take part in) and the
+test module holds them to the references.  Each rank runs on one
+intra-op thread.
+
+  dp, tp, dp_tp, fsdp  train step of tests/_par_worker.py's tiny CFG on
+                       (4,1), (1,4), (2,2), (2,2) under DP_ENV, DP_TP_ENV,
+                       DP_TP_ENV, TRAIN_ENV, and the port's own unsharded
+                       step from the same weights
+  dp_tp_nc             the compressed dp_tp step and the unsharded one
+                       from the same generator, and each's gradients
+                       before and after the wire
+  pp                   pipeline_apply over a (4,) stage mesh, M = 4
+  smdp                 all_reduce of per-rank gradients / W
+  moe, hybrid, ssm     SMOKE forwards under dp_tp on (2,2) and unsharded
+"""
+import contextlib
+import datetime
+import pickle
+import traceback
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.bridge import params_from_numpy
+from repro_torch.core.compression import wire_roundtrip
+from repro_torch.core import sharding as SH
+from repro_torch.core.pipeline import pipeline_apply
+from repro_torch.core.sharding import whole
+from repro_torch.launch.steps import (apply_grads, loss_and_grads,
+                                      make_train_step)
+from repro_torch.models import mlp as M
+from repro_torch.models import model as MD
+from repro_torch.models.common import tree_map
+from repro_torch.models.config import ModelConfig
+from repro_torch.optim.optimizers import get_optimizer
+
+CFG = ModelConfig(name="tiny", arch_type="dense", num_layers=2,
+                  d_model=128, num_heads=8, num_kv_heads=4, d_ff=256,
+                  vocab_size=512, param_dtype="float32",
+                  compute_dtype="float32", remat="none")
+TRAIN = [("dp", "DP_ENV", (4, 1)), ("tp", "DP_TP_ENV", (1, 4)),
+         ("dp_tp", "DP_TP_ENV", (2, 2)), ("fsdp", "TRAIN_ENV", (2, 2))]
+
+
+def _np(tree):
+    return tree_map(lambda t: whole(t).detach().numpy().copy(), tree)
+
+
+def _mesh(shape, names=("data", "model")):
+    from torch.distributed.device_mesh import init_device_mesh
+    return init_device_mesh("cpu", shape, mesh_dim_names=names)
+
+
+def _batch(refs, mesh=None):
+    batch = {k: torch.from_numpy(v) for k, v in refs["batch"].items()}
+    if mesh is None:
+        return batch
+    return {k: SH.distribute(v, SH.logical("batch", None), mesh)
+            for k, v in batch.items()}
+
+
+LR = 1e-2
+
+
+def _opt():
+    return get_optimizer("adamw", lambda s: LR)
+
+
+def _step(params, batch):
+    """lm_loss gradients and one AdamW update (no clip, as the JAX
+    worker's step), in place; gnorm of the unclipped gradients."""
+    opt = _opt()
+    st = opt.init(params)
+    loss, grads = loss_and_grads(params, CFG, batch)
+    g_np = _np(grads)
+    params, st, gnorm = apply_grads(opt, params, st, grads,
+                                    max_norm=float("inf"))
+    return {"loss": float(whole(loss)), "grads": g_np,
+            "params": _np(params), "nu": _np(st["nu"]),
+            "gnorm": float(whole(gnorm))}
+
+
+def check_train(refs, env, shape):
+    mesh = _mesh(shape)
+    with SH.axis_env(getattr(SH, env)):
+        params = MD.distribute_params(
+            params_from_numpy(refs["params"], "cpu"), CFG, mesh)
+        with SH.use_mesh(mesh):
+            out = _step(params, _batch(refs, mesh))
+            out["placements"] = {
+                k: str(tuple(v.placements)) for k, v in
+                (("embed", params["embed"]), ("wq", params["blocks"][
+                    "attn"]["wq"]))}
+    out["unsharded"] = _step(params_from_numpy(refs["params"], "cpu"),
+                             _batch(refs))
+    return out
+
+
+def check_compressed(refs):
+    """The compressed dp_tp step and the unsharded one, each from the
+    same weights and a generator seeded alike; also each run's gradients
+    before and after the wire, and the sharded run's gradients (made
+    whole) through the unsharded wire with the same uniforms."""
+    mesh = _mesh((2, 2))
+    opt = _opt()
+    step = make_train_step(CFG, opt, compress_grads=True)
+    out = {}
+    for name in ("sharded", "unsharded"):
+        on = mesh if name == "sharded" else None
+        with SH.axis_env(SH.DP_TP_ENV), (
+                SH.use_mesh(on) if on else contextlib.nullcontext()):
+            def fresh():
+                p = params_from_numpy(refs["params"], "cpu")
+                return MD.distribute_params(p, CFG, mesh) if on else p
+            _, grads = loss_and_grads(fresh(), CFG, _batch(refs, on))
+            wired = wire_roundtrip(grads, torch.Generator().manual_seed(5))
+            params = fresh()
+            st = opt.init(params)
+            params, st, m = step(params, st, _batch(refs, on),
+                                 torch.Generator().manual_seed(5))
+        out[name] = {"params": _np(params), "mu": _np(st["mu"]),
+                     "nu": _np(st["nu"]), "loss": float(m["loss"]),
+                     "gnorm": float(m["gnorm"]), "grads": _np(grads),
+                     "wired": _np(wired)}
+    whole_grads = tree_map(torch.from_numpy, out["sharded"]["grads"])
+    out["rewired"] = _np(wire_roundtrip(whole_grads,
+                                        torch.Generator().manual_seed(5)))
+    return out
+
+
+def check_pp(refs):
+    mesh = _mesh((4,), ("stage",))
+    stack = {k: torch.from_numpy(v).requires_grad_(True)
+             for k, v in refs["pp_stack"].items()}
+    x = torch.from_numpy(refs["pp_x"])
+
+    def block_fn(lp, h):
+        return torch.tanh(h @ lp["w"] + lp["b"])
+
+    y = pipeline_apply(block_fn, stack, x, mesh, num_microbatches=4)
+    g = torch.autograd.grad((y ** 2).sum(), [stack["b"], stack["w"]])
+    return {"y": y.detach().numpy(), "grads": {"b": g[0].numpy(),
+                                               "w": g[1].numpy()}}
+
+
+def check_smdp(refs):
+    from repro_torch.core.data_parallel import per_worker_grads, worker_mean
+    W = dist.get_world_size()
+    r = dist.get_rank()
+    w0 = torch.from_numpy(refs["sm_w0"])
+    xw, yw = (torch.from_numpy(refs[k]) for k in ("sm_xw", "sm_yw"))
+
+    def loss_fn(w, b):
+        return torch.mean((b["x"] @ w - b["y"]) ** 2)
+
+    w = w0.clone().requires_grad_(True)
+    g = torch.autograd.grad(loss_fn(w, {"x": xw[r], "y": yw[r]}), w)[0]
+    dist.all_reduce(g)                       # the survey's Fig. 2
+    _, gw = per_worker_grads(loss_fn, w0, {"x": xw, "y": yw})
+    return {"allreduce": (g / W).numpy(), "dp_mean": worker_mean(gw).numpy()}
+
+
+def check_family(refs, arch):
+    from repro_torch.configs import get_config
+    cfg = get_config(arch, smoke=True).with_(param_dtype="float32",
+                                             compute_dtype="float32")
+    params = params_from_numpy(refs[f"fam_{arch}"], "cpu")
+    tokens = torch.from_numpy(refs["fam_tokens"])
+    mesh = _mesh((2, 2))
+    record = []
+    top_k = M.top_k
+
+    def recording(x, k):             # each MoE layer's (local) choices
+        vals, idx = top_k(x, k)
+        record.append(idx)
+        return vals, idx
+    M.top_k = recording
+    try:
+        with SH.axis_env(SH.DP_TP_ENV):
+            dparams = MD.distribute_params(params, cfg, mesh)
+            with SH.use_mesh(mesh), torch.no_grad():
+                tok = SH.distribute(tokens, SH.logical("batch", None), mesh)
+                logits, aux, _ = MD.forward(dparams, cfg, tok)
+                out = {"logits": whole(logits).numpy(),
+                       "aux": float(whole(aux))}
+                # every rank's choices, whole (group dim split like batch)
+                choices = [whole(_like_groups(i, mesh)).numpy()
+                           for i in record]
+    finally:
+        M.top_k = top_k
+    sharded_choices = choices
+    record.clear()
+    M.top_k = recording
+    try:
+        with torch.no_grad():
+            logits0, aux0, _ = MD.forward(params, cfg, tokens)
+    finally:
+        M.top_k = top_k
+    out["plain_logits"] = logits0.numpy()
+    out["plain_aux"] = float(aux0)
+    out["flips"] = int(sum((a != b.numpy()).sum()
+                           for a, b in zip(sharded_choices, record)))
+    out["layers_routed"] = len(record)
+    if out["flips"]:
+        # hold the plain forward to the sharded run's expert choices
+        forced = iter(torch.from_numpy(c) for c in sharded_choices)
+
+        def forcing(x, k):
+            idx = next(forced)
+            return x.gather(-1, idx), idx
+        M.top_k = forcing
+        try:
+            with torch.no_grad():
+                out["forced_logits"] = MD.forward(params, cfg,
+                                                  tokens)[0].numpy()
+        finally:
+            M.top_k = top_k
+    return out
+
+
+def _like_groups(idx_local, mesh):
+    from torch.distributed.tensor import DTensor
+    pl = SH.placements(SH.logical("batch", None, None), mesh)
+    return DTensor.from_local(idx_local, mesh, pl, run_check=False)
+
+
+def run(rank, world, store, refs, out_path):
+    torch.set_num_threads(1)
+    import logging
+    logging.getLogger("torch.distributed").setLevel(logging.ERROR)
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=120))
+    results = {}
+    checks = [(name, (lambda e=env, s=shape: check_train(refs, e, s)))
+              for name, env, shape in TRAIN]
+    checks += [("dp_tp_nc", lambda: check_compressed(refs)),
+               ("pp", lambda: check_pp(refs)),
+               ("smdp", lambda: check_smdp(refs))]
+    checks += [(arch, (lambda a=arch: check_family(refs, a)))
+               for arch in refs["families"]]
+    try:
+        for name, fn in checks:
+            try:
+                results[name] = fn()
+            except Exception:
+                results[name] = {"error": traceback.format_exc()}
+                print(f"rank {rank}: {name} failed\n{results[name]['error']}",
+                      flush=True)
+    finally:
+        if rank == 0:
+            with open(out_path, "wb") as f:
+                pickle.dump(results, f)
+        dist.destroy_process_group()

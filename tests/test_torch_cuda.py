@@ -1025,3 +1025,135 @@ def test_smoke_fleet_on_card_matches_cpu(hedged):
     assert gl == {"flash_attention": L * ge["prefill_ticks"],
                   "paged_attention": L * ge["decode_ticks"]}
     assert gs["drains"] == 1 or gs.get("hedges_launched", 0) >= 1
+
+
+# ---------------------------------------------------------------------------
+# the mesh on a world of one: an NCCL group of one rank
+# ---------------------------------------------------------------------------
+@pytest.fixture(scope="module")
+def one_rank_mesh(tmp_path_factory):
+    _cuda()
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_device_mesh
+    store = tmp_path_factory.mktemp("nccl") / "store"
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{store}", rank=0,
+                            world_size=1)
+    try:
+        yield make_device_mesh(1, 1)
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("env", ["dp", "tp", "dp_tp", "fsdp"])
+def test_mesh_train_step_bit_equal_on_card(env, one_rank_mesh):
+    """qwen3 SMOKE's compressed train step (fp32, the nc kernels) on a
+    1x1 mesh under each launcher env equals the plain step bit for bit:
+    parameters, moments, loss and gnorm; nc launches one a leaf."""
+    from repro_torch.core import sharding as SH
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import batch_pspecs, make_train_step
+    from repro_torch.launch.train import ENVS
+    from repro_torch.models import model as MD
+    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.optim.optimizers import adamw
+    cfg = get_config("qwen3-0.6b", smoke=True)
+    p0 = MD.init_model(cfg, torch.Generator(device="cuda").manual_seed(0))
+    opt = adamw(lambda s: 1e-2)
+    step = make_train_step(cfg, opt, compress_grads=True)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (4, 33), generator=g,
+                         device="cuda")
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+    def noise():
+        return torch.Generator(device="cuda").manual_seed(5)
+
+    pp = tree_map(torch.clone, p0)
+    pp, sp, mp = step(pp, opt.init(pp), batch, noise())
+    mesh = one_rank_mesh
+    with SH.axis_env(ENVS[env]):
+        pd = MD.distribute_params(tree_map(torch.clone, p0), cfg, mesh)
+        sd = opt.init(pd)
+        with SH.use_mesh(mesh):
+            specs = batch_pspecs(cfg, batch)
+            bd = {k: SH.distribute(v, specs[k], mesh)
+                  for k, v in batch.items()}
+            ops.reset_launches()
+            pd, sd, md = step(pd, sd, bd, noise())
+    n = len(tree_leaves(p0))
+    assert ops.nc_pack.launches == ops.nc_unpack.launches == n
+
+    def local(t):
+        return t.to_local() if SH.is_dtensor(t) else t
+    for a, b in zip(tree_leaves(pd) + tree_leaves(sd["mu"])
+                    + tree_leaves(sd["nu"]),
+                    tree_leaves(pp) + tree_leaves(sp["mu"])
+                    + tree_leaves(sp["nu"])):
+        assert torch.equal(local(a), b)
+    assert torch.equal(md["loss"], mp["loss"])
+    assert torch.equal(md["gnorm"], mp["gnorm"])
+
+
+def test_kernels_on_local_shards_of_dtensors(one_rank_mesh):
+    """flash_attention and nc_roundtrip given DTensors launch on the local
+    heads / elements and wrap the result with the input's placements,
+    bit-equal to the plain tensors' launch; one launch counted each."""
+    from repro_torch.core import sharding as SH
+    mesh = one_rank_mesh
+    g = torch.Generator(device="cuda").manual_seed(2)
+    q, k, v = (torch.randn(1, 128, h, 128, generator=g, device="cuda")
+               .bfloat16() for h in (16, 8, 8))
+    ref = ops.flash_attention(q, k, v, causal=True)
+    x = torch.randn(4099, generator=g, device="cuda")
+    u = torch.rand(4099, generator=g, device="cuda")
+    nref = ops.nc_roundtrip(x, u)
+    with SH.axis_env(SH.TP_ENV), SH.use_mesh(mesh):
+        spec = SH.logical("batch", None, "model", None)
+        qd, kd, vd = (SH.distribute(t, spec, mesh) for t in (q, k, v))
+        ops.reset_launches()
+        out = ops.flash_attention(qd, kd, vd, causal=True)
+        xd = SH.distribute(x, (None,), mesh)
+        nout = ops.nc_roundtrip(xd, u)
+    assert SH.is_dtensor(out) and out.placements == qd.placements
+    assert torch.equal(out.to_local(), ref)
+    assert SH.is_dtensor(nout) and torch.equal(nout.to_local(), nref)
+    assert (ops.flash_attention.launches, ops.nc_pack.launches,
+            ops.nc_unpack.launches) == (1, 1, 1)
+
+
+def test_pipeline_and_ddg_on_card(one_rank_mesh):
+    """pipeline_apply on a one-stage mesh equals sequential_apply bit for
+    bit, with gradients; DDG with one module equals sequential_step."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.core import decoupled as DD
+    from repro_torch.core.pipeline import pipeline_apply, sequential_apply
+    g = torch.Generator(device="cuda").manual_seed(3)
+    stack = {"w": (torch.randn(8, 16, 16, generator=g, device="cuda") * 0.3)
+             .requires_grad_(True),
+             "b": torch.zeros(8, 16, device="cuda", requires_grad=True)}
+    x = torch.randn(16, 16, generator=g, device="cuda")
+
+    def block_fn(lp, h):
+        return torch.tanh(h @ lp["w"] + lp["b"])
+    smesh = init_device_mesh("cuda", (1,), mesh_dim_names=("stage",))
+    y = pipeline_apply(block_fn, stack, x, smesh, num_microbatches=1)
+    ys = sequential_apply(block_fn, stack, x)
+    assert torch.equal(y, ys)
+    ga = torch.autograd.grad((y ** 2).sum(), [stack["w"], stack["b"]])
+    gs = torch.autograd.grad((ys ** 2).sum(), [stack["w"], stack["b"]])
+    assert all(torch.equal(a, b) for a, b in zip(ga, gs))
+
+    def fn(p, h):
+        return h @ p["w"] + p["b"]
+
+    def loss_fn(pred, batch):
+        return torch.mean((pred[:, 0] - batch["y"]) ** 2)
+    p = {"w": torch.randn(16, 1, generator=g, device="cuda") * 0.25,
+         "b": torch.zeros(1, device="cuda")}
+    batch = {"x": x, "y": torch.tanh(x.sum(-1))}
+    st, seq = DD.ddg_init([p]), [p]
+    for _ in range(3):
+        st, _ = DD.ddg_tick(st, [fn], loss_fn, batch, lr=0.05)
+        seq, _ = DD.sequential_step(seq, [fn], loss_fn, batch, lr=0.05)
+    assert all(torch.equal(st.params[0][n], seq[0][n]) for n in p)

@@ -200,3 +200,36 @@ def test_unported_arch_names_ported_ids():
     assert len(ARCH_IDS) == 10
     with pytest.raises(KeyError, match="qwen3-0.6b"):
         get_config("no-such-arch")
+
+
+# the mesh slice's modules: jax-free like every port file (the
+# parametrized guard above reads their imports), and hypar is a pure-
+# Python copy that loads neither torch nor jax
+MESH_MODULES = ("repro_torch.core.sharding", "repro_torch.core.pipeline",
+                "repro_torch.core.decoupled", "repro_torch.core.hypar",
+                "repro_torch.launch.mesh")
+
+
+@pytest.mark.parametrize("name", MESH_MODULES)
+def test_mesh_modules_load_no_jax(name):
+    top = {m.split(".")[0] for m in _loaded_by(name)}
+    assert not top & {"jax", "jaxlib", "repro"}, top
+    if name.endswith("hypar"):
+        assert not top & {"torch", "numpy"}, top
+
+
+def test_train_mesh_refuses_without_enough_cards(monkeypatch):
+    from repro_torch.launch.train import train
+    _no_cuda(monkeypatch)
+    with pytest.raises(RuntimeError, match="needs 4 CUDA devices"):
+        train(["--smoke", "--device", "cuda", "--data", "2", "--model",
+               "2", "--steps", "1"])
+
+
+@pytest.mark.parametrize("flag", [["--elastic"], ["--ckpt-dir", "x"],
+                                  ["--optimizer", "adafactor"]])
+def test_train_mesh_refuses_unported_options(flag):
+    from repro_torch.launch.train import train
+    with pytest.raises(SystemExit):
+        train(["--smoke", "--device", "cpu", "--data", "2", "--model", "1",
+               "--steps", "1"] + flag)
