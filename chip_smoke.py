@@ -187,7 +187,26 @@ Phases (each raises on failure, and then no result is printed):
      DDG over the 28 layers as 4 modules of 7 for 12 ticks (JAX's fill
      sequence of active modules, finite and falling losses) and K = 1 at
      2 layers bit-equal to sequential_step; pipeline_apply at S = 1 over
-     the 28 blocks bit-equal to sequential_apply.
+     the 28 blocks bit-equal to sequential_apply;
+ 11. deep RL (no kernel on this path: every launch count stays put):
+     `repro_torch.launch.rl` at its defaults on the card under sim, then
+     actor 1 killed at wall 15 under sim and under `--transport proc`
+     (losses, final params and transitions of the two equal float for
+     float, goodput exactly 1 - (steps - 15) / (actors * steps) of the
+     failure-free run's, the obs events carrying the JAX package's names
+     on its lanes); GORILA, Ape-X, A3C, IMPALA and DPPO one round each on
+     the card and on the CPU from the same state and host-drawn draws
+     (params within 2e-5, env states equal); IMPALA and A3C over 4096
+     workers x hidden 1024 and GORILA over 1024 actors with a 2^20-slot
+     replay (ms a round, env steps/s, finite losses);
+ 12. classic ML on data drawn on the card: distributed k-means over
+     8 x 2^20 x 64 (k 64, 20 iterations) equal to the centralized run and
+     its inertia not rising, `svm_dist_gradient` over 8 x 2^18 x 256 equal
+     to `svm_centralized`, `adaboost_dist_full` over 8 x 2^16 x 64 picking
+     the centralized stumps, DPSVM over 8 x 2^14 x 64 and fuzzy c-means
+     with Xie-Beni at k 2-8 over 8 x 2^16 x 16 (least at the 5 clusters
+     drawn; ms an iteration beside x read once at 3.35 TB/s), then the
+     distributed trainers at 1/64 of the rows on the card against the CPU.
 
 The serve runs of phase 4 are timed warm: one short batch goes through
 the same engine first (cuBLAS handles, allocator growth, first launches).
@@ -323,6 +342,29 @@ FLEET_FP32_LAYERS = 4
 # PP_B x PP_S, also in PP_M microbatches
 DDG_K, DDG_B, DDG_S, DDG_TICKS, DDG_LR = 4, 2, 1024, 12, 0.05
 PP_B, PP_S, PP_M = 2, 1024, 2
+# phase 11: deep RL.  (a) `launch.rl` at its defaults (4 actors, 40
+# rounds), then actor 1 killed at wall RL_KILL_AT under sim and under
+# proc; (b) each architecture's round on the card and on the CPU over
+# RL_CMP_W workers; (c) the rounds at a card-sized batch axis: RL_BIG_W
+# workers (RL_BIG_ACTORS for GORILA, its replay RL_BIG_CAP slots sampled
+# RL_BIG_BATCH at a time), hidden RL_BIG_HIDDEN, rollouts of 16,
+# RL_TIMED timed rounds after one warm-up
+RL_KILL_AT, RL_CMP_W = 15, 256
+RL_BIG_W, RL_BIG_ACTORS, RL_BIG_CAP, RL_BIG_BATCH = 4096, 1024, 1 << 20, 4096
+RL_BIG_HIDDEN, RL_TIMED = 1024, 5
+# phase 12: classic ML at sizes users run, the data drawn on the card from
+# CL_SEED: (name, workers, rows a worker, dims); the card-vs-CPU check
+# runs the distributed trainers at 1/CL_SMALL of the rows
+CL_KMEANS = (8, 1 << 20, 64)       # 2 GiB of fp32, k CL_K, CL_ITERS iters
+CL_SVM = (8, 1 << 18, 256)         # 2 GiB, CL_SVM_STEPS steps
+CL_BOOST = (8, 1 << 16, 64)        # 16 thresholds, CL_ROUNDS rounds
+CL_DPSVM = (8, 1 << 14, 64)        # CL_HOPS hops, SV capacity CL_SV_CAP
+CL_FUZZY = (8, 1 << 16, 16)        # k 2..8, CL_FUZZY_TRUE true clusters
+CL_K, CL_ITERS, CL_SVM_STEPS, CL_ROUNDS = 64, 20, 300, 20
+CL_HOPS, CL_SV_CAP, CL_FUZZY_TRUE, CL_FUZZY_STEPS = 8, 1024, 5, 25
+CL_SEED, CL_SMALL = 2024, 64
+KERNEL_NAMES = ("flash_attention", "paged_attention", "ssd_scan", "nc_pack",
+                "nc_unpack")
 # the nc wire format: code 1..127 <=> |value| 2^-69 .. 2^57
 NC_LO, NC_HI = 2.0 ** -69, 2.0 ** 57
 
@@ -3724,6 +3766,461 @@ def pp_phase(torch, card, cfg):
     return {"m_diff": diff, "bubble_4_8": bub}
 
 
+# ---------------------------------------------------------------------------
+# phases 11 and 12: deep RL and classic ML (no kernel on these paths)
+# ---------------------------------------------------------------------------
+def launch_counts(ops):
+    return {n: getattr(ops, n).launches for n in KERNEL_NAMES}
+
+
+def to_device(tree, dev):
+    from repro_torch.rl.agents import tree_map
+    return tree_map(lambda t: t.to(dev) if hasattr(t, "to") else t, tree)
+
+
+def check_tree_close(torch, what, got, ref, rtol, atol=None):
+    """Each leaf |got - ref| <= rtol * |ref| + atol, atol rtol * max|ref|
+    unless given; the worst ratio of error to that bound."""
+    from repro_torch.rl.agents import tree_leaves
+    worst = 0.0
+    for a, b in zip(tree_leaves(got), tree_leaves(ref)):
+        a, b = a.detach().cpu().double(), b.detach().cpu().double()
+        bound = rtol * b.abs() + (rtol * b.abs().max() if atol is None
+                                  else atol)
+        err = (a - b).abs()
+        if not bool((err <= bound).all()):
+            fail(f"{what}: max|err| {float(err.max()):.3g} beyond rtol "
+                 f"{rtol} (largest element {float(b.abs().max()):.3g})")
+        worst = max(worst, float((err / bound.clamp(min=1e-30)).max()))
+    return worst
+
+
+def rl_round(arch, state, draws, dev):
+    """One round of `arch` from `state` with `draws`, both moved to dev:
+    (params, env states, loss, replay actions or None)."""
+    from repro_torch.rl import agents as A
+    from repro_torch.rl.env import ChainEnv
+    env = ChainEnv()
+    state, draws = to_device(state, dev), to_device(draws, dev)
+    if arch in ("gorila", "apex"):
+        new, m = A.gorila_round(state, draws, env=env,
+                                prioritized=arch == "apex")
+        return (new.params, new.env_states, m["loss"],
+                new.replay.storage["action"])
+    params, env_states = state
+    fn = {"a3c": A.a3c_round, "dppo": A.dppo_round}.get(arch)
+    if fn is not None:
+        params, env_states, m = fn(params, env_states, draws, env=env)
+    else:
+        params, env_states, m = A.impala_round(params, params, env_states,
+                                               draws, env=env)
+    return params, env_states, m["loss"], None
+
+
+def rl_phase(torch, card, ops):
+    """Phase 11: deep RL on the card.
+
+    11a. `repro_torch.launch.rl.rl()` at its defaults, then with actor 1
+         killed at wall RL_KILL_AT under sim (recorded) and under proc:
+         the proc run's losses, transitions and final params equal the
+         sim run's float for float, the goodput ratio is exactly
+         1 - (steps - RL_KILL_AT) / (actors * steps), and the events carry
+         the JAX package's names on its lanes.
+    11b. GORILA, Ape-X, A3C, IMPALA and DPPO one round each over RL_CMP_W
+         workers on the card and on the CPU from the same state and the
+         same host-drawn draws: params within fp32 2e-5, env states (and
+         the replay's actions) equal.
+    11c. IMPALA and A3C over RL_BIG_W workers, GORILA over RL_BIG_ACTORS
+         actors with an RL_BIG_CAP-slot replay, hidden RL_BIG_HIDDEN:
+         ms a round and env steps/s over RL_TIMED rounds, finite losses.
+    No kernel launches anywhere in the phase."""
+    import math
+    from repro_torch.launch.rl import rl
+    from repro_torch.obs import recorder as obs
+    from repro_torch.obs.trace import write_trace
+    from repro_torch.rl import agents as A
+    from repro_torch.rl import fleet as F
+    from repro_torch.rl.env import ChainEnv, gumbel
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    before = launch_counts(ops)
+    base = os.path.join(ROOT, "build", "rl_smoke")
+    os.makedirs(base, exist_ok=True)
+    kill = os.path.join(base, "kill.json")
+    with open(kill, "w") as fh:
+        json.dump([{"step": RL_KILL_AT, "kind": "fail", "worker": 1}], fh)
+    out = {}
+
+    # 11a: the launcher; each run_fleet result kept for its params
+    fleets, real = [], F.run_fleet
+
+    def keep(**kw):
+        fleets.append(real(**kw))
+        return fleets[-1]
+    F.run_fleet = keep
+    try:
+        runs = {}
+        for name, extra in (("free", []), ("kill_sim", ["--failure-trace",
+                                                         kill]),
+                            ("kill_proc", ["--failure-trace", kill,
+                                           "--transport", "proc"])):
+            t0 = time.perf_counter()
+            if name == "kill_sim":
+                with obs.recording(obs.Recorder()) as rec:
+                    runs[name] = rl(["--device", "cuda"] + extra)
+                events = rec.events
+            else:
+                runs[name] = rl(["--device", "cuda"] + extra)
+            runs[name]["seconds"] = time.perf_counter() - t0
+    finally:
+        F.run_fleet = real
+    free, ksim, kproc = (runs[k] for k in ("free", "kill_sim", "kill_proc"))
+    steps, actors = 40, 4
+    if not (free["learner_steps"] > 0 and finite(free["losses"])
+            and free["goodput"] == actors * 16):
+        fail(f"rl: failure-free fleet {free}")
+    ratio = ksim["goodput"] / free["goodput"]
+    want = 1 - (steps - RL_KILL_AT) / (actors * steps)
+    if abs(ratio - want) > 1e-12:
+        fail(f"rl: goodput ratio {ratio} != {want}")
+    if kproc["losses"] != ksim["losses"] or \
+            kproc["transitions"] != ksim["transitions"]:
+        fail("rl: the proc fleet's losses or transitions differ from sim's")
+    if not same_tree_bits(torch, F._flatten(fleets[2].final_params),
+                          F._flatten(fleets[1].final_params)):
+        fail("rl: the proc fleet's final params differ from sim's")
+    names = {e.name for e in events}
+    need = {"actor.rollout", "replay.push", "replay.sample", "replay.update",
+            "learner.step", "learner.open", "replay.open",
+            "membership.death"}
+    lanes = {n: {e.host for e in events if e.name == n}
+             for n in ("actor.rollout", "replay.push", "learner.step")}
+    if not need <= names or not (
+            lanes["actor.rollout"] <= set(range(actors))
+            and lanes["replay.push"] <= {"replay4", "replay5"}
+            and lanes["learner.step"] == {"learner6"}):
+        fail(f"rl: events {sorted(need - names)} missing or lanes {lanes}")
+    write_trace(os.path.join(base, "rl_trace.json"), events)
+    out["fleet"] = {k: {f: v[f] for f in ("goodput", "learner_steps",
+                                          "seconds")}
+                    for k, v in runs.items()}
+    out["fleet"]["goodput_ratio"] = ratio
+    print(f"rl [{card}]: launch.rl defaults {free['seconds']:.1f} s "
+          f"(goodput {free['goodput']:.1f}, {free['learner_steps']} learner "
+          f"steps, final loss {free['losses'][-1]:.4f}); actor 1 killed at "
+          f"{RL_KILL_AT}: sim {ksim['seconds']:.1f} s, proc "
+          f"{kproc['seconds']:.1f} s, losses/params/transitions equal, "
+          f"goodput ratio {ratio:.5f} (want {want:.5f}), {len(events)} "
+          f"events")
+
+    # 11b: one round each, card vs CPU
+    env = ChainEnv()
+    g = torch.Generator().manual_seed(11)
+    W, T = RL_CMP_W, 16
+    out["rounds_cmp"] = {}
+    for arch in ("gorila", "apex", "a3c", "impala", "dppo"):
+        if arch in ("gorila", "apex"):
+            state = A.q_init(env, g, actors=W, capacity=4 * W * T)
+            state, _ = A.gorila_round(state, g, env=env)
+            draws = {"gumbel": gumbel((W, T, 2), g),
+                     "uniform": torch.rand(64, generator=g)}
+        else:
+            state = (A.ac_init(g, env.obs_dim, env.num_actions),
+                     env.reset((W,)))
+            draws = gumbel((W, T, 2), g)
+        cp, cs, cl, ca = rl_round(arch, state, draws, "cpu")
+        gp, gs, gl, ga = rl_round(arch, state, draws, "cuda")
+        worst = check_tree_close(torch, f"rl {arch} card vs cpu", gp, cp,
+                                 2e-5)
+        same = all(torch.equal(gs[k].cpu(), cs[k]) for k in ("pos", "t"))
+        if ca is not None:
+            same = same and torch.equal(ga.cpu(), ca)
+        if not same or not math.isfinite(float(gl)):
+            fail(f"rl {arch}: env states or actions differ card vs cpu, "
+                 f"or loss {float(gl)}")
+        out["rounds_cmp"][arch] = {"worst_over_tol": worst,
+                                   "loss_gpu": float(gl),
+                                   "loss_cpu": float(cl)}
+    print(f"rl [{card}]: one round of each architecture over {W} workers, "
+          f"card vs cpu: params within 2e-5 (worst at "
+          f"{max(r['worst_over_tol'] for r in out['rounds_cmp'].values()):.3f}"
+          f" of it), env states equal")
+
+    # 11c: card-sized rounds
+    gc_ = torch.Generator(device="cuda").manual_seed(12)
+    big = {}
+    for arch in ("impala", "a3c", "gorila"):
+        if arch == "gorila":
+            n = RL_BIG_ACTORS
+            state = A.q_init(env, gc_, actors=n, capacity=RL_BIG_CAP,
+                             hidden=RL_BIG_HIDDEN)
+
+            def step(s):
+                return A.gorila_round(s, gc_, env=env, batch=RL_BIG_BATCH)
+        else:
+            n = RL_BIG_W
+            state = (A.ac_init(gc_, env.obs_dim, env.num_actions,
+                               hidden=RL_BIG_HIDDEN),
+                     env.reset((n,), "cuda"))
+            fn = A.a3c_round if arch == "a3c" else None
+
+            def step(s, fn=fn):
+                p, e = s
+                if fn is None:
+                    p, e, m = A.impala_round(p, p, e, gc_, env=env)
+                else:
+                    p, e, m = fn(p, e, gc_, env=env)
+                return (p, e), m
+        state, m = step(state)                      # warm-up
+        torch.cuda.synchronize()
+        losses = []
+        t0 = time.perf_counter()
+        for _ in range(RL_TIMED):
+            state, m = step(state)
+            losses.append(m["loss"])
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / RL_TIMED
+        losses = [float(x) for x in losses]
+        if not finite(losses):
+            fail(f"rl {arch} at {n} workers: losses {losses}")
+        big[arch] = {"workers": n, "ms_per_round": ms,
+                     "env_steps_per_s": n * 16 / (ms / 1e3),
+                     "losses": losses}
+        print(f"rl [{card}]: {arch}_round over {n} workers x hidden "
+              f"{RL_BIG_HIDDEN} x rollout 16"
+              + (f", replay {RL_BIG_CAP} slots, batch {RL_BIG_BATCH}"
+                 if arch == "gorila" else "")
+              + f": {ms:.2f} ms a round, {big[arch]['env_steps_per_s']:.0f} "
+              f"env steps/s, losses finite")
+        del state
+    out["big"] = big
+    if launch_counts(ops) != before:
+        fail(f"rl: kernel launches moved {before} -> {launch_counts(ops)}")
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"rl [{card}]: phase 11 took {out['seconds']:.1f} s, peak memory "
+          f"{out['peak_mem_gb']:.2f} GB, no kernel launched")
+    torch.cuda.empty_cache()
+    return out
+
+
+def blob_data(torch, shape, centers, gen, spread=4.0):
+    """(W, n, d) points around `centers` random centers (scale `spread`),
+    unit noise, drawn from `gen` on its device."""
+    W, n, d = shape
+    dev = gen.device
+    c = torch.randn((centers, d), generator=gen, device=dev) * spread
+    x = c[torch.randint(0, centers, (W, n), generator=gen, device=dev)]
+    return x.add_(torch.randn((W, n, d), generator=gen, device=dev))
+
+
+def label_data(torch, shape, gen, sep=2.0):
+    """Two blobs labelled +-1 (tests/test_classic.py's, at `shape`), drawn
+    from `gen` on its device."""
+    W, n, d = shape
+    dev = gen.device
+    y = torch.where(torch.rand((W, n), generator=gen, device=dev) < 0.5,
+                    1.0, -1.0)
+    x = torch.randn((W, n, d), generator=gen, device=dev)
+    return x.add_(y[..., None] * (sep / d ** 0.5)), y
+
+
+def classic_runs(torch, gen, device, scale=1, central=True, timed=None):
+    """Every classic trainer on `device`, on data drawn from `gen` (on its
+    own device), the rows cut by `scale`; with `central` also the
+    centralized k-means, SVM and AdaBoost on the pooled data.  `timed`
+    (a dict) receives ms an iteration of each."""
+    from repro_torch.classic import boosting as B
+    from repro_torch.classic import kmeans as K
+    from repro_torch.classic import svm as S
+    timed = {} if timed is None else timed
+    res = {}
+
+    def run(name, iters, fn, nbytes):
+        if device != "cpu":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res[name] = fn()
+        if device != "cpu":
+            torch.cuda.synchronize()
+        timed[name] = {"ms": (time.perf_counter() - t0) * 1e3 / iters,
+                       "bound_ms": nbytes / PEAK_BYTES * 1e3}
+
+    def cut(shape):
+        return (shape[0], shape[1] // scale, shape[2])
+
+    def draw(*ts):
+        return tuple(t.to(device) for t in ts)
+    x, = draw(blob_data(torch, cut(CL_KMEANS), CL_K, gen))
+    W, n, d = x.shape
+    idx, = draw(torch.randperm(W * n, generator=gen,
+                               device=gen.device)[:CL_K])
+    nb = x.numel() * 4
+    run("kmeans_dist", CL_ITERS,
+        lambda: K.kmeans_fit(x, CL_K, CL_ITERS, noise=idx), nb)
+    if central:
+        run("kmeans_central", CL_ITERS, lambda: K.kmeans_centralized(
+            x.reshape(-1, d), CL_K, CL_ITERS, noise=idx), nb)
+    del x
+    x, y = draw(*label_data(torch, cut(CL_SVM), gen))
+    nb = x.numel() * 4
+    run("svm_dist", CL_SVM_STEPS,
+        lambda: S.svm_dist_gradient(x, y, steps=CL_SVM_STEPS)[0], nb)
+    if central:
+        run("svm_central", CL_SVM_STEPS, lambda: S.svm_centralized(
+            x.reshape(-1, x.shape[2]), y.reshape(-1),
+            steps=CL_SVM_STEPS)[0], nb)
+    del x, y
+    x, y = draw(*label_data(torch, cut(CL_BOOST), gen))
+    flat_x, flat_y = x.reshape(-1, x.shape[2]), y.reshape(-1)
+    nb = x.numel() * 4
+    grid = B.StumpGrid.from_data(flat_x, 16)
+    run("boost_dist", CL_ROUNDS,
+        lambda: B.adaboost_dist_full(x, y, CL_ROUNDS, grid), nb)
+    run("boost_sample", CL_ROUNDS,
+        lambda: B.adaboost_dist_sample(x, y, CL_ROUNDS, grid), nb)
+    if central:
+        run("boost_central", CL_ROUNDS, lambda: B.adaboost_centralized(
+            flat_x, flat_y, CL_ROUNDS, grid), nb)
+    res["boost_err"] = {k: float(B.error_rate(res[k], flat_x, flat_y))
+                        for k in ("boost_dist", "boost_sample")}
+    del x, y, flat_x, flat_y
+    x, y = draw(*label_data(torch, cut(CL_DPSVM), gen, sep=2.5))
+    nb = x.numel() * 4
+    run("dpsvm", CL_HOPS, lambda: S.dpsvm(
+        x, y, hops=CL_HOPS, sv_capacity=CL_SV_CAP // scale), nb)
+    res["dpsvm_acc"] = float(S.accuracy(res["dpsvm"][0], x.reshape(
+        -1, x.shape[2]), y.reshape(-1)))
+    del x, y
+    x, = draw(blob_data(torch, cut(CL_FUZZY), CL_FUZZY_TRUE, gen))
+    flat = x.reshape(-1, x.shape[2])
+    res["xie_beni"] = {}
+    for k in range(2, 9):
+        c = flat[draw(torch.randperm(flat.shape[0], generator=gen,
+                                     device=gen.device)[:k])[0]]
+
+        def fuzzy(c=c):
+            for _ in range(CL_FUZZY_STEPS):
+                c, obj = K.fuzzy_cmeans_step(x, c)
+            return c, obj, K.xie_beni(x, c)
+        run(f"fuzzy_k{k}", CL_FUZZY_STEPS, fuzzy, x.numel() * 4)
+        res["xie_beni"][k] = res.pop(f"fuzzy_k{k}")
+    return res
+
+
+def classic_phase(torch, card, ops):
+    """Phase 12: the classic trainers at sizes their users run, on data
+    drawn on the card from CL_SEED, with the JAX tests' claims as gates:
+    distributed k-means equals centralized (centroids and inertia history
+    within rtol 1e-5 of the largest element) and its inertia does not rise
+    (1e-6 relative); `adaboost_dist_full` picks the centralized stumps
+    with alphas within rtol 1e-5; `svm_dist_gradient` equals
+    `svm_centralized` within rtol 1e-4, atol 1e-5 (tests/test_classic.py's
+    tolerance); Xie-Beni is least at the CL_FUZZY_TRUE clusters drawn.
+    Each trainer's ms an iteration stands beside its bytes bound (x read
+    once at the HBM rate).  Then the distributed trainers at 1/CL_SMALL
+    of the rows on the card against the CPU from the same host-drawn
+    data.  No kernel launches."""
+    import math
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    before = launch_counts(ops)
+    timed = {}
+    gen = torch.Generator(device="cuda").manual_seed(CL_SEED)
+    r = classic_runs(torch, gen, "cuda", timed=timed)
+    (cd, hd), (cc, hc) = r["kmeans_dist"], r["kmeans_central"]
+    check_tree_close(torch, "kmeans dist vs central centroids", [cd], [cc],
+                     1e-5)
+    check_tree_close(torch, "kmeans dist vs central inertia", [hd], [hc],
+                     1e-5)
+    h = hd.double().cpu()
+    if not bool((h[1:] <= h[:-1] * (1 + 1e-6)).all()):
+        fail(f"kmeans inertia rose: {h.tolist()}")
+    # the weights, as tests/test_classic.py holds them; the bias's gap
+    # is reported
+    check_tree_close(torch, "svm dist vs central", r["svm_dist"]["w"],
+                     r["svm_central"]["w"], 1e-4, atol=1e-5)
+    b_gap = abs(float(r["svm_dist"]["b"] - r["svm_central"]["b"]))
+    bd, bc = r["boost_dist"], r["boost_central"]
+    if not all(torch.equal(bd[k], bc[k]) for k in "dtp"):
+        fail("adaboost dist_full picked other stumps than centralized")
+    check_tree_close(torch, "adaboost alphas", [bd["alpha"]],
+                     [bc["alpha"]], 1e-5)
+    pd, info = r["dpsvm"]
+    xb = {k: float(v[2]) for k, v in r["xie_beni"].items()}
+    # tests/test_classic.py's claim: Xie-Beni is least at the true k
+    if not (info["comm_floats"] < info["full_exchange_floats"]
+            and all(math.isfinite(v) for v in xb.values())
+            and min(xb, key=xb.get) == CL_FUZZY_TRUE
+            and math.isfinite(r["dpsvm_acc"])):
+        fail(f"dpsvm {info} / xie-beni {xb}")
+    for name, t in timed.items():
+        print(f"classic [{card}]: {name}: {t['ms']:.3f} ms an iteration, "
+              f"bound {t['bound_ms']:.3f} ms (x read once)")
+    err = r["boost_err"]
+    print(f"classic [{card}]: kmeans {CL_KMEANS} k {CL_K} dist == central, "
+          f"inertia {float(h[0]):.6g} -> {float(h[-1]):.6g}; svm "
+          f"{CL_SVM} dist == central (the bias {b_gap:.3g} apart); "
+          f"adaboost {CL_BOOST} dist_full stumps == central, error "
+          f"dist_full {err['boost_dist']:.4f} dist_sample "
+          f"{err['boost_sample']:.4f}; dpsvm {CL_DPSVM} accuracy "
+          f"{r['dpsvm_acc']:.4f}, comm {info['comm_floats']:.0f} of "
+          f"{info['full_exchange_floats']} floats; xie-beni by k "
+          f"{json.dumps({k: round(v, 4) for k, v in xb.items()})} (argmin "
+          f"{min(xb, key=xb.get)}, {CL_FUZZY_TRUE} true clusters)")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del r
+    torch.cuda.empty_cache()
+
+    # card vs CPU at 1/CL_SMALL of the rows, the data drawn on the host
+    t0 = time.perf_counter()
+    c, g = (classic_runs(torch, torch.Generator().manual_seed(CL_SEED), dev,
+                         scale=CL_SMALL, central=False)
+            for dev in ("cpu", "cuda"))
+    worst = {"kmeans_dist": check_tree_close(
+        torch, "kmeans card vs cpu", g["kmeans_dist"], c["kmeans_dist"],
+        2e-5), "svm_dist": check_tree_close(
+        torch, "svm card vs cpu", g["svm_dist"]["w"], c["svm_dist"]["w"],
+        1e-4, atol=1e-5)}
+    for key in ("boost_dist", "boost_sample"):
+        if not all(torch.equal(g[key][k].cpu(), c[key][k]) for k in "dtp"):
+            fail(f"{key}: stumps differ card vs cpu")
+        worst[key] = check_tree_close(torch, f"{key} alphas card vs cpu",
+                                      [g[key]["alpha"]], [c[key]["alpha"]],
+                                      2e-5)
+    worst["dpsvm"] = check_tree_close(torch, "dpsvm card vs cpu",
+                                      g["dpsvm"][0], c["dpsvm"][0], 1e-4,
+                                      atol=1e-5)
+    if g["dpsvm"][1] != c["dpsvm"][1]:
+        fail(f"dpsvm comm card {g['dpsvm'][1]} vs cpu {c['dpsvm'][1]}")
+    for k in range(2, 9):
+        # centroids and objective; Xie-Beni only where its denominator,
+        # the two nearest centroids' squared distance, is not rounding
+        # noise (past the true k two centroids can settle on one cluster)
+        gcen, gobj, gxb = g["xie_beni"][k]
+        ccen, cobj, cxb = c["xie_beni"][k]
+        sep = torch.cdist(ccen.double(), ccen.double()) ** 2
+        sep = float(sep[~torch.eye(k, dtype=torch.bool)].min() / sep.max())
+        worst[f"fuzzy_k{k}"] = check_tree_close(
+            torch, f"fuzzy k {k} card vs cpu",
+            [gcen, gobj] + ([gxb] if sep > 1e-6 else []),
+            [ccen, cobj] + ([cxb] if sep > 1e-6 else []), 1e-4)
+    cmp_s = time.perf_counter() - t0
+    print(f"classic [{card}]: the distributed trainers at 1/{CL_SMALL} of "
+          f"the rows, card vs cpu from the same data: stumps and SV counts "
+          f"equal, "
+          f"values within tolerance (worst at "
+          f"{max(worst.values()):.3f} of it), {cmp_s:.1f} s")
+    if launch_counts(ops) != before:
+        fail(f"classic: kernel launches moved {before} -> "
+             f"{launch_counts(ops)}")
+    out = {"timed": timed, "xie_beni": xb, "worst_over_tol": worst,
+           "peak_mem_gb": peak, "seconds": time.perf_counter() - t_phase}
+    print(f"classic [{card}]: phase 12 took {out['seconds']:.1f} s, peak "
+          f"memory {peak:.2f} GB, no kernel launched")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
@@ -3890,6 +4387,8 @@ def main(argv=None) -> int:
     elastic = elastic_phase(torch, card, ops, NC)                # phase 8
     fleet = fleet_phase(torch, card, ops, MD)                    # phase 9
     mesh = mesh_phase(torch, card, ops, tr["ms_per_step"])      # phase 10
+    rl_out = rl_phase(torch, card, ops)                          # phase 11
+    classic = classic_phase(torch, card, ops)                    # phase 12
 
     # launches by path: each counted from zero over its own main-path run
     by_path = {f"{p['arch']} serve": p["launches"]
@@ -3964,7 +4463,8 @@ def main(argv=None) -> int:
               "drain": drains, "nc_checks": nc_rows,
               "timing": dict(timing, nc=nc_t),
               "train": tr, "async_ckpt": ckpt, "train_families": fam_train,
-              "dp": dp, "elastic": elastic, "fleet": fleet, "mesh": mesh}
+              "dp": dp, "elastic": elastic, "fleet": fleet, "mesh": mesh,
+              "rl": rl_out, "classic": classic}
     if args.out:
         os.makedirs(args.out, exist_ok=True)
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as fh:

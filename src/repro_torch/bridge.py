@@ -34,23 +34,28 @@ def _leaf_to_torch(a, device: torch.device,
 
 def params_from_numpy(tree: Any, device: DeviceLike = None,
                       dtype: Optional[torch.dtype] = None) -> Any:
-    """Nested dict of numpy arrays -> the same dict of tensors on `device`
-    (the CUDA card unless given), cast to `dtype` when given, apart from
-    the leaves named in FP32_LEAVES, which become fp32."""
+    """Nested dicts and lists of numpy arrays -> the same tree of tensors
+    on `device` (the CUDA card unless given), cast to `dtype` when given,
+    apart from the leaves named in FP32_LEAVES, which become fp32.  A
+    tuple stays a tuple."""
     dev = resolve_device(device)
     if isinstance(tree, dict):
         return {k: (_leaf_to_torch(v, dev, torch.float32)
                     if dtype is not None and k in FP32_LEAVES
                     else params_from_numpy(v, dev, dtype))
                 for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(params_from_numpy(v, dev, dtype) for v in tree)
     return _leaf_to_torch(tree, dev, dtype)
 
 
 def params_to_numpy(tree: Any) -> Any:
-    """The reverse: nested dict of tensors -> nested dict of float numpy
-    arrays (bfloat16 widened to float32)."""
+    """The reverse: nested dicts and lists of tensors -> the same tree of
+    float numpy arrays (bfloat16 widened to float32)."""
     if isinstance(tree, dict):
         return {k: params_to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(params_to_numpy(v) for v in tree)
     t = tree.detach().cpu()
     if t.dtype == torch.bfloat16:
         t = t.float()

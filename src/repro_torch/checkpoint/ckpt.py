@@ -39,24 +39,38 @@ _NP_NAMES = {torch.float32: "float32", torch.bfloat16: "bfloat16",
 _TORCH_DTYPES = {name: dt for dt, name in _NP_NAMES.items()}
 
 
+def _children(tree: Pytree):
+    """(key, child) pairs of a dict (keys sorted) or a list/tuple (its
+    indices), as JAX flattens them; None for a leaf."""
+    if isinstance(tree, dict):
+        return [(str(k), tree[k]) for k in sorted(tree)]
+    if isinstance(tree, (list, tuple)):
+        return [(str(i), v) for i, v in enumerate(tree)]
+    return None
+
+
 def _flatten(tree: Pytree, prefix: str = "") -> Dict[str, torch.Tensor]:
-    """{path key: leaf}, keys in sorted order (JAX's leaf order)."""
-    if not isinstance(tree, dict):
+    """{path key: leaf}, keys in JAX's leaf order ("pi__0__w" for a list
+    inside a dict)."""
+    kids = _children(tree)
+    if kids is None:
         return {prefix: tree}
     flat = {}
-    for k in sorted(tree):
-        flat.update(_flatten(tree[k], f"{prefix}{_SEP}{k}" if prefix
-                             else str(k)))
+    for k, v in kids:
+        flat.update(_flatten(v, f"{prefix}{_SEP}{k}" if prefix else k))
     return flat
 
 
 def _unflatten_like(like: Pytree, flat: Dict[str, Any],
                     prefix: str = "") -> Pytree:
-    if not isinstance(like, dict):
+    kids = _children(like)
+    if kids is None:
         return flat[prefix]
-    return {k: _unflatten_like(like[k], flat,
-                               f"{prefix}{_SEP}{k}" if prefix else str(k))
-            for k in sorted(like)}
+    vals = [_unflatten_like(v, flat, f"{prefix}{_SEP}{k}" if prefix else k)
+            for k, v in kids]
+    if isinstance(like, dict):
+        return dict(zip(sorted(like), vals))
+    return type(like)(vals)
 
 
 def _load_leaf(step_dir: pathlib.Path, key: str, manifest: Dict,

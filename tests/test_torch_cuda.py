@@ -1157,3 +1157,144 @@ def test_pipeline_and_ddg_on_card(one_rank_mesh):
         st, _ = DD.ddg_tick(st, [fn], loss_fn, batch, lr=0.05)
         seq, _ = DD.sequential_step(seq, [fn], loss_fn, batch, lr=0.05)
     assert all(torch.equal(st.params[0][n], seq[0][n]) for n in p)
+
+
+# ---------------------------------------------------------------------------
+# deep RL and classic ML on the card (no kernel on these paths)
+# ---------------------------------------------------------------------------
+KERNELS = ("flash_attention", "paged_attention", "ssd_scan", "nc_pack",
+           "nc_unpack")
+
+
+def _launch_counts():
+    return {n: getattr(ops, n).launches for n in KERNELS}
+
+
+def _to(tree, dev):
+    from repro_torch.rl.agents import tree_map
+    return tree_map(lambda t: t.to(dev) if isinstance(t, torch.Tensor)
+                    else t, tree)
+
+
+def _rl_round(arch, state, draws, dev):
+    from repro_torch.rl import agents as A
+    from repro_torch.rl.env import ChainEnv
+    env = ChainEnv()
+    state, draws = _to(state, dev), _to(draws, dev)
+    if arch in ("gorila", "apex"):
+        new, m = A.gorila_round(state, draws, env=env,
+                                prioritized=arch == "apex")
+        return new.params, new.env_states, m["loss"]
+    params, env_states = state
+    if arch == "a3c":
+        out = A.a3c_round(params, env_states, draws, env=env)
+    elif arch == "dppo":
+        out = A.dppo_round(params, env_states, draws, env=env)
+    else:
+        out = A.impala_round(params, params, env_states, draws, env=env,
+                             use_vtrace=arch == "impala")
+    return out[0], out[1], out[2]["loss"]
+
+
+@pytest.mark.parametrize("arch", ["gorila", "apex", "a3c", "impala",
+                                  "impala_naive", "dppo"])
+def test_rl_round_on_card_matches_cpu(arch):
+    """One round of each architecture on the card and on the CPU from the
+    same state and the same host-drawn draws: params within fp32 2e-5
+    relative, env states equal, no kernel launched."""
+    _cuda()
+    from repro_torch.rl import agents as A
+    from repro_torch.rl.env import ChainEnv, gumbel
+    env = ChainEnv()
+    g = torch.Generator().manual_seed(0)
+    W, T = 64, 16
+    if arch in ("gorila", "apex"):
+        state = A.q_init(env, g, actors=W, capacity=4096)
+        state, _ = A.gorila_round(state, g, env=env)   # a filled replay
+        draws = {"gumbel": gumbel((W, T, 2), g),
+                 "uniform": torch.rand(64, generator=g)}
+    else:
+        state = (A.ac_init(g, env.obs_dim, 2), env.reset((W,)))
+        draws = gumbel((W, T, 2), g)
+    before = _launch_counts()
+    cp, cs, cl = _rl_round(arch, state, draws, "cpu")
+    gp, gs, gl = _rl_round(arch, state, draws, "cuda")
+    assert _launch_counts() == before
+    for a, b in zip(A.tree_leaves(gp), A.tree_leaves(cp)):
+        assert a.is_cuda
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=2e-5,
+                                   atol=2e-5 * float(b.abs().max()))
+    for k in ("pos", "t"):
+        assert torch.equal(gs[k].cpu(), cs[k])
+    np.testing.assert_allclose(float(gl), float(cl), rtol=2e-5, atol=1e-6)
+
+
+def test_rl_fleet_on_card_matches_cpu():
+    """run_fleet with actor 1 killed on the card and on the CPU: the
+    simulated clock's results equal (the draws are host-drawn), losses
+    within rtol 2e-5."""
+    _cuda()
+    from repro_torch.elastic import FailureTrace
+    from repro_torch.rl.fleet import run_fleet
+    out = {dev: run_fleet(actors=4, steps=20, rollout_len=8, batch=8,
+                          trace=FailureTrace.single_failure(12, 1),
+                          device=dev) for dev in ("cpu", "cuda")}
+    c, g = out["cpu"], out["cuda"]
+    assert (g.transitions, g.env_steps, g.learner_steps, g.final_version,
+            g.staleness_sum, g.final_actors) == \
+        (c.transitions, c.env_steps, c.learner_steps, c.final_version,
+         c.staleness_sum, c.final_actors)
+    np.testing.assert_allclose(g.losses, c.losses, rtol=2e-5, atol=1e-6)
+
+
+def _classic_small(which, dev):
+    from repro_torch.classic import boosting as B
+    from repro_torch.classic import kmeans as K
+    from repro_torch.classic import svm as S
+    g = torch.Generator().manual_seed(0)
+    W, n, d = 4, 2048, 16
+    y = torch.where(torch.rand(W, n, generator=g) < 0.5, 1.0, -1.0)
+    x = (y[..., None] * 0.7 + torch.randn((W, n, d), generator=g))
+    x, y = x.to(dev), y.to(dev)
+    if which == "kmeans":
+        idx = torch.randperm(W * n, generator=g)[:8]
+        return K.kmeans_fit(x, 8, iters=10, noise=idx)
+    if which == "fuzzy":
+        c = x.reshape(-1, d)[:5]
+        for _ in range(5):
+            c, obj = K.fuzzy_cmeans_step(x, c)
+        return c, obj, K.xie_beni(x, c)
+    if which == "svm":
+        return S.svm_dist_gradient(x, y, steps=100)[0]
+    if which == "dpsvm":
+        return S.dpsvm(x, y, hops=4, local_steps=50, sv_capacity=128)
+    m = B.adaboost_dist_full(x, y, rounds=10)
+    return m["d"], m["t"], m["p"], m["alpha"]
+
+
+@pytest.mark.parametrize("which", ["kmeans", "fuzzy", "svm", "dpsvm",
+                                   "adaboost"])
+def test_classic_trainer_on_card_matches_cpu(which):
+    """Each classic trainer on the card and on the CPU from the same data:
+    integer results equal, fp32 values within 2e-5 relative (the SVMs'
+    weights, sums of many subgradient steps, within 1e-4), no kernel
+    launched."""
+    _cuda()
+    before = _launch_counts()
+    c = _classic_small(which, "cpu")
+    g = _classic_small(which, "cuda")
+    assert _launch_counts() == before
+    flat = (lambda r: [r[k] for k in sorted(r)] if isinstance(r, dict)
+            else list(r))
+    if which == "dpsvm":
+        assert g[1] == c[1]
+        c, g = c[0], g[0]
+    tol = 1e-4 if which in ("svm", "dpsvm") else 2e-5
+    for a, b in zip(flat(g), flat(c)):
+        assert a.is_cuda
+        if b.dtype in (torch.int64, torch.int32):
+            assert torch.equal(a.cpu(), b)
+        else:
+            np.testing.assert_allclose(a.cpu().numpy(), b.numpy(),
+                                       rtol=tol, atol=tol * float(
+                                           b.abs().max()))

@@ -233,3 +233,35 @@ def test_train_mesh_refuses_unported_options(flag):
     with pytest.raises(SystemExit):
         train(["--smoke", "--device", "cpu", "--data", "2", "--model", "1",
                "--steps", "1"] + flag)
+
+
+# the RL and classic slices: their packages load without torch (the
+# exports are lazy), and their entry points refuse to run without a card
+@pytest.mark.parametrize("name", ["repro_torch.rl", "repro_torch.classic"])
+def test_rl_and_classic_packages_import_without_torch(name):
+    import subprocess
+    import sys
+    code = (f"import sys, {name} as m; m.__doc__; "
+            "print(sorted(x for x in ('torch', 'jax', 'repro') "
+            "if x in sys.modules))")
+    out = subprocess.run([sys.executable, "-c", code], check=True,
+                         capture_output=True, text=True,
+                         env={"PYTHONPATH": str(ROOT / "src"),
+                              "PATH": "/usr/bin:/bin"})
+    assert out.stdout.strip() == "[]"
+
+
+def test_rl_launcher_refuses_without_cuda(monkeypatch):
+    from repro_torch.launch.rl import rl
+    _no_cuda(monkeypatch)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        rl(["--steps", "1"])
+
+
+def test_run_fleet_refuses_without_cuda(monkeypatch):
+    from repro_torch.rl.fleet import run_fleet
+    _no_cuda(monkeypatch)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_fleet(steps=1, evaluate=False)
+    assert run_fleet(steps=1, batch=64, evaluate=False,
+                     device="cpu").env_steps == 4 * 16
