@@ -206,7 +206,25 @@ Phases (each raises on failure, and then no result is printed):
      the centralized stumps, DPSVM over 8 x 2^14 x 64 and fuzzy c-means
      with Xie-Beni at k 2-8 over 8 x 2^16 x 16 (least at the 5 clusters
      drawn; ms an iteration beside x read once at 3.35 TB/s), then the
-     distributed trainers at 1/64 of the rows on the card against the CPU.
+     distributed trainers at 1/64 of the rows on the card against the CPU;
+ 13. serving under a mesh, the dry run and the roofline: (a) phase 4's
+     stream through `repro_torch.launch.serve --continuous --paged
+     --data 1 --model 1` on an NCCL group of one rank (qwen3-0.6b at full
+     width, the weights of phase 4's seed): the greedy streams equal
+     phase 4's token for token, flash launches 28 an admit and paged 28
+     a decode tick exactly, the k and v pools DTensors placed as
+     `cache_pspecs(serve=True)` says; tokens/s and wall ms a decode
+     tick beside phase 4's; (b) `python -m repro_torch.launch.dryrun
+     --arch qwen3-0.6b --shape all --mesh single` as a subprocess with no
+     card visible, on the (32, 8) mesh of a fake group of 256: every
+     record ok or skipped, useful_ratio in (0, 1], each record's three
+     terms (H100 SXM published peaks on counted work), bottleneck and
+     bound printed; (c) `launch/steps.cost_plan` of phase 6's train step
+     (qwen3-0.6b, 2 x 4096, AdamW, block remat; without the gradient
+     compression phase 6 adds) on a fake (1, 1) mesh: its lower bound
+     beside phase 6's measured ms a step, which must not beat it (share
+     of the bound in the step at most 1.05).  Phase 1 checks first that
+     this torch has `torch.testing._internal.distributed.fake_pg`.
 
 The serve runs of phase 4 are timed warm: one short batch goes through
 the same engine first (cuBLAS handles, allocator growth, first launches).
@@ -4221,6 +4239,174 @@ def classic_phase(torch, card, ops):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 13: serving under a mesh, the dry run, the roofline
+# ---------------------------------------------------------------------------
+# share of a counted lower bound in a measured step above which the count
+# is wrong (the step cannot beat its bound)
+BOUND_SHARE_MAX = 1.05
+
+
+def mesh_serve_phase(torch, card, ops, phase4, fins4, train_ms, out_dir):
+    t_phase = time.perf_counter()
+    out = {"serve": mesh_serve(torch, card, ops, phase4, fins4)}
+    out["dryrun"] = dryrun_phase(card, out_dir)
+    out["roofline"] = roofline_phase(torch, card, train_ms)
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"mesh serve [{card}]: phase 13 took {out['seconds']:.1f} s")
+    return out
+
+
+def mesh_serve(torch, card, ops, phase4, fins4):
+    """13a: phase 4's requests through the serve launcher on a (1, 1)
+    mesh over an NCCL group of one rank."""
+    import logging
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.core import sharding as SH
+    from repro_torch.launch.mesh import make_device_mesh
+    from repro_torch.launch.serve import serve, summary
+    from repro_torch.serving import Request
+    cfg = kernel_cfg(ARCH)
+    reqs = make_requests(cfg, Request)
+    argv = ["--arch", ARCH, "--continuous", "--paged", "--page-size",
+            str(PAGE), "--batch", str(SLOTS), "--requests", str(REQUESTS),
+            "--prompt-len", str(PLEN[1]), "--gen", str(GEN[1]),
+            "--data", "1", "--model", "1"]
+    logging.getLogger("torch.distributed").setLevel(logging.ERROR)
+    torch.cuda.set_device(0)
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
+                                rank=0, world_size=1)
+        try:
+            mesh = make_device_mesh(1, 1)
+            torch.cuda.synchronize()
+            ops.reset_launches()
+            res = serve(argv, mesh=mesh, requests=reqs)
+            torch.cuda.synchronize()
+            launches = {n: getattr(ops, n).launches for n in
+                        ("flash_attention", "paged_attention", "ssd_scan")}
+            with SH.axis_env(SH.DP_TP_ENV), SH.use_mesh(mesh):
+                placed = summary(res)["placements"]
+            eng = res["engine"]
+            dtensors = [SH.is_dtensor(t) for t in eng.cache.values()]
+            del res["engine"], eng
+        finally:
+            dist.destroy_process_group()
+    st, fins = res["stats"], res["finished"]
+    want = want_launches(cfg, st)
+    if launches != want:
+        fail(f"mesh serve: launches {launches}, want {want} "
+             f"({st['prefill_ticks']} admits, {st['decode_ticks']} decode "
+             f"ticks)")
+    if not all(dtensors) or any(got != want_pl for got, want_pl, _ in placed):
+        fail(f"mesh serve: pools {placed} (DTensors: {dtensors}), not as "
+             f"cache_pspecs(serve=True) places them")
+    same = same_share(fins, fins4)
+    if [f.tokens for f in fins] != [f.tokens for f in fins4]:
+        fail(f"mesh serve: the streams part from phase 4's ({same:.4f} of "
+             f"the tokens equal)")
+    tps = st["generated_tokens"] / res["t_total"]
+    tick_ms = 1e3 * res["t_total"] / st["decode_ticks"]
+    p4 = phase4["stats"]
+    p4_tick_ms = 1e3 * p4["wall_s"] / p4["decode_ticks"]
+    print(f"mesh serve [{card}]: {ARCH} through `launch.serve --continuous "
+          f"--paged --data 1 --model 1` on an NCCL world of one: "
+          f"{st['generated_tokens']} tokens in {res['t_total']:.2f} s = "
+          f"{tps:.1f} tok/s (phase 4, warm: {p4['tok_s']:.1f}), wall "
+          f"{tick_ms:.2f} ms a decode tick, admits included (phase 4: "
+          f"{p4_tick_ms:.2f}), admits={st['prefill_ticks']} "
+          f"decode_ticks={st['decode_ticks']} launches={launches}; streams "
+          f"equal to phase 4's; pools {[p[0] for p in placed]}")
+    return {"launches": launches, "stats": st, "tok_s": tps,
+            "tick_ms": tick_ms, "phase4_tok_s": p4["tok_s"],
+            "phase4_tick_ms": p4_tick_ms, "placements": placed}
+
+
+def dryrun_phase(card, out_dir):
+    """13b: the dry run of qwen3-0.6b on the (32, 8) fake mesh, in a
+    subprocess that sees no card."""
+    dest = os.path.join(out_dir, "dryrun")
+    env = dict(os.environ, PYTHONPATH=SRC, CUDA_VISIBLE_DEVICES="")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", ARCH,
+         "--shape", "all", "--mesh", "single", "--out", dest],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    secs = time.perf_counter() - t0
+    if proc.returncode:
+        fail(f"dry run: exit {proc.returncode}: {proc.stderr[-2000:]}")
+    with open(os.path.join(dest, "dryrun_32x8.json")) as fh:
+        recs = json.load(fh)
+    for key, rec in sorted(recs.items()):
+        if rec["status"] not in ("ok", "skipped"):
+            fail(f"dry run {key}: {rec['status']} {rec.get('error')}")
+        if rec["status"] == "skipped":
+            print(f"dry run {key}: skipped ({rec['reason']})")
+            continue
+        if not 0 < rec["useful_ratio"] <= 1:
+            fail(f"dry run {key}: useful_ratio {rec['useful_ratio']}")
+        print(f"dry run {key} on 32x8 (H100 SXM published peaks on counted "
+              f"work, no device): t_compute {rec['t_compute']:.4e} s, "
+              f"t_memory {rec['t_memory']:.4e} s, t_collective "
+              f"{rec['t_collective']:.4e} s, bottleneck {rec['bottleneck']}"
+              f", lower bound {rec['step_lower_bound']:.4e} s, useful "
+              f"{rec['useful_ratio']:.3f}, peak "
+              f"{rec['peak_memory_bytes'] / 1e9:.2f} GB a chip, counted in "
+              f"{rec['compile_s']} s")
+    print(f"dry run [{card}]: {len(recs)} records in {secs:.1f} s")
+    return {"records": recs, "seconds": secs}
+
+
+def roofline_phase(torch, card, train_ms):
+    """13c: phase 6's step counted on a fake (1, 1) mesh: its lower bound
+    against the measured ms a step."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import InputShape, get_config
+    from repro_torch.core import sharding as SH
+    from repro_torch.core.roofline import Roofline, model_flops
+    from repro_torch.launch.dryrun import join_fake_world
+    from repro_torch.launch.steps import build_plan, cost_plan
+    cfg = get_config(ARCH)              # phase 6's: bf16, block remat
+    B, S = 2, 4096
+    shape = InputShape("phase6", S, B, "train")
+    t0 = time.perf_counter()
+    join_fake_world(1)
+    try:
+        mesh = init_device_mesh("cpu", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        with SH.axis_env(SH.TRAIN_ENV):
+            c = cost_plan(build_plan(cfg, shape, mesh), mesh)
+    finally:
+        dist.destroy_process_group()
+    rf = Roofline(ARCH, "phase6", "1x1", 1, float(c["flops"]),
+                  float(c["bytes"]), float(c["coll_bytes"]), c["coll_by_op"],
+                  model_flops(cfg, S, B, "train"))
+    bound_ms = 1e3 * rf.step_time_lower_bound
+    share = bound_ms / train_ms
+    print(f"roofline [{card}]: {ARCH} train {B} x {S} counted on a fake "
+          f"1x1 mesh in {time.perf_counter() - t0:.1f} s: "
+          f"{c['flops'] / 1e12:.2f} TFLOP, {c['bytes'] / 1e12:.3f} TB "
+          f"(eager, unfused), t_compute {1e3 * rf.t_compute:.1f} ms, "
+          f"t_memory {1e3 * rf.t_memory:.1f} ms (H100 SXM published "
+          f"peaks), bound {bound_ms:.1f} ms ({rf.bottleneck}), useful "
+          f"{rf.useful_ratio:.3f}; phase 6 measured {train_ms:.1f} ms a "
+          f"step: the bound is {share:.3f} of it")
+    if share > BOUND_SHARE_MAX:
+        fail(f"roofline: the bound {bound_ms:.1f} ms exceeds the measured "
+             f"step {train_ms:.1f} ms (share {share:.3f}): the count is "
+             f"wrong")
+    return {"flops": c["flops"], "bytes": c["bytes"], "bound_ms": bound_ms,
+            "bottleneck": rf.bottleneck, "measured_ms": train_ms,
+            "share": share, "temp_bytes": c["temp_bytes"],
+            "argument_bytes": c["argument_bytes"]}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
@@ -4259,6 +4445,9 @@ def main(argv=None) -> int:
     t_start = time.perf_counter()
     card = card_line()                                          # phase 1
     print(card)
+    # phase 13's dry run joins the fake process group: fail now, not
+    # after the other phases, where a torch lacks it
+    import torch.testing._internal.distributed.fake_pg  # noqa: F401
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}")
 
@@ -4389,6 +4578,8 @@ def main(argv=None) -> int:
     mesh = mesh_phase(torch, card, ops, tr["ms_per_step"])      # phase 10
     rl_out = rl_phase(torch, card, ops)                          # phase 11
     classic = classic_phase(torch, card, ops)                    # phase 12
+    mesh_serve = mesh_serve_phase(torch, card, ops, paths[0],    # phase 13
+                                  ample[ARCH], tr["ms_per_step"], out_dir)
 
     # launches by path: each counted from zero over its own main-path run
     by_path = {f"{p['arch']} serve": p["launches"]
@@ -4414,6 +4605,7 @@ def main(argv=None) -> int:
     by_path.update({f"{ARCH} mesh train, {env}": r["launches"]
                     for env, r in mesh["train"]["envs"].items()})
     by_path[f"{ARCH} mesh prefill"] = mesh["prefill"]["launches"]
+    by_path[f"{ARCH} mesh serve"] = mesh_serve["serve"]["launches"]
     timing.update(nc_pack=nc_t["embed"]["nc_pack"],
                   nc_unpack=nc_t["embed"]["nc_unpack"])
     kernels = []
@@ -4464,7 +4656,7 @@ def main(argv=None) -> int:
               "timing": dict(timing, nc=nc_t),
               "train": tr, "async_ckpt": ckpt, "train_families": fam_train,
               "dp": dp, "elastic": elastic, "fleet": fleet, "mesh": mesh,
-              "rl": rl_out, "classic": classic}
+              "rl": rl_out, "classic": classic, "mesh_serve": mesh_serve}
     if args.out:
         os.makedirs(args.out, exist_ok=True)
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as fh:

@@ -229,10 +229,16 @@ def resolve_param_spec(shape: Tuple[int, ...],
 def placements(spec: Spec, mesh) -> tuple:
     """One DTensor placement per mesh dim: ``Shard(d)`` on every mesh dim
     that the spec names for tensor dim d, ``Replicate()`` on the others.
-    Axes absent from the mesh are dropped, as ``named_sharding`` does."""
+    Axes absent from the mesh are dropped, as ``named_sharding`` does,
+    and a mesh dim of size 1 splits nothing: ``Replicate()`` (DTensor
+    refuses to reshape a dim "sharded" one way)."""
     from torch.distributed.tensor import Replicate, Shard
+    sizes = mesh_shape_of(mesh)
     out = []
     for name in mesh.mesh_dim_names:
+        if sizes[name] == 1:
+            out.append(Replicate())
+            continue
         dim = None
         for d, part in enumerate(spec):
             if part is not None and name in (
@@ -333,3 +339,60 @@ def local_heads(fn, q, k, v):
         names = ("batch", None, None, None)
     return local_map(fn, (q, k, v), (names,) * 3,
                      [(tuple(q.shape), names)])
+
+
+def local(t):
+    """A DTensor's local shard (a view of it: writes land in the DTensor),
+    or t itself."""
+    return t.to_local() if is_dtensor(t) else t
+
+
+def local_slice(t, dim: int) -> slice:
+    """The global index range of this rank's shard of the DTensor `t`
+    along `dim` (even splits, mesh dims taken outer to inner, as DTensor
+    nests them); the whole range for a plain tensor."""
+    if not is_dtensor(t):
+        return slice(0, t.shape[dim])
+    from torch.distributed.tensor import Shard
+    dim %= t.dim()
+    start, size = 0, t.shape[dim]
+    for i, pl in enumerate(t.placements):
+        if isinstance(pl, Shard) and pl.dim % t.dim() == dim:
+            size //= t.device_mesh.size(i)
+            start += t.device_mesh.get_local_rank(i) * size
+    return slice(start, start + size)
+
+
+def from_local_like(out, like):
+    """The local result `out` as a DTensor laid out as the DTensor `like`
+    (its global shape follows from the even splits), or `out` itself when
+    `like` is a plain tensor."""
+    if not is_dtensor(like):
+        return out
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(out, like.device_mesh, like.placements,
+                              run_check=False)
+
+
+def local_shape(shape, pls, mesh) -> Tuple[int, ...]:
+    """A rank's shard shape of a tensor of global `shape` laid out by the
+    placements `pls` over `mesh` (even splits)."""
+    loc = list(shape)
+    for size, pl in zip(mesh.shape, pls):
+        if hasattr(pl, "dim"):
+            loc[pl.dim] //= size
+    return tuple(loc)
+
+
+def zeros(shape, dtype, spec: Spec, mesh, device):
+    """Zeros of global `shape` laid out by `spec` over `mesh`: each rank
+    allocates only its own shard.  Without a DeviceMesh, a plain
+    tensor."""
+    import torch
+    if not is_device_mesh(mesh):
+        return torch.zeros(shape, dtype=dtype, device=device)
+    from torch.distributed.tensor import DTensor
+    pls = placements(spec, mesh)
+    return DTensor.from_local(
+        torch.zeros(local_shape(shape, pls, mesh), dtype=dtype,
+                    device=device), mesh, pls, run_check=False)

@@ -13,6 +13,12 @@ local heads (or, for nc, the local elements), and wrap the result back
 as a DTensor with the input's placements; ``launches`` counts each local
 launch.
 
+On ``device="meta"`` tensors (a step counted by `core/roofline.Counter`)
+a wrapper launches nothing and runs no plain version: it records its
+kernel's work (`roofline.kernel_cost`) with the counter and returns an
+empty meta output of the kernel's shape.  Outside a counter a meta
+tensor raises.
+
 The attention kernels and the SSD scan have no backward, as the TPU
 kernels they replace have none (``jax.grad`` through them raises): their
 wrappers refuse inputs that require a gradient while autograd records, on
@@ -30,6 +36,19 @@ from repro_torch.kernels import nat_compress as _nc
 from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import ssd_scan as _ssd
+
+def _on_meta(name: str, out: torch.Tensor, **cost) -> torch.Tensor:
+    """A kernel call on meta tensors: its work recorded with the active
+    counter, and `out` (empty) returned."""
+    from repro_torch.core import roofline as RL
+    counter = RL.active_counter()
+    if counter is None:
+        raise RuntimeError(f"{name}: meta tensors run only under "
+                           f"core.roofline.Counter, which counts the "
+                           f"kernel's work")
+    counter.kernel(name, *RL.kernel_cost(name, **cost))
+    return out
+
 
 def _refuse_autograd(name: str, *tensors: torch.Tensor) -> None:
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
@@ -51,6 +70,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             lambda q, k, v: flash_attention(q, k, v, causal=causal,
                                             window=window), q, k, v)
     _refuse_autograd("flash_attention", q, k, v)
+    if q.is_meta:
+        return _on_meta("flash_attention", torch.empty_like(q),
+                        q=q.shape, k=k.shape, dtype=q.dtype, causal=causal,
+                        window=window)
     if not q.is_cuda:
         return _ref.attention_ref(q, k, v, causal=causal, window=window)
     out = _fa.flash_attention(q, k, v, causal=causal, window=window)
@@ -81,6 +104,11 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
     if logical_len is not None:
         P = k_pool.shape[1]
         block_tables = block_tables[:, :-(-logical_len // P)]
+    if q.is_meta:
+        C = block_tables.shape[1] * k_pool.shape[1]
+        return _on_meta("paged_attention", torch.empty_like(q), q=q.shape,
+                        pool=k_pool.shape, tables=block_tables.shape,
+                        dtype=q.dtype, resident=q.shape[0] * C)
     if not q.is_cuda:
         return _ref.paged_attention_ref(q, k_pool, v_pool, block_tables, pos)
     out = _pa.paged_attention(q, k_pool, v_pool, block_tables, pos)
@@ -98,6 +126,13 @@ def ssd_scan(xe: torch.Tensor, loga: torch.Tensor, b: torch.Tensor,
     last chunk is exact, where the JAX package asserts).  Returns
     (y (B,S,H,P), final state (B,H,N,P)), both float32."""
     _refuse_autograd("ssd_scan", xe, loga, b, c)
+    if xe.is_meta:
+        B, S, H, P = xe.shape
+        out = (torch.empty(xe.shape, dtype=torch.float32, device="meta"),
+               torch.empty((B, H, b.shape[-1], P), dtype=torch.float32,
+                           device="meta"))
+        return _on_meta("ssd_scan", out, xe=xe.shape, b=b.shape,
+                        chunk=chunk, xe_dtype=xe.dtype, b_dtype=b.dtype)
     if not xe.is_cuda:
         return _ref.ssd_scan_ref(xe, loga, b, c, chunk)
     out = _ssd.ssd_scan(xe, loga, b, c, chunk=chunk)
@@ -111,6 +146,10 @@ ssd_scan.launches = 0
 def nc_pack(x: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     """Natural-compress to the uint8 wire format, with the caller's
     uniforms ``u`` (float32, x's shape) as the rounding noise."""
+    if x.is_meta:
+        return _on_meta("nc_pack", torch.empty(x.shape, dtype=torch.uint8,
+                                               device="meta"),
+                        n=x.numel(), in_dtype=x.dtype)
     if not x.is_cuda:
         return _nc.pack_reference(x, u)
     out = _nc.nc_pack(x, u)
@@ -125,6 +164,10 @@ nc_pack.launches = 0
 def nc_unpack(b: torch.Tensor,
               dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """The wire format back to ``dtype``: exactly sign * 2^(code - 70)."""
+    if b.is_meta:
+        return _on_meta("nc_unpack", torch.empty(b.shape, dtype=dtype,
+                                                 device="meta"),
+                        n=b.numel(), out_dtype=dtype)
     if not b.is_cuda:
         return _nc.unpack_reference(b, dtype)
     out = _nc.nc_unpack(b, dtype)

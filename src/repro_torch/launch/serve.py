@@ -56,10 +56,28 @@ Usage:
 
 --trace-out PATH records the run (the engine's `serve.*` events and
 `request` spans) and writes a Perfetto trace, also when the run fails.
+
+--data D --model M serves every mode on a (D, M) mesh under
+``core.sharding.DP_TP_ENV``, as the JAX launcher does: the weights are
+drawn whole from --seed on every rank and each keeps its shard, the
+attention kernels run on each rank's local heads, and the caches and
+page pools are split on their K/V heads (``launch/steps.cache_pspecs``
+with serve=True).  With D*M > 1 the launcher spawns D*M ranks itself
+(gloo on the CPU, NCCL with one card a rank), each running the same
+stream; rank 0 prints the summary.  `serve(argv, mesh=...)` runs on a
+mesh over a group the caller initialised (a world of one, say).
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
+      --continuous --paged --page-size 4 --requests 6 --batch 2 \
+      --prompt-len 16 --gen 8 --data 2 --model 2
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
+import json
+import os
+import tempfile
 import time
 
 import numpy as np
@@ -67,6 +85,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs import get_config
+from repro_torch.core import sharding as SH
 from repro_torch.launch import cli
 from repro_torch.launch.steps import (make_extra, make_serve_step,
                                       sharded_argmax)
@@ -78,11 +97,10 @@ def make_static_fns(cfg, cache_len, extra=None):
     serve_step = make_serve_step(cfg)
 
     def prefill(params, tokens):
-        logits, _, cache = MD.forward(params, cfg, tokens,
-                                      extra_embeds=extra,
-                                      return_cache=True,
-                                      cache_len=cache_len)
-        return sharded_argmax(logits[:, -1])[:, None], cache
+        logits, _, cache = MD.forward(
+            params, cfg, tokens, extra_embeds=extra, return_cache=True,
+            cache_len=cache_len, sharded_cache=SH.is_dtensor(params["embed"]))
+        return SH.whole(sharded_argmax(logits[:, -1]))[:, None], cache
 
     def decode(params, tok, pos, cache):
         return serve_step(params, cache, tok, pos)
@@ -135,11 +153,13 @@ def _stream_lens(args):
     return plens, gens
 
 
-def _make_stream(cfg, args, device):
+def _make_stream(cfg, args, device, requests=None):
     """Deterministic mixed-length request stream (as the JAX launcher);
     vlm and audio requests carry the stub frontend's zeros."""
     from repro_torch.serving import Request
 
+    if requests is not None:
+        return list(requests)
     rng = np.random.RandomState(args.seed + 1)
     plens, gens = _stream_lens(args)
     return [Request(rid=i,
@@ -150,7 +170,7 @@ def _make_stream(cfg, args, device):
             for i in range(args.requests)]
 
 
-def _serve_fleet(params, cfg, args, device):
+def _serve_fleet(params, cfg, args, device, requests=None):
     from repro_torch.serving import ServeFleet
 
     trace = cli.load_failure_trace(args)
@@ -165,7 +185,7 @@ def _serve_fleet(params, cfg, args, device):
                        page_size=args.page_size if args.paged else None,
                        num_pages=args.num_pages if args.paged else None,
                        hedged_decode=args.hedged, device=device)
-    reqs = _make_stream(cfg, args, device)
+    reqs = _make_stream(cfg, args, device, requests)
     t0 = time.time()
     try:
         finished = fleet.run(reqs)
@@ -189,14 +209,14 @@ def _serve_fleet(params, cfg, args, device):
             "engine_stats": fleet.engine_stats()}
 
 
-def _serve_continuous(params, cfg, args, device):
+def _serve_continuous(params, cfg, args, device, requests=None):
     from repro_torch.serving import (LookupDraft, ModelDraft, ServeEngine,
                                      SpecDecodeEngine)
 
     # drawn lengths never exceed the CLI bounds: cache_len = S + G (and a
     # vlm's patch prefix) holds the longest prompt plus the largest budget
     S, G = args.prompt_len, args.gen
-    reqs = _make_stream(cfg, args, device)
+    reqs = _make_stream(cfg, args, device, requests)
     cache_len = S + G + MD.n_prefix(cfg)
     paged = dict(page_size=args.page_size,
                  num_pages=args.num_pages) if args.paged else {}
@@ -205,6 +225,8 @@ def _serve_continuous(params, cfg, args, device):
             dcfg = _device_config(args.draft_arch, args.smoke, device)
             dparams = MD.init_model(dcfg, torch.Generator(
                 device=device).manual_seed(args.seed + 7))
+            if SH.is_dtensor(params["embed"]):
+                dparams = MD.distribute_params(dparams, dcfg, SH.get_mesh())
             draft = ModelDraft(dparams, dcfg)
         else:
             draft = LookupDraft()
@@ -239,10 +261,17 @@ def _serve_continuous(params, cfg, args, device):
               f"accept_rate={st['accept_rate']:.2f} "
               f"tokens/round={st['tokens_per_round']:.2f}")
     print("sample generation (first request):", finished[0].tokens[:16])
-    return {"finished": finished, "stats": st, "t_total": dt}
+    return {"finished": finished, "stats": st, "t_total": dt,
+            "engine": engine}
 
 
-def serve(argv=None) -> dict:
+def serve(argv=None, *, mesh=None, requests=None, params=None) -> dict:
+    """The launcher.  With `mesh` (a (data, model) DeviceMesh over a group
+    the caller initialised, matching --data/--model) it serves on it in
+    this process; `requests` replaces the launcher's own stream
+    (--continuous / --replicas); `params`, a tree of numpy arrays
+    (`bridge.params_to_numpy`, or the JAX package's weights), replaces
+    the weights drawn from --seed."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen3-0.6b")
     ap.add_argument("--smoke", action="store_true")
@@ -282,11 +311,26 @@ def serve(argv=None) -> dict:
                     help="--replicas: hedged decode: SUSPECT replicas "
                          "keep serving while a backup continuation races "
                          "them on a healthy replica (first token wins)")
+    ap.add_argument("--data", type=int, default=1,
+                    help="data-parallel ranks of the (data, model) mesh")
+    ap.add_argument("--model", type=int, default=1,
+                    help="tensor-parallel ranks of the (data, model) mesh")
     ap.add_argument("--seed", type=int, default=0)
     cli.add_cluster_args(ap, context="--replicas")
     cli.add_trace_args(ap)
     args = ap.parse_args(argv)
-    return cli.run_traced(args, lambda: _serve(args))
+    if mesh is not None and tuple(mesh.shape) != (args.data, args.model):
+        ap.error(f"mesh {tuple(mesh.shape)} != --data {args.data} --model "
+                 f"{args.model}")
+    if mesh is None and args.data * args.model > 1:
+        if args.transport == "proc":
+            ap.error("--transport proc runs its replicas in worker "
+                     "processes; under a mesh only 'sim' is ported")
+        if args.trace_out:
+            ap.error("--trace-out is not ported for a mesh larger than 1x1 "
+                     "(--data/--model)")
+        return _serve_spawned(args, params)
+    return cli.run_traced(args, lambda: _serve(args, mesh, requests, params))
 
 
 def _device_config(arch, smoke, device):
@@ -299,18 +343,117 @@ def _device_config(arch, smoke, device):
     return cfg.with_(param_dtype="float32", compute_dtype="float32")
 
 
-def _serve(args) -> dict:
+def _serve(args, mesh=None, requests=None, weights=None) -> dict:
+    """One serve run; with `mesh`, this rank's part of it (every rank of
+    the mesh runs it, on the same stream).  `weights`: numpy params to
+    serve instead of the --seed draw."""
     device = resolve_device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda: no CUDA device available")
+    if mesh is not None and device.type == "cuda":
+        device = torch.device("cuda", torch.cuda.current_device())
     cfg = _device_config(args.arch, args.smoke, device)
-    gen = torch.Generator(device=device).manual_seed(args.seed)
-    params = MD.init_model(cfg, gen)
-    if args.replicas:
-        return _serve_fleet(params, cfg, args, device)
-    if args.continuous:
-        return _serve_continuous(params, cfg, args, device)
-    return _serve_static(params, cfg, args, device)
+    if weights is not None:
+        from repro_torch.bridge import params_from_numpy
+        params = params_from_numpy(weights, device)
+    else:
+        gen = torch.Generator(device=device).manual_seed(args.seed)
+        params = MD.init_model(cfg, gen)
+    scope = contextlib.ExitStack()
+    if mesh is not None:
+        scope.enter_context(SH.axis_env(SH.DP_TP_ENV))
+        # whole on every rank from the seed, then each keeps its shard
+        params = MD.distribute_params(params, cfg, mesh)
+        scope.enter_context(SH.use_mesh(mesh))
+    with scope, torch.no_grad():
+        if args.replicas:
+            return _serve_fleet(params, cfg, args, device, requests)
+        if args.continuous:
+            return _serve_continuous(params, cfg, args, device, requests)
+        return _serve_static(params, cfg, args, device)
+
+
+def _serve_spawned(args, weights=None) -> dict:
+    """data*model ranks, one process each, every rank on the same stream;
+    rank 0's summary: the generated tokens by request, the stats, and for
+    --continuous the cache leaves' placements beside `cache_pspecs`'."""
+    import torch.multiprocessing as mp
+    world = args.data * args.model
+    device = resolve_device(args.device)
+    if device.type == "cuda":
+        n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if n < world:
+            raise RuntimeError(f"--data {args.data} --model {args.model} "
+                               f"needs {world} CUDA devices, one a rank; "
+                               f"{n} found")
+    # the ranks share this process's intra-op threads
+    threads = max(1, torch.get_num_threads() // world)
+    with tempfile.TemporaryDirectory() as tmp:
+        mp.spawn(_rank_main, args=(args, world, tmp, threads, weights),
+                 nprocs=world, join=True)
+        with open(os.path.join(tmp, "summary.json")) as f:
+            return json.load(f)
+
+
+def summary(out: dict) -> dict:
+    """A run's result as plain data: tokens by request id (static: the
+    batch's rows), stats, and the engine cache's placements and specs."""
+    res = {"mode": "static" if "generated" in out else "stream"}
+    if "generated" in out:
+        res["tokens"] = {str(i): row.tolist()
+                         for i, row in enumerate(out["generated"])}
+    else:
+        res["tokens"] = {str(f.rid): list(map(int, f.tokens))
+                         for f in out["finished"]}
+        res["stats"] = {k: v for k, v in out["stats"].items()
+                        if isinstance(v, (int, float, str))}
+    eng = out.get("engine")
+    if eng is not None and SH.is_dtensor(next(iter(eng.cache.values()))):
+        from repro_torch.launch.steps import cache_pspecs
+        from repro_torch.models.common import tree_leaves
+        mesh = next(iter(eng.cache.values())).device_mesh
+        specs = tree_leaves(cache_pspecs(eng.cfg, eng.cache, serve=True,
+                                         paged=eng.paged))
+        res["placements"] = [
+            [repr(t.placements), repr(SH.placements(sp, mesh)),
+             list(t.shape)]
+            for t, sp in zip(tree_leaves(eng.cache), specs)]
+    return res
+
+
+def _rank_main(rank: int, args, world: int, tmp: str, threads: int,
+               weights=None) -> None:
+    import logging
+    import sys
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_device_mesh, make_host_mesh
+    # DTensor's notes on gloo's missing all-to-all are not a run's business
+    logging.getLogger("torch.distributed").setLevel(logging.ERROR)
+    cpu = resolve_device(args.device).type == "cpu"
+    if cpu:
+        torch.set_num_threads(threads)
+    else:
+        torch.cuda.set_device(rank)
+    if rank:
+        sys.stdout = open(os.devnull, "w")   # rank 0 prints the summary
+    dist.init_process_group("gloo" if cpu else "nccl",
+                            init_method=f"file://{os.path.join(tmp, 'store')}",
+                            rank=rank, world_size=world)
+    try:
+        mesh = (make_host_mesh if cpu else make_device_mesh)(args.data,
+                                                            args.model)
+        out = _serve(args, mesh, weights=weights)
+        with SH.axis_env(SH.DP_TP_ENV), SH.use_mesh(mesh):
+            res = summary(out)
+        if rank == 0:
+            print(f"served on a {args.data}x{args.model} mesh ({world} "
+                  f"ranks, {args.device})", flush=True)
+            with open(os.path.join(tmp, "summary.json"), "w") as f:
+                json.dump(res, f)
+    finally:
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

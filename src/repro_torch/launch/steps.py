@@ -68,11 +68,25 @@ def _shape(leaf) -> Tuple[int, ...]:
     return tuple(leaf.shape) if hasattr(leaf, "shape") else tuple(leaf[0])
 
 
-def cache_pspecs(cfg: ModelConfig, cache_abstract) -> Any:
+def cache_pspecs(cfg: ModelConfig, cache_abstract, *,
+                 serve: bool = False, paged: bool = False) -> Any:
     """Specs of a cache tree (tensors, or `MD.cache_specs`' (shape, dtype)
-    leaves) under the active AxisEnv and mesh."""
-    return tree_map(lambda leaf, names: SH.resolve_spec(_shape(leaf), names),
-                    cache_abstract, _cache_spec_names(cfg))
+    leaves) under the active AxisEnv and mesh.
+
+    serve=False: the JAX package's layout (KV heads, or else the cache
+    length, over "model"; slots over the batch axes).  serve=True: what
+    the port's serve path allocates (`MD.serve_cache_names`; with
+    `paged`, an engine's page pools and per-slot rows): K/V heads over
+    "model" where the stored heads divide it, each KV head repeated on
+    the ranks whose query heads read it where the model axes are a
+    multiple of the KV heads (`A.kv_store_heads`: the cache then holds
+    that many heads), else whole, never a context split; a dense cache's
+    slots over the batch axes, a pool's pages and slots on every data
+    rank (the host's block tables and registers are replicated)."""
+    names = (MD.serve_cache_names(cfg, cache_abstract, paged) if serve
+             else _cache_spec_names(cfg))
+    return tree_map(lambda leaf, nm: SH.resolve_spec(_shape(leaf), nm),
+                    cache_abstract, names)
 
 
 def batch_abstract(cfg: ModelConfig, B: int, S: int, train: bool = True):
@@ -246,12 +260,14 @@ def make_extra(cfg: ModelConfig, B: int,
     return None
 
 
-def make_prefill_step(cfg: ModelConfig, cache_len: int) -> Callable:
+def make_prefill_step(cfg: ModelConfig, cache_len: int,
+                      sharded_cache: bool = False) -> Callable:
     def prefill_step(params, batch):
         logits, _, cache = MD.forward(
             params, cfg, batch["tokens"],
             extra_embeds=batch.get("extra_embeds"),
-            return_cache=True, cache_len=cache_len)
+            return_cache=True, cache_len=cache_len,
+            sharded_cache=sharded_cache)
         return logits[:, -1:], cache
     return prefill_step
 
@@ -259,18 +275,32 @@ def make_prefill_step(cfg: ModelConfig, cache_len: int) -> Callable:
 def sharded_argmax(logits: torch.Tensor) -> torch.Tensor:
     """argmax over the vocab dim that returns the FIRST max index on ties,
     written out as the JAX version does (bf16 logits over a large vocab do
-    tie, and the two packages must pick the same token)."""
-    m = logits.max(dim=-1, keepdim=True).values
+    tie, and the two packages must pick the same token).
+
+    On vocab-sharded DTensor logits the vocab dim stays sharded: the iota
+    is a DTensor laid out as the logits' vocab dim (each rank's slice
+    starts at its shard's offset), so the max and the min are reduced
+    across ranks as (B,) partials, O(B) and never O(B·V) bytes."""
+    m = torch.amax(logits, dim=-1, keepdim=True)
     V = logits.shape[-1]
     iota = torch.arange(V, device=logits.device, dtype=torch.int32)
+    if SH.is_dtensor(logits):
+        from torch.distributed.tensor import (Replicate, Shard,
+                                              distribute_tensor)
+        last = logits.dim() - 1
+        pl = [Shard(0) if isinstance(p, Shard) and p.dim == last
+              else Replicate() for p in logits.placements]
+        iota = distribute_tensor(iota, logits.device_mesh, pl,
+                                 src_data_rank=None)
     cand = torch.where(logits >= m, iota, V)
-    return cand.min(dim=-1).values.to(torch.int32)
+    return torch.amin(cand, dim=-1).to(torch.int32)
+
 
 
 def make_serve_step(cfg: ModelConfig) -> Callable:
     def serve_step(params, cache, tokens, pos):
         logits, new_cache = MD.decode_step(params, cfg, tokens, pos, cache)
-        nxt = sharded_argmax(logits[:, -1])[:, None]
+        nxt = SH.whole(sharded_argmax(logits[:, -1]))[:, None]
         return nxt, new_cache
     return serve_step
 
@@ -282,7 +312,7 @@ def make_serve_cb_step(cfg: ModelConfig) -> Callable:
     def serve_cb_step(params, cache, tokens, pos, active):
         logits, new_cache = MD.decode_step(params, cfg, tokens, pos, cache,
                                            active=active)
-        nxt = sharded_argmax(logits[:, -1])[:, None]
+        nxt = SH.whole(sharded_argmax(logits[:, -1]))[:, None]
         nxt = torch.where(active[:, None], nxt, tokens)
         return nxt, new_cache
     return serve_cb_step
@@ -299,7 +329,7 @@ def make_paged_serve_cb_step(cfg: ModelConfig, logical_len: int) -> Callable:
                                            active=active,
                                            block_tables=block_tables,
                                            logical_len=logical_len)
-        nxt = sharded_argmax(logits[:, -1])[:, None]
+        nxt = SH.whole(sharded_argmax(logits[:, -1]))[:, None]
         nxt = torch.where(active[:, None], nxt, tokens)
         return nxt, new_cache
     return serve_cb_paged_step
@@ -331,19 +361,49 @@ def _plan(mesh, name, fn, args, in_specs, out_specs, donate=()):
 
 
 def build_plan(cfg: ModelConfig, shape: InputShape, mesh,
-               optimizer: str = "adamw") -> StepPlan:
+               optimizer: str = "adamw", serve_layout: bool = False
+               ) -> StepPlan:
     """The (fn, abstract args, layouts) plan of one arch x shape.  `mesh`
     is a DeviceMesh or anything with ``mesh_dim_names`` and ``shape``;
-    call under the AxisEnv the step runs in.  A scalar's spec is ()."""
+    call under the AxisEnv the step runs in.  A scalar's spec is ().
+
+    serve_layout: the prefill and decode plans take and give the serve
+    path's caches (`cache_pspecs(serve=True)`, the prefill writing each
+    rank's shard), the ones `cost_plan` can run on a mesh; by default
+    the JAX package's layouts."""
     prev = SH.get_mesh()
     SH.set_mesh(mesh)      # specs resolve against it; no op runs on it
     try:
-        return _build_plan(cfg, shape, mesh, optimizer)
+        return _build_plan(cfg, shape, mesh, optimizer, serve_layout)
     finally:
         SH.set_mesh(prev)
 
 
-def _build_plan(cfg, shape, mesh, optimizer):
+def cost_plan(plan: StepPlan, mesh) -> Dict[str, Any]:
+    """Run the plan's step once on its meta args, laid out as DTensors by
+    its placements over the DeviceMesh `mesh` (a fake process group's
+    will do: nothing runs on a device), under `core.roofline.Counter`.
+    Call under the AxisEnv the plan was built in.  Returns the counts
+    (`roofline.count`): a chip's FLOPs, bytes and collective bytes by op
+    and mesh dim, the kernels' records, and argument, output and temp
+    bytes."""
+    from repro_torch.core import roofline as RL
+
+    from torch.distributed.tensor import DTensor
+
+    def lay_out(t, pl):
+        if t.dim() == 0:
+            return t                  # a scalar is whole on every rank
+        return DTensor.from_local(
+            torch.empty(SH.local_shape(t.shape, pl, mesh), dtype=t.dtype,
+                        device="meta"), mesh, pl, run_check=False)
+    args = tuple(tree_map(lay_out, a, pl)
+                 for a, pl in zip(plan.args, plan.in_placements))
+    with SH.use_mesh(mesh):
+        return RL.count(plan.fn, args, mesh)
+
+
+def _build_plan(cfg, shape, mesh, optimizer, serve_layout=False):
     params_abs = MD.model_abstract(cfg)
     pspecs = MD.model_pspecs(cfg)
     B, S = shape.global_batch, shape.seq_len
@@ -367,17 +427,19 @@ def _build_plan(cfg, shape, mesh, optimizer):
         bspecs = batch_pspecs(cfg, batch_abs)
         # the VLM prepends patch embeddings: the cache must hold them too
         S_cache = S + (cfg.num_patches if cfg.arch_type == "vlm" else 0)
-        cspecs = cache_pspecs(cfg, MD.cache_specs(cfg, B, S_cache))
+        cspecs = cache_pspecs(cfg, MD.cache_specs(
+            cfg, B, S_cache, _store_heads(cfg, serve_layout)),
+            serve=serve_layout)
         logit_spec = SH.resolve_spec((B, 1, cfg.vocab_size),
                                      ("batch", None, "model"))
         return _plan(mesh, f"prefill[{cfg.name}x{shape.name}]",
-                     make_prefill_step(cfg, S_cache),
+                     make_prefill_step(cfg, S_cache, serve_layout),
                      (params_abs, batch_abs), (pspecs, bspecs),
                      (logit_spec, cspecs))
 
     if shape.kind in ("decode", "decode_cb"):
-        cache_abs = _meta_cache(cfg, B, S)
-        cspecs = cache_pspecs(cfg, cache_abs)
+        cache_abs = _meta_cache(cfg, B, S, _store_heads(cfg, serve_layout))
+        cspecs = cache_pspecs(cfg, cache_abs, serve=serve_layout)
         tok_abs = torch.empty((B, 1), dtype=torch.int32, device="meta")
         tok_spec = SH.resolve_spec((B, 1), ("batch", None))
         if shape.kind == "decode":
@@ -401,6 +463,11 @@ def _build_plan(cfg, shape, mesh, optimizer):
     raise ValueError(shape.kind)
 
 
-def _meta_cache(cfg: ModelConfig, B: int, C: int):
+def _meta_cache(cfg: ModelConfig, B: int, C: int, kv_heads=None):
     return tree_map(lambda s: torch.empty(s[0], dtype=s[1], device="meta"),
-                    MD.cache_specs(cfg, B, C))
+                    MD.cache_specs(cfg, B, C, kv_heads))
+
+
+def _store_heads(cfg: ModelConfig, serve_layout: bool):
+    from repro_torch.models import attention as A
+    return A.kv_store_heads(cfg) if serve_layout else None

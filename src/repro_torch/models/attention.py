@@ -6,6 +6,19 @@ Batched attention dispatches to the flash kernel, the q-chunked path or
 the flat softmax; cross-attention reads encoder K/V computed once
 (`encoder_kv`); decode writes a dense cache, a sliding-window ring of
 `window` slots, or a paged pool.
+
+Under a mesh the serve path's caches (``launch/steps.cache_pspecs`` with
+serve=True) split their KV-head dim over "model"; a dense cache splits
+its slots over the batch axes as the batch is split, while a page pool
+is replicated over them: every page on every data rank, so the host's
+block tables and slot registers need no sharding.  Where the model axes
+do not divide the KV heads but the heads divide them (and the query
+heads), each KV head is stored once a rank whose query heads read it:
+the cache holds `kv_store_heads` heads, every KV head repeated, as most
+GPU servers replicate KV heads under tensor parallelism.  Otherwise the
+heads stay whole.  A decode or verify step writes its new K/V into each
+rank's local shard (a pool's rows gathered over the batch axes first),
+then attends this rank's own rows and heads.
 """
 from __future__ import annotations
 
@@ -197,6 +210,59 @@ def init_kv_cache(cfg: ModelConfig, batch: int, cache_len: int, layers: int,
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
+def kv_store_heads(cfg: ModelConfig) -> int:
+    """KV heads a serve cache stores under the active mesh and env: Hk,
+    or the model shard count where it is a multiple of Hk that also
+    divides the query heads (each KV head repeated for the ranks that
+    read it)."""
+    m = SH.axis_size(SH.get_axis_env().resolve("model"))
+    Hk = cfg.num_kv_heads
+    if m <= 1 or Hk % m == 0:
+        return Hk
+    if m % Hk == 0 and cfg.num_heads % m == 0:
+        return m
+    return Hk
+
+
+def cache_rows(t, He: int, split_rows: bool = True):
+    """New K/V `t` (B, ..., Hk, dh) as they go into a cache of He stored
+    heads: on each rank its local shard of the cache's layout (its rows
+    split as the batch is, or with `split_rows` False every row, as a
+    page pool takes them; this rank's heads), KV heads repeated to He.  A
+    plain tensor stays whole (repeated where He > Hk)."""
+    R = He // t.shape[-2]
+    if not SH.is_dtensor(t):
+        return t.repeat_interleave(R, dim=-2) if R > 1 else t
+    names = (("batch" if split_rows else None,) + (None,) * (t.dim() - 3)
+             + ("model", None))
+    if R == 1:
+        return SH.shard(t, *names).to_local()
+    whole = SH.shard(t, *(None,) * t.dim()).to_local()
+    whole = whole.repeat_interleave(R, dim=-2)
+    spec = SH.resolve_spec(tuple(whole.shape), names)
+    return SH.distribute(whole, spec, t.device_mesh).to_local()
+
+
+def _rows_split(cache) -> bool:
+    """Is the (B, ...) cache view split over its rows (a dense serve
+    cache under a mesh whose batch axes divide B)?"""
+    return SH.is_dtensor(cache) and any(
+        getattr(pl, "dim", None) == 0 for pl in cache.placements)
+
+
+def _local_q(q, cache_k):
+    """(q's local shard, its rows): q (B, S, Hq, dh) laid out with its
+    heads as the cache's heads are (split over "model", or whole), its
+    rows over the batch axes."""
+    if not SH.is_dtensor(q):
+        return q, q, slice(None)
+    split = SH.is_dtensor(cache_k) and any(
+        getattr(pl, "dim", None) in (cache_k.dim() - 2, -2)
+        for pl in cache_k.placements)
+    q = SH.shard(q, "batch", None, "model" if split else None, None)
+    return q, q.to_local(), SH.local_slice(q, 0)
+
+
 def _paged_gather(pool, bt, C):
     """pool: (Np,P,Hk,dh); bt: (B,n_max) page ids -> (B,C,Hk,dh) view.
     Positions past a row's length read whatever the page holds; callers
@@ -204,6 +270,14 @@ def _paged_gather(pool, bt, C):
     B = bt.shape[0]
     Hk, dh = pool.shape[2], pool.shape[3]
     return pool[bt.long()].reshape(B, -1, Hk, dh)[:, :C]
+
+
+def _attn_out(p, out, qd, S: int):
+    """The output projection of a decode or verify attention: `out` (this
+    rank's rows and heads, (B, S, Hq, dh)) laid out as q was, then wo."""
+    out = SH.from_local_like(out, qd)
+    y = dense(out.reshape(out.shape[0], S, -1), p["wo"])
+    return shard(y, "batch", None, None)
 
 
 def attention_decode(p, x, cache_k, cache_v, pos, cfg: ModelConfig, *,
@@ -231,6 +305,12 @@ def attention_decode(p, x, cache_k, cache_v, pos, cfg: ModelConfig, *,
     position q lives in slot q mod C, and once q >= C every slot holds one
     of the last C positions.
 
+    Under a mesh the caches are DTensors split on their head dim (the
+    module docstring): the writes land in each rank's shard, and the
+    attention runs on this rank's rows and heads (the paged kernel on
+    the local pool).  A cache may store more heads than Hk
+    (`kv_store_heads`); the new K/V are repeated to match.
+
     Returns (y, cache_k, cache_v)."""
     B = x.shape[0]
     paged = block_tables is not None
@@ -243,13 +323,23 @@ def attention_decode(p, x, cache_k, cache_v, pos, cfg: ModelConfig, *,
         raise ValueError("paged KV requires a per-row pos vector")
     pos_b = (pos if per_row else pos.expand(B)).long()  # (B,)
     if encoder_kv_cache is not None:
-        q, (k, v) = _cross_q(p, x, cfg), encoder_kv_cache
+        k, v = encoder_kv_cache
+        qd, q, mine = _local_q(_cross_q(p, x, cfg), k)
+        if not _rows_split(k):
+            k, v = SH.local(k)[mine], SH.local(v)[mine]
+        else:
+            k, v = SH.local(k), SH.local(v)
         probs = torch.softmax(_gqa_scores(q, k), dim=-1)
-        y = dense(_gqa_out(probs, v).reshape(B, 1, -1), p["wo"])
-        return y, cache_k, cache_v
+        return _attn_out(p, _gqa_out(probs, v), qd, 1), cache_k, cache_v
     q, k1, v1 = _project_qkv(p, x, pos_b[:, None], cfg)
+    He = cache_k.shape[-2]
+    # my heads; a pool takes every row, a dense cache my rows
+    k1, v1 = (cache_rows(t, He, split_rows=not paged) for t in (k1, v1))
+    qd, q, mine = _local_q(q, cache_k)
+    ck, cv = SH.local(cache_k), SH.local(cache_v)
+    pos_r = pos_b[mine]                              # my rows' positions
     if paged:
-        Np, P = cache_k.shape[0] - 1, cache_k.shape[1]   # page Np: trash
+        Np, P = ck.shape[0] - 1, ck.shape[1]         # page Np: trash
         n_max = block_tables.shape[1]
         C = logical_len if logical_len is not None else n_max * P
         j = pos_b // P
@@ -260,52 +350,50 @@ def attention_decode(p, x, cache_k, cache_v, pos, cfg: ModelConfig, *,
             keep = keep & active
         page = torch.where(keep, page, Np)
         # in place, where the JAX engine donates the pool to this update
-        cache_k[page, pos_b % P] = k1[:, 0].to(cache_k.dtype)
-        cache_v[page, pos_b % P] = v1[:, 0].to(cache_v.dtype)
+        ck[page, pos_b % P] = k1[:, 0].to(ck.dtype)
+        cv[page, pos_b % P] = v1[:, 0].to(cv.dtype)
+        bt = block_tables[mine]
         if cfg.use_paged_kernel:
             from repro_torch.kernels import ops as K
-            out = K.paged_attention(q[:, 0], cache_k, cache_v,
-                                    block_tables.int(), pos_b.int(),
+            out = K.paged_attention(q[:, 0], ck, cv, bt.int(), pos_r.int(),
                                     logical_len=C)
-            y = dense(out.reshape(B, 1, -1), p["wo"])
-            return shard(y, "batch", None, None), cache_k, cache_v
-        k = _paged_gather(cache_k, block_tables, C)
-        v = _paged_gather(cache_v, block_tables, C)
+            return _attn_out(p, out[:, None], qd, 1), cache_k, cache_v
+        k = _paged_gather(ck, bt, C)
+        v = _paged_gather(cv, bt, C)
     else:
-        C = cache_k.shape[1]
+        C = ck.shape[1]
         if per_row:
-            rows = torch.arange(B, device=x.device)
+            mc = SH.local_slice(cache_k, 0)          # the rows I hold
+            pc = pos_b[mc]
+            rows = torch.arange(ck.shape[0], device=x.device)
             if ring:
-                slot, keep = pos_b % C, torch.ones_like(pos_b, dtype=bool)
+                slot, keep = pc % C, torch.ones_like(pc, dtype=bool)
             else:
-                slot, keep = pos_b.clamp(max=C - 1), pos_b < C
+                slot, keep = pc.clamp(max=C - 1), pc < C
             if active is not None:
-                keep = keep & active
+                keep = keep & active[mc]
             keep = keep[:, None, None]
             # in place (the JAX engine donates the cache); a retired row
             # writes its own old value back: rows are distinct, so no
             # write collides with another row's
-            cache_k[rows, slot] = torch.where(keep, k1[:, 0].to(cache_k.dtype),
-                                              cache_k[rows, slot])
-            cache_v[rows, slot] = torch.where(keep, v1[:, 0].to(cache_v.dtype),
-                                              cache_v[rows, slot])
+            ck[rows, slot] = torch.where(keep, k1[:, 0].to(ck.dtype),
+                                         ck[rows, slot])
+            cv[rows, slot] = torch.where(keep, v1[:, 0].to(cv.dtype),
+                                         cv[rows, slot])
         else:
             slot = (pos % C if ring else pos).reshape(1).long()
-            cache_k.index_copy_(1, slot, k1.to(cache_k.dtype))
-            cache_v.index_copy_(1, slot, v1.to(cache_v.dtype))
-        k, v = cache_k, cache_v
+            ck.index_copy_(1, slot, k1.to(ck.dtype))
+            cv.index_copy_(1, slot, v1.to(cv.dtype))
+        k, v = (ck, cv) if _rows_split(cache_k) else (ck[mine], cv[mine])
     idx = torch.arange(C, device=x.device)[None, :]
     if ring:
-        valid = (idx <= (pos_b % C)[:, None]) | (pos_b[:, None] >= C)
+        valid = (idx <= (pos_r % C)[:, None]) | (pos_r[:, None] >= C)
     else:
-        valid = idx <= pos_b[:, None]
-    q = shard(q, "batch", None, "model", None)
+        valid = idx <= pos_r[:, None]
     scores = _gqa_scores(q, k)  # (B,Hk,G,1,C)
     scores = torch.where(valid[:, None, None, None], scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1)
-    out = _gqa_out(probs, v)
-    y = dense(out.reshape(B, 1, -1), p["wo"])
-    return shard(y, "batch", None, None), cache_k, cache_v
+    return _attn_out(p, _gqa_out(probs, v), qd, 1), cache_k, cache_v
 
 
 def attention_verify(p, x, cache_k, cache_v, pos, cfg: ModelConfig, *,
@@ -320,11 +408,12 @@ def attention_verify(p, x, cache_k, cache_v, pos, cfg: ModelConfig, *,
     next round overwrites before any query can see it.
 
     Dense cache (B,C,Hk,dh), or paged pool (Np+1,P,Hk,dh) + block_tables
-    as in `attention_decode`.  An inactive row writes its own old value
-    back (dense) or to the trash page (paged); a position past the cache
-    is masked and never written.  In paged mode with cfg.use_paged_kernel
-    the attention reads through the paged kernel: one launch of B*S query
-    rows, row (b, i) at position pos[b] + i through table row b.
+    as in `attention_decode`, which also says how a mesh splits them.  An
+    inactive row writes its own old value back (dense) or to the trash
+    page (paged); a position past the cache is masked and never written.
+    In paged mode with cfg.use_paged_kernel the attention reads through
+    the paged kernel: one launch of B*S query rows, row (b, i) at
+    position pos[b] + i through table row b.
 
     Returns (y (B,S,d), cache_k, cache_v)."""
     B, S, _ = x.shape
@@ -337,8 +426,14 @@ def attention_verify(p, x, cache_k, cache_v, pos, cfg: ModelConfig, *,
         raise ValueError("attention_verify requires a per-row pos vector")
     qpos = pos.long()[:, None] + torch.arange(S, device=x.device)[None]
     q, k1, v1 = _project_qkv(p, x, qpos, cfg)
+    He = cache_k.shape[-2]
+    # my heads; a pool takes every row, a dense cache my rows
+    k1, v1 = (cache_rows(t, He, split_rows=not paged) for t in (k1, v1))
+    qd, q, mine = _local_q(q, cache_k)
+    ck, cv = SH.local(cache_k), SH.local(cache_v)
+    qpos_r = qpos[mine]
     if paged:
-        Np, P = cache_k.shape[0] - 1, cache_k.shape[1]   # page Np: trash
+        Np, P = ck.shape[0] - 1, ck.shape[1]         # page Np: trash
         n_max = block_tables.shape[1]
         C = logical_len if logical_len is not None else n_max * P
         j = qpos // P
@@ -349,41 +444,42 @@ def attention_verify(p, x, cache_k, cache_v, pos, cfg: ModelConfig, *,
         page = torch.where(keep, page, Np)
         # distinct (page, offset) targets apart from the trash page, whose
         # contents nothing reads
-        cache_k[page, qpos % P] = k1.to(cache_k.dtype)
-        cache_v[page, qpos % P] = v1.to(cache_v.dtype)
+        ck[page, qpos % P] = k1.to(ck.dtype)
+        cv[page, qpos % P] = v1.to(cv.dtype)
+        bt = block_tables[mine]
         if cfg.use_paged_kernel:
             from repro_torch.kernels import ops as K
             # a query past the cache attends every cached position, as
             # the plain path's mask gives it
-            rows = qpos.clamp(max=C - 1).reshape(-1).int()
-            bt = block_tables.int().repeat_interleave(S, dim=0)
-            out = K.paged_attention(q.reshape(B * S, *q.shape[2:]), cache_k,
-                                    cache_v, bt, rows, logical_len=C)
-            y = dense(out.reshape(B, S, -1), p["wo"])
-            return y, cache_k, cache_v
-        k = _paged_gather(cache_k, block_tables, C)
-        v = _paged_gather(cache_v, block_tables, C)
+            Bl = q.shape[0]
+            rows = qpos_r.clamp(max=C - 1).reshape(-1).int()
+            bt = bt.int().repeat_interleave(S, dim=0)
+            out = K.paged_attention(q.reshape(Bl * S, *q.shape[2:]), ck, cv,
+                                    bt, rows, logical_len=C)
+            return (_attn_out(p, out.reshape(Bl, S, *out.shape[1:]), qd, S),
+                    cache_k, cache_v)
+        k = _paged_gather(ck, bt, C)
+        v = _paged_gather(cv, bt, C)
     else:
-        C = cache_k.shape[1]
-        rows = torch.arange(B, device=x.device)
+        C = ck.shape[1]
+        mc = SH.local_slice(cache_k, 0)              # the rows I hold
+        qc = qpos[mc]
+        rows = torch.arange(ck.shape[0], device=x.device)
         # candidate by candidate, so that a clamped position past the
         # cache writes back what an earlier candidate left at C - 1
         for i in range(S):
-            slot = qpos[:, i].clamp(max=C - 1)
-            keep = qpos[:, i] < C
+            slot = qc[:, i].clamp(max=C - 1)
+            keep = qc[:, i] < C
             if active is not None:
-                keep = keep & active
+                keep = keep & active[mc]
             keep = keep[:, None, None]
-            cache_k[rows, slot] = torch.where(
-                keep, k1[:, i].to(cache_k.dtype), cache_k[rows, slot])
-            cache_v[rows, slot] = torch.where(
-                keep, v1[:, i].to(cache_v.dtype), cache_v[rows, slot])
-        k, v = cache_k, cache_v
-    valid = torch.arange(C, device=x.device)[None, None] <= qpos[:, :, None]
-    q = shard(q, "batch", None, "model", None)
+            ck[rows, slot] = torch.where(
+                keep, k1[:, i].to(ck.dtype), ck[rows, slot])
+            cv[rows, slot] = torch.where(
+                keep, v1[:, i].to(cv.dtype), cv[rows, slot])
+        k, v = (ck, cv) if _rows_split(cache_k) else (ck[mine], cv[mine])
+    valid = torch.arange(C, device=x.device)[None, None] <= qpos_r[:, :, None]
     scores = _gqa_scores(q, k)  # (B,Hk,G,S,C)
     scores = torch.where(valid[:, None, None], scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1)
-    out = _gqa_out(probs, v)
-    y = dense(out.reshape(B, S, -1), p["wo"])
-    return shard(y, "batch", None, None), cache_k, cache_v
+    return _attn_out(p, _gqa_out(probs, v), qd, S), cache_k, cache_v

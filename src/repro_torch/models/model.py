@@ -228,7 +228,7 @@ def _encoder_layer(lp, h, enc_pos, cfg):
 
 def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *,
             extra_embeds=None, return_cache: bool = False,
-            cache_len: Optional[int] = None):
+            cache_len: Optional[int] = None, sharded_cache: bool = False):
     """tokens: (B, S) int.  extra_embeds: the modality frontend's stub
     output — audio: (B, T_enc, d_model) frame embeddings; vlm: (B, P,
     1024) patches, projected and prepended to the tokens (positions and
@@ -238,6 +238,11 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *,
     `init_cache`'s (dense: {"k", "v"}: (L, B, cache_len, Hk, dh); audio
     adds the cross-attention K/V "ck", "cv" (L, B, T_enc, Hk, dh); ssm:
     the recurrent state) holding the prefill.
+
+    Under a mesh the cache comes back whole on every rank, or with
+    `sharded_cache` (the serve path) as DTensors laid out as the serve
+    caches are (`serve_cache_names`): each rank writes only its own
+    shard, and no whole cache is gathered.
 
     With ``cfg.remat == "block"`` and autograd recording, each layer runs
     under ``torch.utils.checkpoint`` (the JAX package's ``jax.checkpoint``
@@ -261,15 +266,16 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *,
     remat = (cfg.remat == "block" and torch.is_grad_enabled()
              and not return_cache)
     if at == "ssm":
-        x, aux, cache = _run_rwkv(params, cfg, x, return_cache, remat)
+        x, aux, cache = _run_rwkv(params, cfg, x, return_cache, remat,
+                                  sharded_cache)
     elif at == "hybrid":
         x, aux, cache = _run_hybrid(params, cfg, x, positions,
-                                    return_cache, C, remat)
+                                    return_cache, C, remat, sharded_cache)
     else:
         enc = (_encode_audio(params, cfg, extra_embeds, remat)
                if at == "audio" else None)
         x, aux, cache = _run_dense(params, cfg, x, positions, return_cache,
-                                   C, remat, enc)
+                                   C, remat, enc, sharded_cache)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = shard(dense(x, params["lm_head"]), "batch", None, "model")
     if n_prefix:
@@ -277,14 +283,33 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *,
     return logits, aux, cache
 
 
-def _run_dense(params, cfg, x, positions, return_cache, C, remat, enc):
+def _put_kv(leaf, index, t, sharded: bool) -> None:
+    """leaf[index] = t for a K/V leaf, in place: with `sharded` each rank
+    writes its own shard of t as the serve cache lays it out
+    (`A.cache_rows`: every row, this rank's heads); else t whole."""
+    if sharded:
+        SH.local(leaf)[index] = A.cache_rows(t, leaf.shape[-2])
+    else:
+        leaf[index] = SH.whole(t)
+
+
+def _put_state(leaf, index, t) -> None:
+    """leaf[index] = t whole, in place, for a recurrent-state leaf (plain,
+    or a serve cache's replicated DTensor: each rank writes its copy)."""
+    SH.local(leaf)[index] = SH.whole(t)
+
+
+def _run_dense(params, cfg, x, positions, return_cache, C, remat, enc,
+               sharded=False):
     """The dense, vlm, MoE and audio stacks; aux sums the MoE layers'
     losses.  Audio (enc given): each layer's cross-attention K/V go to the
     cache as "ck"/"cv"."""
     B, S, _ = x.shape
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     cache = None
-    if return_cache:
+    if return_cache and sharded:
+        cache = init_cache(cfg, B, C, x.device, mesh=SH.get_mesh())
+    elif return_cache:
         cache = A.init_kv_cache(cfg, B, C, cfg.num_layers, x.dtype, x.device)
         if enc is not None:
             shape = (cfg.num_layers, B, enc.shape[1], cfg.num_kv_heads,
@@ -298,19 +323,23 @@ def _run_dense(params, cfg, x, positions, return_cache, C, remat, enc):
                               use_reentrant=False)
         else:
             x, kv, a = _apply_attn_mlp(lp, x, positions, cfg, enc)
-            if return_cache:     # a whole cache under a mesh
+            if return_cache:
                 for n, t in zip(("k", "v", "ck", "cv"), kv):
-                    cache[n][i, :, :t.shape[1]] = SH.whole(t)
+                    _put_kv(cache[n], (i, slice(None), slice(0, t.shape[1])),
+                            t, sharded)
         if a is not None:
             aux = aux + a
     return x, aux, cache
 
 
-def _run_rwkv(params, cfg, x, return_cache, remat):
+def _run_rwkv(params, cfg, x, return_cache, remat, sharded=False):
     """The RWKV6 stack; the cache is the final recurrent state of every
     layer (`init_cache`'s "wkv", "tm", "cm")."""
-    cache = (RW.init_rwkv_state(cfg, x.shape[0], cfg.num_layers, x.device)
-             if return_cache else None)
+    cache = None
+    if return_cache and sharded:
+        cache = init_cache(cfg, x.shape[0], 1, x.device, mesh=SH.get_mesh())
+    elif return_cache:
+        cache = RW.init_rwkv_state(cfg, x.shape[0], cfg.num_layers, x.device)
     for i in range(cfg.num_layers):
         lp = _layer(params["blocks"], i)
         if remat:
@@ -319,7 +348,7 @@ def _run_rwkv(params, cfg, x, return_cache, remat):
         x, st = RW.rwkv_block(lp, x, cfg)
         if return_cache:
             for n, t in st.items():
-                cache[n][i] = SH.whole(t)
+                _put_state(cache[n], i, t)
     return x, torch.zeros((), dtype=torch.float32, device=x.device), cache
 
 
@@ -327,7 +356,8 @@ def _rwkv_layer(lp, x, cfg):
     return RW.rwkv_block(lp, x, cfg)[0]
 
 
-def _run_hybrid(params, cfg, x, positions, return_cache, C, remat):
+def _run_hybrid(params, cfg, x, positions, return_cache, C, remat,
+                sharded=False):
     """Zamba2-style: the Mamba2 layers in order, the SHARED attention+MLP
     block (the same weights each time) after every hybrid_attn_every of
     them.  The cache: "ssm" (L,B,H,N,P) fp32 final states, "conv"
@@ -335,7 +365,9 @@ def _run_hybrid(params, cfg, x, positions, return_cache, C, remat):
     shared block's rope'd K/V, one slot per application."""
     B, S, _ = x.shape
     shared = params["shared"]
-    cache = init_cache(cfg, B, C, x.device) if return_cache else None
+    cache = (init_cache(cfg, B, C, x.device,
+                        mesh=SH.get_mesh() if sharded else None)
+             if return_cache else None)
     for i in range(cfg.num_layers):
         lp = _layer(params["blocks"], i)
         with_shared = _shared_after(i, cfg)
@@ -347,15 +379,15 @@ def _run_hybrid(params, cfg, x, positions, return_cache, C, remat):
         y, (st, conv) = SSM.ssm_block(lp["ssm"], pre, cfg)
         x = x + y
         if return_cache:
-            cache["ssm"][i] = SH.whole(st)
+            _put_state(cache["ssm"], i, st)
             for n, ring in conv.items():
-                cache["conv"][n][i] = SH.whole(ring)
+                _put_state(cache["conv"][n], i, ring)
         if with_shared:
             x, (k, v), _ = _apply_attn_mlp(shared, x, positions, cfg)
             if return_cache:
                 j = i // cfg.hybrid_attn_every
-                cache["sk"][j, :, :S] = SH.whole(k)
-                cache["sv"][j, :, :S] = SH.whole(v)
+                _put_kv(cache["sk"], (j, slice(None), slice(0, S)), k, sharded)
+                _put_kv(cache["sv"], (j, slice(None), slice(0, S)), v, sharded)
     return x, torch.zeros((), dtype=torch.float32, device=x.device), cache
 
 
@@ -378,6 +410,9 @@ def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor, pos, cache,
 
     The cache is updated in place.  Returns (logits (B,1,V), cache)."""
     at = cfg.arch_type
+    # per-row registers are replicated (the engine's are plain tensors)
+    pos, active, block_tables = (SH.whole(t) for t in (pos, active,
+                                                        block_tables))
     if active is not None and torch.as_tensor(pos).dim() != 1:
         raise ValueError("active mask requires a per-row pos vector")
     if block_tables is not None and at == "ssm":
@@ -410,7 +445,8 @@ def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor, pos, cache,
                     encoder_kv_cache=(cache["ck"][i], cache["cv"][i]))
                 x = x + y
             pre2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
-            x = x + _ffn(lp, pre2, cfg)[0]
+            # under a mesh the MLP's down projection leaves partial sums
+            x = shard(x + _ffn(lp, pre2, cfg)[0], "batch", None, None)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return shard(dense(x, params["lm_head"]), "batch", None, "model"), cache
 
@@ -426,7 +462,7 @@ def _decode_rwkv(params, cfg, x, cache, active):
             if active is not None:
                 keep = active.reshape((-1,) + (1,) * (t.dim() - 1))
                 t = torch.where(keep, t.to(st[n].dtype), st[n])
-            st[n].copy_(t)
+            _put_state(st[n], ..., t)
     return x
 
 
@@ -451,10 +487,10 @@ def _decode_hybrid(params, cfg, x, pos, cache, *, active=None,
             st = torch.where(keep, st, cache["ssm"][i])
             new_rings = {n: torch.where(keep[:, :, :, 0], r, rings[n])
                          for n, r in new_rings.items()}
-        cache["ssm"][i] = st
+        _put_state(cache["ssm"], i, st)
         for n, r in new_rings.items():
-            rings[n].copy_(r)
-        x = x + y
+            _put_state(rings[n], ..., r)
+        x = shard(x + y, "batch", None, None)
         if _shared_after(i, cfg):
             j = i // cfg.hybrid_attn_every
             pre = rms_norm(x, shared["ln1"], cfg.norm_eps)
@@ -465,7 +501,8 @@ def _decode_hybrid(params, cfg, x, pos, cache, *, active=None,
                                          logical_len=logical_len)
             x = x + y
             pre2 = rms_norm(x, shared["ln2"], cfg.norm_eps)
-            x = x + M.mlp(shared["mlp"], pre2, cfg)
+            x = shard(x + M.mlp(shared["mlp"], pre2, cfg), "batch", None,
+                      None)
     return x
 
 
@@ -482,6 +519,8 @@ def verify_step(params, cfg: ModelConfig, tokens: torch.Tensor, pos, cache,
     at = cfg.arch_type
     if at not in ("dense", "vlm", "moe"):
         raise ValueError(f"verify_step: unsupported arch_type {at}")
+    pos, active, block_tables = (SH.whole(t) for t in (pos, active,
+                                                        block_tables))
     x = embed_lookup(params["embed"], tokens).to(
         torch_dtype(cfg.compute_dtype))
     x = shard(x, "batch", None, None)
@@ -494,7 +533,7 @@ def verify_step(params, cfg: ModelConfig, tokens: torch.Tensor, pos, cache,
                                      logical_len=logical_len)
         x = x + y
         pre2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
-        x = x + _ffn(lp, pre2, cfg)[0]
+        x = shard(x + _ffn(lp, pre2, cfg)[0], "batch", None, None)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return shard(dense(x, params["lm_head"]), "batch", None, "model"), cache
 
@@ -502,16 +541,19 @@ def verify_step(params, cfg: ModelConfig, tokens: torch.Tensor, pos, cache,
 # ---------------------------------------------------------------------------
 # Cache construction (for serving)
 # ---------------------------------------------------------------------------
-def cache_specs(cfg: ModelConfig, batch: int, cache_len: int):
+def cache_specs(cfg: ModelConfig, batch: int, cache_len: int,
+                kv_heads: Optional[int] = None):
     """name -> (shape, dtype) of the dense decode cache; the hybrid's
     "conv" leaf is itself a dict {"x","B","C"}.  A sliding-window cache
-    is a ring of min(cache_len, window) slots."""
+    is a ring of min(cache_len, window) slots.  kv_heads: the KV heads a
+    K/V leaf stores (default num_kv_heads; `A.kv_store_heads` under a
+    mesh)."""
     at = cfg.arch_type
     L = cfg.num_layers
     if cfg.attention_kind == "sliding_window":
         cache_len = min(cache_len, cfg.sliding_window)
     cdt = torch_dtype(cfg.compute_dtype)
-    kv = (cfg.num_kv_heads, cfg.head_dim)
+    kv = (kv_heads or cfg.num_kv_heads, cfg.head_dim)
     if at == "ssm":
         return RW.rwkv_state_specs(cfg, batch, L)
     if at == "hybrid":
@@ -529,14 +571,56 @@ def cache_specs(cfg: ModelConfig, batch: int, cache_len: int):
     return specs
 
 
-def _zeros(specs, device: torch.device):
-    return tree_map(lambda s: torch.zeros(s[0], dtype=s[1], device=device),
-                    specs)
+KV_LEAVES = ("k", "v", "ck", "cv", "sk", "sv")
+
+
+def serve_cache_names(cfg: ModelConfig, specs, paged: bool = False) -> Any:
+    """Logical names of a serve cache's leaves (`specs` gives the tree's
+    structure): a dense cache's K/V leaves (L, B, C, H, dh) split their
+    slots as the batch and their head dim over "model" (where the stored
+    heads divide it); in paged mode the page pools and the per-slot K/V
+    rows split only their heads, every page and slot on every data rank
+    (the host's block tables and slot registers are replicated).  Every
+    other leaf (recurrent state) is replicated (`A` module docstring)."""
+    pools = paged_leaf_names(cfg) if paged else ()
+
+    def names(n, leaf):
+        if isinstance(leaf, dict):
+            return {k: names(k, v) for k, v in leaf.items()}
+        nd = len(leaf[0]) if isinstance(leaf, tuple) else leaf.dim()
+        if n not in KV_LEAVES:
+            return (None,) * nd
+        rows = None if paged or n in pools else "batch"
+        return ("layers", rows) + (None,) * (nd - 4) + ("model", None)
+    return {n: names(n, leaf) for n, leaf in specs.items()}
+
+
+def _zeros(specs, device: torch.device, mesh=None, cfg=None,
+           paged: bool = False):
+    """Zeros of `specs`; with a DeviceMesh, DTensors laid out as the serve
+    caches are (`serve_cache_names`), each rank allocating its shard."""
+    if not SH.is_device_mesh(mesh):
+        return tree_map(lambda s: torch.zeros(s[0], dtype=s[1],
+                                              device=device), specs)
+    with SH.use_mesh(mesh):
+        return tree_map(
+            lambda s, nm: SH.zeros(s[0], s[1],
+                                   SH.resolve_spec(tuple(s[0]), nm), mesh,
+                                   device),
+            specs, serve_cache_names(cfg, specs, paged))
 
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
-               device: torch.device):
-    return _zeros(cache_specs(cfg, batch, cache_len), device)
+               device: torch.device, mesh=None):
+    """The dense decode cache; with a DeviceMesh (the serve path under a
+    mesh) DTensors laid out by `serve_cache_names`, storing
+    `A.kv_store_heads` K/V heads."""
+    heads = None
+    if SH.is_device_mesh(mesh):
+        with SH.use_mesh(mesh):
+            heads = A.kv_store_heads(cfg)
+    return _zeros(cache_specs(cfg, batch, cache_len, heads), device, mesh,
+                  cfg)
 
 
 def paged_leaf_names(cfg: ModelConfig) -> tuple:
@@ -551,34 +635,64 @@ def paged_leaf_names(cfg: ModelConfig) -> tuple:
 
 
 def init_paged_cache(cfg: ModelConfig, num_slots: int, num_pages: int,
-                     page_size: int, device: torch.device):
+                     page_size: int, device: torch.device, mesh=None):
     """KV leaves as shared page pools (stack, num_pages + 1, P, Hk, dh).
     The last page is the trash page: no block table names it, and retired
     slots' decode writes land there instead of being dropped (PyTorch has
     no drop-mode scatter); pages [:num_pages] are the pool proper.
     Per-slot leaves (the audio cross-KV, the hybrid's SSM state and conv
-    ring) keep num_slots batch rows."""
+    ring) keep num_slots batch rows.  With a DeviceMesh, DTensors as
+    `init_cache` gives them (the pools store `A.kv_store_heads` heads)."""
     if cfg.attention_kind == "sliding_window":
         raise ValueError("paged KV does not support sliding-window caches")
     names = paged_leaf_names(cfg)
     if not names:
         raise ValueError(f"arch_type {cfg.arch_type} has no KV to page")
-    specs = dict(cache_specs(cfg, num_slots, page_size))
+    heads = None
+    if SH.is_device_mesh(mesh):
+        with SH.use_mesh(mesh):
+            heads = A.kv_store_heads(cfg)
+    specs = dict(cache_specs(cfg, num_slots, page_size, heads))
     for name in names:
-        (stack, *_), dt = specs[name]
-        specs[name] = ((stack, num_pages + 1, page_size, cfg.num_kv_heads,
-                        cfg.head_dim), dt)
-    return _zeros(specs, device)
+        (stack, *_, He, dh), dt = specs[name]
+        specs[name] = ((stack, num_pages + 1, page_size, He, dh), dt)
+    return _zeros(specs, device, mesh, cfg, paged=True)
+
+
+def _local_like(t: torch.Tensor, leaf, whole_dim: Optional[int] = None
+                ) -> torch.Tensor:
+    """t as it goes into `leaf`: its local shard for a DTensor leaf (the
+    whole t repeated on its head dim where the leaf stores more K/V
+    heads; `whole_dim` kept whole, t's rows of a slot-split leaf), or
+    t."""
+    if SH.is_dtensor(t):
+        return t.to_local().to(leaf.dtype)
+    t = t.to(leaf.device, leaf.dtype)
+    if leaf.dim() >= 2 and t.dim() == leaf.dim() \
+            and leaf.shape[-2] != t.shape[-2]:
+        t = t.repeat_interleave(leaf.shape[-2] // t.shape[-2], dim=-2)
+    if not SH.is_dtensor(leaf):
+        return t
+    from torch.distributed.tensor import Replicate, distribute_tensor
+    pl = [Replicate() if getattr(p, "dim", None) == whole_dim else p
+          for p in leaf.placements]
+    return distribute_tensor(t, leaf.device_mesh, pl,
+                             src_data_rank=None).to_local()
 
 
 def _write_rows(pool, one, slot) -> None:
     """Batch row `slot` of every (stack, batch, ...) leaf of `pool` <- the
-    B=1 `one`, in place (leaves may be nested dicts: the conv ring)."""
+    B=1 `one`, in place (leaves may be nested dicts: the conv ring); for
+    a DTensor leaf on each rank's own shard (of a slot-split leaf, only
+    the rank that holds the row writes it)."""
     if isinstance(pool, dict):
         for n in pool:
             _write_rows(pool[n], one[n], slot)
         return
-    pool[:, slot] = one[:, 0].to(pool.dtype)
+    mine = SH.local_slice(pool, 1)
+    if mine.start <= slot < mine.stop:
+        SH.local(pool)[:, slot - mine.start] = _local_like(one, pool,
+                                                           1)[:, 0]
 
 
 def write_paged_cache(pool_cache, request_cache, slot, page_ids, cfg):
@@ -594,9 +708,11 @@ def write_paged_cache(pool_cache, request_cache, slot, page_ids, cfg):
         if name not in names:
             _write_rows(pool, one, slot)
             continue
-        stack, _, P = pool.shape[:3]
-        pages = one[:, 0].reshape((stack, npg, P) + tuple(pool.shape[3:]))
-        pool[:, page_ids] = pages.to(pool.dtype)
+        local = SH.local(pool)
+        stack, _, P = local.shape[:3]
+        one = _local_like(one, pool)
+        pages = one[:, 0].reshape((stack, npg, P) + tuple(local.shape[3:]))
+        local[:, page_ids] = pages
     return pool_cache
 
 
@@ -604,6 +720,25 @@ def write_cache_slot(pool_cache, request_cache, slot):
     """Scatter one request's B=1 cache into batch row `slot`, in place."""
     _write_rows(pool_cache, request_cache, slot)
     return pool_cache
+
+
+def install_pages(leaf, page_ids: torch.Tensor, pages) -> None:
+    """leaf[:, page_ids[:n]] <- pages (stack, n, P, Hk, dh) host pages
+    of a harvested slot, in place (each rank its shard of a DTensor
+    pool, the K/V heads repeated where the pool stores more)."""
+    n = pages.shape[1]
+    SH.local(leaf)[:, page_ids[:n]] = _local_like(torch.as_tensor(pages),
+                                                  leaf)
+
+
+def harvest(leaf, index, kv_heads: Optional[int] = None) -> torch.Tensor:
+    """leaf[index] whole, on the host; `index` keeps every dim (pages, or
+    a range of slots).  With `kv_heads`, a K/V leaf that stores repeated
+    heads gives each KV head once."""
+    t = SH.whole(SH.from_local_like(SH.local(leaf)[index], leaf))
+    if kv_heads and t.shape[-2] != kv_heads:
+        t = t[..., ::t.shape[-2] // kv_heads, :]
+    return t.to("cpu", copy=True)
 
 
 # ---------------------------------------------------------------------------

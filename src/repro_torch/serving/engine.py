@@ -42,6 +42,18 @@ span from admit to finish, `serve.first_token`, `serve.preempt`,
 gauges in `stats()`.  With the default null recorder they cost a method
 call and allocate nothing.
 
+Under a mesh (``core/sharding.use_mesh``; the parameters DTensors, as
+``launch/serve --data/--model`` gives them) the engine runs on every
+rank: its cache and page pools are DTensors laid out as
+``launch/steps.cache_pspecs(serve=True)`` says (K/V heads over "model";
+a dense cache's slots over the data axes as the batch is, while in paged
+mode the slot dim stays replicated: every page and slot row on every
+data rank), the prefill writes each rank's own shard of them, and the
+host's block tables, slot registers and scheduler are the same on every
+rank.  The kernels run on each rank's local heads, so the launch
+counters count one a layer an admit or a tick on each rank.  A harvested
+`MigratedKV` holds each KV head once, whatever the mesh.
+
 Engines of one (cfg, cache_len, page_size) may share one `ServeProgram`
 (`program=`): the step half carries no request state, so a serving
 fleet's replicas, present and future, run one program.  `chunk_cap=`
@@ -56,6 +68,7 @@ import numpy as np
 import torch
 
 from repro_torch import DeviceLike, resolve_device
+from repro_torch.core import sharding as SH
 from repro_torch.launch.steps import (make_paged_serve_cb_step,
                                       make_serve_cb_step, sharded_argmax)
 from repro_torch.models import model as MD
@@ -128,10 +141,10 @@ class ServeProgram:
         C = self.cache_len
         if page_ids is not None:
             C = page_ids.shape[0] * self.page_size
-        logits, _, req_cache = MD.forward(params, self.cfg, prompt,
-                                          extra_embeds=extra,
-                                          return_cache=True, cache_len=C)
-        first = sharded_argmax(logits[:, -1])  # (1,)
+        logits, _, req_cache = MD.forward(
+            params, self.cfg, prompt, extra_embeds=extra, return_cache=True,
+            cache_len=C, sharded_cache=SH.is_dtensor(params["embed"]))
+        first = SH.whole(sharded_argmax(logits[:, -1]))  # (1,)
         if page_ids is not None:
             MD.write_paged_cache(cache, req_cache, slot, page_ids, self.cfg)
         else:
@@ -154,10 +167,7 @@ class ServeProgram:
         yet) and maxgen is the remaining budget, so the device retirement
         rule sees a fresh continuation."""
         for name, pages in kv.pages.items():
-            leaf = cache[name]
-            n = pages.shape[1]
-            leaf[:, page_ids[:n]] = torch.as_tensor(pages).to(leaf.device,
-                                                              leaf.dtype)
+            MD.install_pages(cache[name], page_ids, pages)
         MD.write_cache_slot(
             {n: cache[n] for n in kv.rows},
             tree_map(lambda r: torch.as_tensor(r)[:, None], kv.rows), slot)
@@ -213,6 +223,12 @@ class ServeEngine:
             raise ValueError(f"params live on {params['embed'].device}, "
                              f"engine runs on {self.device}")
         self.params = params
+        self.mesh = None
+        if SH.is_dtensor(params["embed"]):
+            self.mesh = SH.get_mesh()
+            if not SH.is_device_mesh(self.mesh):
+                raise ValueError("DTensor params: build and run the engine "
+                                 "under core.sharding.use_mesh")
         self.cfg = cfg
         self.num_slots = num_slots
         self.cache_len = cache_len
@@ -252,14 +268,15 @@ class ServeEngine:
         self.finished: List[FinishedRequest] = []
         if self.paged:
             self.cache = MD.init_paged_cache(self.cfg, B, self.num_pages,
-                                             self.page_size, self.device)
+                                             self.page_size, self.device,
+                                             mesh=self.mesh)
             self.pages = PagePool(self.num_pages, self.page_size)
             # host block tables; unassigned entries stay 0 (never read:
             # reads are bounded by the slot's position coverage)
             self.block_tables = np.zeros((B, self.n_max), np.int32)
         else:
             self.cache = MD.init_cache(self.cfg, B, self.cache_len,
-                                       self.device)
+                                       self.device, mesh=self.mesh)
         # device-resident slot lifecycle (the host mirrors only what
         # scheduling needs: request binding + harvested tokens)
         i32 = dict(dtype=torch.int32, device=self.device)
@@ -600,9 +617,12 @@ class ServeEngine:
         ids = torch.as_tensor(self.pages.owned[slot][:npg], dtype=torch.long,
                               device=self.device)
         paged_names = set(MD.paged_leaf_names(self.cfg))
-        pages = {n: self.cache[n][:, ids].cpu()
+        Hk = self.cfg.num_kv_heads
+        pages = {n: MD.harvest(self.cache[n], (slice(None), ids), Hk)
                  for n in self.cache if n in paged_names}
-        rows = {n: tree_map(lambda t: t[:, slot].to("cpu", copy=True),
+        one = (slice(None), slice(slot, slot + 1))
+        rows = {n: tree_map(lambda t, kv=n in MD.KV_LEAVES:
+                            MD.harvest(t, one, Hk if kv else None)[:, 0],
                             self.cache[n])
                 for n in self.cache if n not in paged_names}
         return MigratedKV(pos=pos,

@@ -38,6 +38,7 @@ from typing import Dict, List, Sequence
 import numpy as np
 import torch
 
+from repro_torch.core import sharding as SH
 from repro_torch.launch.steps import sharded_argmax
 from repro_torch.models import model as MD
 from repro_torch.serving.engine import ServeEngine
@@ -116,7 +117,8 @@ class SpecDecodeEngine(ServeEngine):
         super().reset()
         if isinstance(self.draft, ModelDraft):
             self.draft_cache = MD.init_cache(self.draft.cfg, self.num_slots,
-                                             self.cache_len, self.device)
+                                             self.cache_len, self.device,
+                                             mesh=self.mesh)
         self.spec_rounds = 0
         self.spec_proposed = 0
         self.spec_accepted = 0
@@ -143,7 +145,7 @@ class SpecDecodeEngine(ServeEngine):
             self.params, self.cfg, vtok, pos, self.cache, active=active,
             block_tables=block_tables,
             logical_len=self.cache_len if self.paged else None)
-        outs = sharded_argmax(logits)                             # (B, S)
+        outs = SH.whole(sharded_argmax(logits))                   # (B, S)
         # accept the agreeing prefix + the target's correction token
         match = (props == outs[:, :-1]).to(torch.int32)
         m_raw = 1 + torch.cumprod(match, dim=1).sum(dim=1)
@@ -178,17 +180,17 @@ class SpecDecodeEngine(ServeEngine):
         for _ in range(self.spec_k + 1):
             logits, _ = MD.decode_step(dparams, dcfg, tok, p,
                                        self.draft_cache, active=active)
-            nxt = sharded_argmax(logits[:, -1])[:, None]
+            nxt = SH.whole(sharded_argmax(logits[:, -1]))[:, None]
             tok = torch.where(active[:, None], nxt, tok)
             props.append(tok[:, 0])
             p = p + active.to(p.dtype)
         return torch.stack(props[:self.spec_k], dim=1)
 
     def _draft_admit(self, prompt: torch.Tensor, extra, slot: int) -> None:
-        _, _, req_cache = MD.forward(self.draft.params, self.draft.cfg,
-                                     prompt, extra_embeds=extra,
-                                     return_cache=True,
-                                     cache_len=self.cache_len)
+        _, _, req_cache = MD.forward(
+            self.draft.params, self.draft.cfg, prompt, extra_embeds=extra,
+            return_cache=True, cache_len=self.cache_len,
+            sharded_cache=SH.is_dtensor(self.draft.params["embed"]))
         MD.write_cache_slot(self.draft_cache, req_cache, slot)
 
     # -- engine overrides ----------------------------------------------
