@@ -13,7 +13,10 @@ Phases (each raises on failure, and then no result is printed):
      attention kernels in bf16 (2e-2) and fp32 (2e-5, TF32 off) at both
      serve paths' shapes (qwen3-0.6b: dh 128, 16/8 heads; zamba2-1.2b:
      dh 64, 32/32 heads), at the flash kernel's 64-row / 64-key tile
-     edges, S < T, windows and full masking, and the paged kernel with
+     edges, S < T, windows and full masking, at the edges of its plan
+     (G 7 and 12 packed into 64 / 128 rows off whole positions, windows
+     under packing, keys split over blocks at T >> S, S > T with rows
+     that see no key and must emit 0), and the paged kernel with
      positions at the edges of its planned splits (and a row at pos -1,
      which must emit 0), every group and page size, stale pages poisoned
      (the output must not change by a bit) and each call twice (the two
@@ -117,7 +120,9 @@ Phases (each raises on failure, and then no result is printed):
      candidate rows of qwen3-1.7b), both attention kernels also at phase
      4c's three head layouts and 4d's (whisper's encoder and a 192-token
      cross read, phi-3's 1088-token prefill, nemotron's dh 192 at G 12;
-     paged at each model's pool): card time from CUDA-graph replays
+     paged at each model's pool), flash also at qwen3-0.6b's prefills of
+     1024 and 8192 tokens (the latter bound by operations): card time
+     from CUDA-graph replays
      (`device_ms`: these kernels take less time than the host needs to
      issue them), and the eager call time beside it;
   6. train qwen3-0.6b at full width (28 layers, bf16, block remat, AdamW,
@@ -520,7 +525,19 @@ def flash_cases():
              (1, 100, 192, 8, 8, 128, True, 64),
              (1, 64, 256, 4, 2, 128, False, None),
              (2, 33, 64, 4, 1, 64, False, None),
-             (1, 65, 130, 14, 2, 64, True, None)]        # G 7, S < T
+             (1, 65, 130, 14, 2, 64, True, None),        # G 7, S < T
+             # the Hopper kernel's plan: G 7 and 12 packed into 64 / 128
+             # rows with S off the block's positions, windows under
+             # packing, key splits (T >> S), S > T (rows with no key)
+             (1, 100, 100, 14, 2, 128, True, None),
+             (1, 77, 77, 24, 2, 64, True, None),
+             (2, 53, 53, 24, 2, 192, True, None),
+             (1, 300, 300, 16, 2, 128, True, 50),
+             (1, 700, 700, 14, 2, 192, True, 130),
+             (1, 40, 2000, 12, 1, 64, True, None),
+             (1, 33, 3000, 12, 1, 192, True, None),
+             (1, 64, 4096, 8, 8, 128, False, None),
+             (1, 300, 100, 14, 2, 128, True, None)]
     return qwen, zamba, extra
 
 
@@ -642,12 +659,21 @@ def check_kernels(torch, FA, PA, rows):
             out = FA.flash_attention(q, k, v, causal=causal, window=window)
             again = FA.flash_attention(q, k, v, causal=causal, window=window)
             torch.cuda.synchronize()
+            plan = FA.plan(B, S, T, Hq, Hk, dh, causal, window)
             name = (f"flash {dtype} {(B, S, T, Hq, Hk, dh)} causal={causal} "
-                    f"window={window}")
+                    f"window={window}" + (
+                        f" rows={plan.rows} pack={plan.pack} "
+                        f"splits={plan.splits}" if dtype == "bfloat16"
+                        else ""))
             if not torch.equal(out, again):
                 fail(f"{name}: two identical calls differ")
+            # causal with S > T: the first S - T rows see no key and emit
+            # 0, where the plain version averages them uniformly
+            dead = max(0, S - T) if causal else 0
+            if not bool((out[:, :dead] == 0).all()):
+                fail(f"{name}: a row with no key did not emit 0")
             ref = FA.reference(q, k, v, causal=causal, window=window)
-            e = check_close(name, out, ref, TOL[dtype])
+            e = check_close(name, out[:, dead:], ref[:, dead:], TOL[dtype])
             rows.append(["flash_attention", dtype, (B, S, T, Hq, Hk, dh),
                          f"causal={causal} window={window}", e])
             if dtype == "bfloat16" and i < len(qwen) + len(zamba):
@@ -1155,7 +1181,7 @@ def recorded_serve(torch, card, cfg, params, ops, ServeEngine, Request,
 
 
 # the port's own kernels, by the names of their CUDA functions
-PORT_KERNELS = ("flash_fwd", "paged_decode", "paged_merge", "ssd_state",
+PORT_KERNELS = ("flash_fwd", "flash_combine", "paged_decode", "paged_merge", "ssd_state",
                 "ssd_pass", "ssd_chunk_scan",
                 "pack_kernel", "unpack_kernel")
 
@@ -4532,6 +4558,9 @@ def main(argv=None) -> int:
     # against SDPA on longer prefills
     timing["flash_attention S=1024"] = time_flash(torch, FA, HEADS[ARCH],
                                                   S=1024)
+    # and where operations bound it, far above the serve paths' prompts
+    timing["flash_attention S=8192"] = time_flash(torch, FA, HEADS[ARCH],
+                                                  S=8192)
     timing["ssd_scan"] = time_ssd(torch, SS)
     for name, t in timing.items():
         lib = ("none" if t["library_ms"] is None else

@@ -67,8 +67,8 @@ The cross-transport contract (held against the JAX package by
 `tests/test_torch_cluster.py`): the same trace driven through either
 transport yields the identical membership transition log.
 
-The consumers in the diagram (`elastic.driver`, `serving.fleet`) and
-`run_elastic` are not ported yet (ROADMAP.md queue 1, slices 3-4).
+The consumers in the diagram are `elastic.driver` (with `run_elastic`)
+and `serving.fleet`.
 
 Imports here are lazy (PEP 562): `ProcTransport` worker processes
 import `repro_torch.cluster.proc`, which must not pull torch in via this

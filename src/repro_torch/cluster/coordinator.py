@@ -257,8 +257,8 @@ class Coordinator:
         a fleet shares an accelerator).  When survivors map to several
         devices, per-row placement is a data-plane concern this driver
         doesn't own yet — the stacked compute runs on the driver host —
-        so the tree is returned unchanged (ROADMAP.md queue 1, slice 5:
-        the mesh).  Identity when the transport has no host -> device map
+        so the tree is returned unchanged (see ROADMAP: multi-host data
+        plane).  Identity when the transport has no host -> device map
         (simulated transports)."""
         devmap = self.transport.host_devices()
         devices = {devmap[w] for w in worker_ids if w in devmap}

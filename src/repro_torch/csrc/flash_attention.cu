@@ -11,53 +11,66 @@
 //
 // What bounds it on an H100: a causal prefill does 4*dh*S(S+1)/2
 // operations per q-head against (q+k+v+o) bytes.  Against 989 TFLOP/s bf16
-// and 3.35 TB/s, bytes bound it below S of about 900 (most prompts of the
-// serve path, S = 257..512) and operations above.  At these sizes (~1
-// GFLOP, 128-256 blocks) neither bound is near: each block walks its key
-// tiles one after another, so the time is the heaviest query tile's chain
-// of tile loads, mma.sync products and softmax steps.
+// and 3.35 TB/s, bytes bound it below S of about 900 (the serve path's
+// prompts, S = 257..1088) and operations above.  At the serve shapes both
+// bounds are a few microseconds, so what a design has to remove is
+// latency: the chain of tile loads and products that one block walks.
 //
-// bf16 (the serve path): FlashAttention-2 on the tensor cores.  One block
-// of 4 warps per (64-row query tile, q-head, batch row); each warp owns 16
-// query rows.  Query tiles run heaviest first (reverse blockIdx.x), so the
-// long tiles of the causal triangle start first.  Q is loaded once into
-// registers as mma.sync.m16n8k16 A-fragments (ldmatrix).  K and V tiles of
-// 64 keys x dh are staged in shared memory as bf16 by 16-byte cp.async
-// copies, double-buffered: tile i+1 is copied while tile i computes, with
-// one __syncthreads a tile.  Rows are padded by 16 bytes so that ldmatrix
-// and ldmatrix.trans are free of bank conflicts (85 KB of dynamic shared
-// memory at dh 128, opted in with cudaFuncSetAttribute; two blocks an SM;
-// 67 KB at dh 96; 128 KB and one block an SM at dh 192, where the Q
-// fragments and the O accumulator take 144 registers a thread).  Any head
-// dim that is a multiple of 16 fits these layouts (dh 96 and 192: 6 and
-// 12 k-steps of Q.K^T, 12 and 24 n-blocks of P.V).
-// S = Q.K^T runs on mma.sync bf16 -> fp32; the causal / window / bounds
-// mask is applied to the accumulator fragments only in tiles that
-// straddle the diagonal, the window edge or the ragged end.  The online
-// softmax stays in registers: row max by quad shuffles, 2^x by one SFU
-// instruction with the scale and log2(e) folded into one FFMA (Q itself is
-// not pre-scaled in bf16, which would add a rounding), per-thread partial
-// row sums reduced once at the end.  P is rounded to bf16 in registers and
-// fed straight in as the A-fragment of P.V (V through ldmatrix.trans).
-// This differs from the TPU kernel, which keeps P in fp32; the plain
-// version `ref.attention_ref` casts P to v.dtype too, and the bf16
-// tolerance (2e-2) covers it.  The fp32 O accumulator stays in registers
-// and is written once, through shared memory, as coalesced 16-byte stores.
-// Splitting a tile's keys over two groups of 4 warps, or a third stage of
-// K/V tiles, gained little at S 512 and lost at S 1024 and at dh 64 (fewer
-// blocks an SM), so neither is here; wgmma is the next step.
+// bf16 (the serve path): a warp-specialised Hopper kernel.  What it does
+// about each cause that held the sm_80 design (mma.sync, cp.async on the
+// compute warps, one block per q-head) back:
+//  1. Products run on wgmma: S = Q.K^T as m64n64k16 with Q and K read from
+//     shared memory through descriptors, O += P.V as m64n{dh}k16 with P
+//     from registers (the S accumulator rounded to bf16 is wgmma's A
+//     fragment) and V from shared memory, read MN-major, so V needs no
+//     transposed copy.  S, the softmax statistics and O stay fp32.
+//  2. Loads run on TMA, off the compute warps: one thread of a producer
+//     warpgroup issues a block's Q once and K/V tiles of 64 keys into a
+//     ring of 2-4 stages (`plan` picks), each stage a full and an empty
+//     mbarrier; K and V have full barriers of their own, so Q.K^T starts
+//     while V lands.  The producer gives up its registers (setmaxnreg);
+//     ptxas still keeps each consumer thread within the block's entry
+//     count (168 with two consumer warpgroups, 128 with one, two blocks an
+//     SM), which is what rules out keeping a second score tile in flight.
+//  O leaves the same way: normalised to bf16 into the block's Q tile in
+//     the layout TMA read Q in, then stored by one thread with the
+//     output's tensor map (whole 16-byte rows; positions past S dropped).
+//  3. GQA packing: a block's 64 or 128 query rows are (position, q-head)
+//     pairs of one KV group, so one K/V tile feeds all G heads.  G 7 and
+//     12 leave the last rows of the tile empty (64 = 9 x 7 + 1, 128 =
+//     10 x 12 + 8); those rows are never stored.  Masks depend on a row's
+//     position only.
+//  4. Occupancy at dh 192: two consumer warpgroups (128 rows, O 96 fp32
+//     registers a thread) and three stages fit 193 KB; one block an SM
+//     still keeps 8 warps of products and a warp of loads busy.
+//  5. Small grids: `plan` (kernels/flash_attention.py) packs 128 rows a
+//     block where that leaves at least 132 blocks, else 64, and splits a
+//     query tile's keys over blocks when the grid is still short; a second
+//     kernel in the same call merges the splits' (max, sum, O) partials in
+//     split order, so the result does not depend on block timing.  Query
+//     tiles run heaviest first (the slow grid axis walks them backwards).
+// Tiles are swizzled as TMA writes them and wgmma reads them: 128-byte
+// rows (64 bf16) for dh 64, 128 and 192, 64-byte rows (32 bf16) for dh 32
+// and 96, which are not multiples of 64; a tile of dh columns is dh / 64
+// (or dh / 32) such column blocks, each one box of the tensor map.  The
+// tensor maps are encoded on the host each call (cuTensorMapEncodeTiled,
+// reached through cudaGetDriverEntryPoint, so nothing links -lcuda) and
+// passed by value as __grid_constant__ parameters, which a CUDA graph
+// records.  P is rounded to bf16 before P.V, as `ref.attention_ref` does;
+// the TPU kernel keeps P in fp32, and the bf16 tolerance (2e-2) covers it.
 //
 // fp32 (the tests only): the blockwise kernel on the FMA units, two threads
 // per query row each holding half of the head dim, 32-key fp32 tiles
 // (48 KB of static shared memory at dh 192, the static limit).
 // TF32 tensor cores keep ~3 decimal digits and cannot meet the fp32
 // tolerance (2e-5), so fp32 stays off the tensor cores.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
-#include "mma_sm80.cuh"
+#include "sm90.cuh"
 
 namespace {
 
@@ -191,13 +204,10 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// bf16: the tensor-core kernel
+// bf16: the Hopper kernel
 // ---------------------------------------------------------------------------
-constexpr int kTQ = 64;        // query rows per block (16 per warp)
-constexpr int kTK = 64;        // keys per shared-memory tile
-
-constexpr int kTThreads = 128;
-constexpr int kStages = 2;     // K/V tiles in flight (double buffer)
+constexpr int kKeys = 64;          // keys a K/V tile (flash_attention.py KEYS)
+constexpr int kMaxStages = 4;      // K/V stages at most (MAX_STAGES)
 
 // 2^x on the SFU in one instruction (exp2f adds a range fix-up around
 // it); 2^-inf = +0, so a masked score still weighs exactly 0
@@ -207,230 +217,349 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-template <int DH>
-struct TcLayout {
-  static constexpr int kStride = DH + 8;          // bf16 per padded row
-  static constexpr int kTile = kTQ * kStride;     // bf16 per 64-row tile
-  // Q (reused for the output), then kStages K tiles and kStages V tiles
-  static constexpr size_t kBytes =
-      (1 + 2 * kStages) * kTile * sizeof(__nv_bfloat16);
-  // blocks an SM can hold by shared memory (227 KB a block, 228 an SM):
-  // two up to dh 128 (85 KB), one at dh 192 (128 KB)
-  static constexpr int kMinBlocks = 2 * kBytes <= 227 * 1024 ? 2 : 1;
+// The layout of one block: NWG consumer warpgroups of 64 query rows each,
+// then one producer warpgroup.  Shared memory, each tile 1024-byte
+// aligned: Q [chunks][rows][W], then `stages` K tiles and `stages` V
+// tiles [chunks][64 keys][W], then the mbarriers.
+template <int DH, int NWG>
+struct Hop {
+  static constexpr int kW = DH % 64 == 0 ? 64 : 32;   // bf16 a swizzle row
+  static constexpr int kChunks = DH / kW;
+  static constexpr int kRows = 64 * NWG;
+  static constexpr uint32_t kQChunk = kRows * kW * 2;    // bytes
+  static constexpr uint32_t kQBytes = kRows * DH * 2;
+  static constexpr uint32_t kKVChunk = kKeys * kW * 2;
+  static constexpr uint32_t kKVBytes = kKeys * DH * 2;   // one K or V tile
+  static constexpr int kThreads = 128 * (NWG + 1);
+  // registers: entry count x warpgroups = producer + consumers
+  // (384 threads, one block an SM: 3 x 168 = 24 + 2 x 240; 256 threads,
+  // two blocks an SM: 2 x 128 = 24 + 232), though the consumers' code is
+  // compiled within the entry count
+  static_assert(NWG == 2 || DH <= 128, "dh 192 takes two consumer groups");
+  static constexpr int kMinBlocks = NWG == 1 ? 2 : 1;
+  static constexpr int kProducerRegs = 24;
+  static constexpr int kConsumerRegs = NWG == 1 ? 232 : 240;
+  // flash_attention.py `smem_bytes`: tiles, alignment slack, barriers
+  static size_t smem(int stages) {
+    return kQBytes + 2 * static_cast<size_t>(stages) * kKVBytes + 1024 + 128;
+  }
 };
 
-template <int DH>
-__global__ void __launch_bounds__(kTThreads, TcLayout<DH>::kMinBlocks)
-flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                     const __nv_bfloat16* __restrict__ k,
-                     const __nv_bfloat16* __restrict__ v,
-                     __nv_bfloat16* __restrict__ o, int S, int Tk, int Hq,
-                     int Hk, int causal, int has_window, int window,
-                     float scale_log2) {
-  using L = TcLayout<DH>;
-  constexpr int kStr = L::kStride;
-  constexpr int kChunks = DH / 8;                      // 16-byte chunks a row
-  constexpr int kCopies = kTQ * kChunks / kTThreads;   // per thread a tile
-  constexpr int kKSteps = DH / 16;                     // k-steps of Q.K^T
-  constexpr int kDBlocks = DH / 8;                     // n-blocks of P.V
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* ks = qs + L::kTile;                   // [kStages][64][kStr]
-  __nv_bfloat16* vs = ks + kStages * L::kTile;         // [kStages][64][kStr]
+struct HopParams {
+  __nv_bfloat16* o;
+  float* part;      // splits > 1: [splits][B*S*Hq][dh] unnormalised O
+  float* part_ml;   // [splits][B*S*Hq][2]: max (log2 units), sum
+  int B, S, T, Hq, Hk, pack, positions, splits, stages;
+  int causal, has_window, window;
+  float scale_log2;
+};
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kTQ;   // heaviest first
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / (Hq / Hk);
-  const int off = Tk - S;          // queries end at key position Tk-1
+template <int DH, int NWG>
+__global__ void __launch_bounds__(Hop<DH, NWG>::kThreads,
+                                  Hop<DH, NWG>::kMinBlocks)
+flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv,
+                       const __grid_constant__ CUtensorMap to,
+                       const HopParams p) {
+  using H = Hop<DH, NWG>;
+  constexpr int W = H::kW;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* qs = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* ks = qs + H::kQBytes;
+  unsigned char* vs = ks + p.stages * H::kKVBytes;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(vs + p.stages * H::kKVBytes);
+  uint64_t* k_full = q_full + 1;
+  uint64_t* v_full = k_full + kMaxStages;
+  uint64_t* empty = v_full + kMaxStages;
 
-  int k_lo = 0, k_hi = Tk;         // keys visible to any row of the tile
-  if (causal) {
-    k_hi = min(Tk, q0 + kTQ + off);
-    if (has_window) k_lo = max(0, q0 + off - window + 1);
+  // the block's work (tests/test_torch_flash_plan.py `block_work` mirrors
+  // it)
+  const int groups = p.Hq / p.pack;
+  int bx = blockIdx.x;
+  const int sp = bx % p.splits;
+  bx /= p.splits;
+  const int hq0 = (bx % groups) * p.pack, b = bx / groups;
+  const int hk = hq0 / (p.Hq / p.Hk);
+  const int s0 = (gridDim.y - 1 - blockIdx.y) * p.positions;  // heaviest first
+  const int s_end = min(s0 + p.positions, p.S);
+  const int off = p.T - p.S;       // queries end at key position T-1
+  int k_lo = 0, k_hi = p.T;        // keys visible to any row of the block
+  if (p.causal) {
+    k_hi = min(p.T, s_end + off);
+    if (p.has_window) k_lo = max(0, s0 + off - p.window + 1);
   }
-  k_lo = (k_lo / kTK) * kTK;
-  const int n_tiles = k_hi > k_lo ? (k_hi - k_lo + kTK - 1) / kTK : 0;
+  int n_all = 0;
+  if (k_hi > k_lo) {
+    k_lo = k_lo / kKeys * kKeys;
+    n_all = (k_hi - k_lo + kKeys - 1) / kKeys;
+  }
+  const int t_first = sp * n_all / p.splits;   // this split's key tiles
+  const int n_tiles = (sp + 1) * n_all / p.splits - t_first;
+  const int key0 = k_lo + t_first * kKeys;
 
-  const size_t kv_row = static_cast<size_t>(Hk) * DH;
-  const __nv_bfloat16* kb = k + (static_cast<size_t>(b) * Tk * Hk + hk) * DH;
-  const __nv_bfloat16* vb = v + (static_cast<size_t>(b) * Tk * Hk + hk) * DH;
-  // tile `it` into stage it % kStages; rows past the visible keys are 0
-  auto load_kv = [&](int it) {
-    const int st = (it % kStages) * L::kTile;
-#pragma unroll
-    for (int i = 0; i < kCopies; ++i) {
-      const int c = tid + i * kTThreads, row = c / kChunks, ch = c % kChunks;
-      const int t = k_lo + it * kTK + row;
-      const bool ok = t < k_hi;
-      const size_t src = (ok ? t * kv_row : 0) + ch * 8;
-      const int dst = st + row * kStr + ch * 8;
-      cp_async16(smem_u32(ks + dst), kb + src, ok);
-      cp_async16(smem_u32(vs + dst), vb + src, ok);
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(q_full, 1);
+    for (int s = 0; s < p.stages; ++s) {
+      sm90::mbar_init(&k_full[s], 1);
+      sm90::mbar_init(&v_full[s], 1);
+      sm90::mbar_init(&empty[s], 4 * NWG);   // lane 0 of each consumer warp
     }
-  };
-
-  // Q tile (zero rows past S) travels with tile 0; tiles 0..kStages-2
-  // are in flight before the loop, one commit group each
-  const size_t q_row = static_cast<size_t>(Hq) * DH;
-  const __nv_bfloat16* qb = q + (static_cast<size_t>(b) * S * Hq + h) * DH;
-#pragma unroll
-  for (int i = 0; i < kCopies; ++i) {
-    const int c = tid + i * kTThreads, r = c / kChunks, ch = c % kChunks;
-    const bool ok = q0 + r < S;
-    cp_async16(smem_u32(qs + r * kStr + ch * 8),
-               qb + (ok ? (q0 + r) * q_row : 0) + ch * 8, ok);
+    sm90::mbar_fence_init();
   }
-#pragma unroll
-  for (int it = 0; it < kStages - 1; ++it) {
-    if (it < n_tiles) load_kv(it);
-    cp_commit();
-  }
+  __syncthreads();
 
-  // this thread's accumulator rows within the tile: r0 and r0 + 8
-  const int r0 = warp * 16 + (lane >> 2);
-  const int lm = lane >> 3, lr = lane & 7;   // ldmatrix: matrix, row
-  uint32_t qf[kKSteps][4];
-  float oacc[kDBlocks][4];
-#pragma unroll
-  for (int n = 0; n < kDBlocks; ++n)
-    oacc[n][0] = oacc[n][1] = oacc[n][2] = oacc[n][3] = 0.f;
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-
-  for (int it = 0; it < n_tiles; ++it) {
-    cp_wait<kStages - 2>();    // tile `it` has landed (this thread's copies)
-    __syncthreads();           // ... and everyone's; tile it-1 is consumed
-    if (it + kStages - 1 < n_tiles) load_kv(it + kStages - 1);
-    cp_commit();
-    if (it == 0) {
-#pragma unroll
-      for (int kk = 0; kk < kKSteps; ++kk)
-        ldsm_x4(smem_u32(qs + (warp * 16 + (lm & 1) * 8 + lr) * kStr
-                         + kk * 16 + (lm >> 1) * 8),
-                qf[kk][0], qf[kk][1], qf[kk][2], qf[kk][3]);
-    }
-    const int kt = k_lo + it * kTK;
-    const __nv_bfloat16* kst = ks + (it % kStages) * L::kTile;
-    const __nv_bfloat16* vst = vs + (it % kStages) * L::kTile;
-
-    // S = Q.K^T: 8 n-blocks of 8 keys
-    float sacc[kTK / 8][4];
-#pragma unroll
-    for (int n = 0; n < kTK / 8; ++n)
-      sacc[n][0] = sacc[n][1] = sacc[n][2] = sacc[n][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < kKSteps; ++kk) {
-#pragma unroll
-      for (int np = 0; np < kTK / 16; ++np) {
-        uint32_t b0, b1, b2, b3;
-        ldsm_x4(smem_u32(kst + (np * 16 + (lm >> 1) * 8 + lr) * kStr
-                         + kk * 16 + (lm & 1) * 8), b0, b1, b2, b3);
-        mma_bf16(sacc[2 * np], qf[kk], b0, b1);
-        mma_bf16(sacc[2 * np + 1], qf[kk], b2, b3);
+  // the warpgroup, made warp-uniform for the compiler (a shuffle from lane
+  // 0): each role then compiles under its own setmaxnreg budget
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (wg == NWG) {
+    // ---- producer: one thread issues every TMA load of the block ----
+    sm90::regs_dec<H::kProducerRegs>();
+    if (threadIdx.x == NWG * 128 && n_tiles > 0) {
+      sm90::tma_prefetch(&tk);
+      sm90::tma_prefetch(&tv);
+      sm90::mbar_expect_tx(q_full, p.pack * p.positions * DH * 2);
+      for (int c = 0; c < H::kChunks; ++c)
+        sm90::tma_load_5d(qs + c * H::kQChunk, &tq, q_full, 0, hq0, s0, c, b);
+      for (int it = 0; it < n_tiles; ++it) {
+        const int st = it % p.stages;
+        sm90::mbar_wait(&empty[st], ((it / p.stages) & 1) ^ 1);
+        const int kt = key0 + it * kKeys;
+        sm90::mbar_expect_tx(&k_full[st], H::kKVBytes);
+        sm90::tma_load_4d(ks + st * H::kKVBytes, &tk, &k_full[st], 0, kt,
+                          hk * H::kChunks, b);
+        sm90::mbar_expect_tx(&v_full[st], H::kKVBytes);
+        sm90::tma_load_4d(vs + st * H::kKVBytes, &tv, &v_full[st], 0, kt,
+                          hk * H::kChunks, b);
       }
     }
-
-    // mask only tiles that straddle the diagonal, window edge or ragged end
-    const bool full = kt + kTK <= Tk &&
-        (!causal || (kt + kTK - 1 <= q0 + off &&
-                     (!has_window || kt > q0 + kTQ - 1 + off - window)));
-    if (!full) {
-#pragma unroll
-      for (int n = 0; n < kTK / 8; ++n) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int t = kt + n * 8 + (lane & 3) * 2 + (e & 1);
-          const int qpos = q0 + r0 + (e >> 1) * 8 + off;
-          bool ok = t < Tk;
-          if (causal) {
-            ok = ok && t <= qpos;
-            if (has_window) ok = ok && t > qpos - window;
-          }
-          if (!ok) sacc[n][e] = -INFINITY;
-        }
-      }
-    }
-
-    // online softmax, rows r0 (e = 0, 1) and r0 + 8 (e = 2, 3)
+  } else {
+    // ---- consumers: warpgroup wg owns rows 64 wg .. 64 wg + 63 ----
+    sm90::regs_inc<H::kConsumerRegs>();
+    const int tw = threadIdx.x % 128, lane = tw % 32;
+    const int r0 = wg * 64 + (tw / 32) * 16 + lane / 4;   // and r0 + 8
+    int qpos[2];
+    bool valid[2];
+    size_t orow[2];                // the row's index in (B*S*Hq)
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
-      float mx = -INFINITY;
+      const int r = r0 + 8 * i, pp = r / p.pack, s = s0 + pp;
+      valid[i] = pp < p.positions && s < p.S;
+      qpos[i] = s + off;
+      orow[i] = (static_cast<size_t>(b) * p.S + s) * p.Hq + hq0
+                + (r - pp * p.pack);
+    }
+    float oacc[DH / 2];
 #pragma unroll
-      for (int n = 0; n < kTK / 8; ++n)
-        mx = fmaxf(mx, fmaxf(sacc[n][2 * i], sacc[n][2 * i + 1]));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_new = fmaxf(m[i], mx);
-      // a row with no visible key yet keeps every p (and alpha) at 0
-      const float ms = m_new == -INFINITY ? 0.f : m_new * scale_log2;
-      const float alpha = ex2(fmaf(m[i], scale_log2, -ms));
-      m[i] = m_new;
-      float sum = 0.f;
+    for (int n = 0; n < DH / 2; ++n) oacc[n] = 0.f;
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+    const uint32_t q_addr = sm90::smem_addr(qs) + wg * 64 * W * 2;
+
+    // S = Q.K^T of the tile in stage st (64 rows x 64 keys), both operands
+    // K-major; issued and committed as one wgmma group
+    auto issue_qk = [&](float (&s)[32], int st) {
+      const uint32_t k_addr = sm90::smem_addr(ks + st * H::kKVBytes);
+      sm90::fence_regs(s);
+      sm90::wgmma_fence();
 #pragma unroll
-      for (int n = 0; n < kTK / 8; ++n) {
-        const float p0 = ex2(fmaf(sacc[n][2 * i], scale_log2, -ms));
-        const float p1 = ex2(fmaf(sacc[n][2 * i + 1], scale_log2, -ms));
-        sacc[n][2 * i] = p0;
-        sacc[n][2 * i + 1] = p1;
-        sum += p0 + p1;
+      for (int kk = 0; kk < DH / 16; ++kk) {
+        const int c = kk / (W / 16);                 // column block
+        const uint32_t at = (kk % (W / 16)) * 32;   // bytes into its row
+        sm90::wgmma_ss_n64(
+            s,
+            sm90::desc<W>(q_addr + c * H::kQChunk + at, 16,
+                          sm90::Swizzle<W>::kAtom),
+            sm90::desc<W>(k_addr + c * H::kKVChunk + at, 16,
+                          sm90::Swizzle<W>::kAtom),
+            kk > 0);
       }
-      l[i] = l[i] * alpha + sum;
+      sm90::wgmma_commit();
+    };
+    // O += P.V: P (bf16 pairs) from registers, V of stage st MN-major
+    auto issue_pv = [&](const uint32_t (&pf)[16], int st) {
+      const uint32_t v_addr = sm90::smem_addr(vs + st * H::kKVBytes);
+      sm90::fence_regs(oacc);
+      sm90::wgmma_fence();
 #pragma unroll
-      for (int n = 0; n < kDBlocks; ++n) {
-        oacc[n][2 * i] *= alpha;
-        oacc[n][2 * i + 1] *= alpha;
+      for (int j = 0; j < kKeys / 16; ++j) {       // keys 16 j .. 16 j + 15
+        sm90::wgmma_rs_tb<DH>(
+            oacc, pf[4 * j], pf[4 * j + 1], pf[4 * j + 2], pf[4 * j + 3],
+            sm90::desc<W>(v_addr + j * 16 * W * 2, H::kKVChunk,
+                          sm90::Swizzle<W>::kAtom));
+      }
+      sm90::wgmma_commit();
+    };
+    // the online softmax of the scores s of keys kt..kt+63: masks (only
+    // in tiles that straddle the diagonal, the window edge or the ragged
+    // end; rows past the block's positions never store), the running max
+    // and sum, P as bf16 pairs in pf, and each row's rescale of O
+    auto softmax = [&](float (&s)[32], int kt, uint32_t (&pf)[16],
+                       float (&alpha)[2]) {
+      const bool full = kt + kKeys <= p.T &&
+          (!p.causal || (kt + kKeys - 1 <= s0 + off &&
+                         (!p.has_window || kt > s_end - 1 + off - p.window)));
+      if (!full) {
+#pragma unroll
+        for (int e = 0; e < 32; ++e) {
+          const int t = kt + (e / 4) * 8 + (lane & 3) * 2 + (e & 1);
+          const int i = (e >> 1) & 1;
+          bool ok = valid[i] && t < p.T;
+          if (p.causal) {
+            ok = ok && t <= qpos[i];
+            if (p.has_window) ok = ok && t > qpos[i] - p.window;
+          }
+          if (!ok) s[e] = -INFINITY;
+        }
+      }
+      // rows r0 (e % 4 = 0, 1) and r0 + 8 (e % 4 = 2, 3)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        float mx = -INFINITY;
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+          mx = fmaxf(mx, fmaxf(s[4 * n + 2 * i], s[4 * n + 2 * i + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m[i], mx);
+        // a row with no visible key yet keeps every p (and alpha) at 0
+        const float ms = m_new == -INFINITY ? 0.f : m_new * p.scale_log2;
+        alpha[i] = ex2(fmaf(m[i], p.scale_log2, -ms));
+        m[i] = m_new;
+        float sum = 0.f;
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+          const float p0 = ex2(fmaf(s[4 * n + 2 * i], p.scale_log2, -ms));
+          const float p1 = ex2(fmaf(s[4 * n + 2 * i + 1], p.scale_log2, -ms));
+          pf[2 * n + i] = sm90::pack_bf16(p0, p1);
+          sum += p0 + p1;
+        }
+        l[i] = l[i] * alpha[i] + sum;
+      }
+    };
+    auto rescale = [&](const float (&alpha)[2]) {
+#pragma unroll
+      for (int n = 0; n < DH / 8; ++n) {
+        oacc[4 * n] *= alpha[0];
+        oacc[4 * n + 1] *= alpha[0];
+        oacc[4 * n + 2] *= alpha[1];
+        oacc[4 * n + 3] *= alpha[1];
+      }
+    };
+
+    // Each group walks its tiles in order: Q.K^T, the softmax, P.V.  The
+    // products of the two consumer groups of a block interleave on the
+    // tensor cores by themselves; explicit turns, or issuing Q.K^T of the
+    // next tile before the softmax, measured no faster, and the latter
+    // needs registers the 168 / 128 a thread of these layouts do not have.
+    if (n_tiles > 0) {
+      float sacc[32], alpha[2];
+      uint32_t pf[16];
+      sm90::mbar_wait(q_full, 0);
+      for (int it = 0; it < n_tiles; ++it) {
+        const int st = it % p.stages;
+        const uint32_t ph = (it / p.stages) & 1;
+        sm90::mbar_wait(&k_full[st], ph);
+        issue_qk(sacc, st);
+        sm90::wgmma_wait<0>();
+        sm90::fence_regs(sacc);
+        softmax(sacc, key0 + it * kKeys, pf, alpha);
+        rescale(alpha);
+        sm90::mbar_wait(&v_full[st], ph);
+        issue_pv(pf, st);
+        sm90::wgmma_wait<0>();
+        sm90::fence_regs(oacc);
+        if (lane == 0) sm90::mbar_arrive(&empty[st]);   // stage is free
       }
     }
 
-    // O += P.V: P from registers (bf16), V by ldmatrix.trans
+    // rows that saw no key: l = 0 -> 0 (or an empty partial)
+    float lt[2];
 #pragma unroll
-    for (int j = 0; j < kTK / 16; ++j) {
-      const uint32_t a[4] = {pack_bf16(sacc[2 * j][0], sacc[2 * j][1]),
-                             pack_bf16(sacc[2 * j][2], sacc[2 * j][3]),
-                             pack_bf16(sacc[2 * j + 1][0], sacc[2 * j + 1][1]),
-                             pack_bf16(sacc[2 * j + 1][2], sacc[2 * j + 1][3])};
+    for (int i = 0; i < 2; ++i) {
+      lt[i] = l[i] + __shfl_xor_sync(0xffffffffu, l[i], 1);
+      lt[i] += __shfl_xor_sync(0xffffffffu, lt[i], 2);
+    }
+    if (p.splits == 1) {
+      // O (bf16) into the Q tile, which every Q.K^T is done with, in the
+      // layout TMA read Q in; one thread then stores the block's
+      // (position, head) rows with the output's tensor map, which drops
+      // positions past S (rows past the box are never stored)
 #pragma unroll
-      for (int dp = 0; dp < DH / 16; ++dp) {
-        uint32_t b0, b1, b2, b3;
-        ldsm_x4_t(smem_u32(vst + (j * 16 + (lm & 1) * 8 + lr) * kStr
-                           + dp * 16 + (lm >> 1) * 8), b0, b1, b2, b3);
-        mma_bf16(oacc[2 * dp], a, b0, b1);
-        mma_bf16(oacc[2 * dp + 1], a, b2, b3);
+      for (int i = 0; i < 2; ++i) {
+        const float inv = lt[i] == 0.f ? 0.f : 1.f / lt[i];
+        const int r = r0 + 8 * i;
+        const int swz = W == 64 ? (r & 7) : ((r >> 1) & 3);
+        unsigned char* row = qs + r * W * 2 + (lane & 3) * 4;
+#pragma unroll
+        for (int n = 0; n < DH / 8; ++n) {   // 8 columns = 16 bytes
+          const int c = n / (W / 8), j = n % (W / 8);
+          *reinterpret_cast<uint32_t*>(row + c * H::kQChunk
+                                       + ((j ^ swz) * 16)) =
+              sm90::pack_bf16(oacc[4 * n + 2 * i] * inv,
+                              oacc[4 * n + 2 * i + 1] * inv);
+        }
+      }
+      sm90::fence_proxy_async();
+      sm90::bar_sync(1, 128 * NWG);
+      if (threadIdx.x == 0) {
+        for (int c = 0; c < H::kChunks; ++c)
+          sm90::tma_store_5d(&to, qs + c * H::kQChunk, 0, hq0, s0, c, b);
+        sm90::bulk_commit();
+        sm90::bulk_wait_read();      // the tile is read before exit
+      }
+    } else {
+      const size_t rows = static_cast<size_t>(p.B) * p.S * p.Hq;
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        if (!valid[i]) continue;
+        const size_t at = static_cast<size_t>(sp) * rows + orow[i];
+        float* po = p.part + at * DH + (lane & 3) * 2;
+#pragma unroll
+        for (int n = 0; n < DH / 8; ++n)
+          *reinterpret_cast<float2*>(po + 8 * n) =
+              make_float2(oacc[4 * n + 2 * i], oacc[4 * n + 2 * i + 1]);
+        if ((lane & 3) == 0)
+          *reinterpret_cast<float2*>(p.part_ml + 2 * at) = make_float2(
+              m[i] == -INFINITY ? -INFINITY : m[i] * p.scale_log2, lt[i]);
       }
     }
   }
-  if (n_tiles == 0) {  // no key: the Q copies are still landing in qs
-    cp_wait<0>();
-    __syncthreads();
-  }
+}
 
-  // normalise (a row that saw no key -> 0) and stage this warp's 16 rows
-  // in its own rows of qs, then write them as 16-byte stores
-  float inv[2];
+// Merge the key splits' partials of each (b, s, h) row in split order:
+// O = sum_i 2^(m_i - M) O_i / sum_i 2^(m_i - M) l_i, M = max_i m_i.  One
+// warp a row.
+template <int DH>
+__global__ void __launch_bounds__(256)
+flash_combine_kernel(const float* __restrict__ part,
+                     const float* __restrict__ part_ml,
+                     __nv_bfloat16* __restrict__ o, long long rows,
+                     int splits) {
+  const long long row = static_cast<long long>(blockIdx.x) * 8
+                        + threadIdx.x / 32;
+  if (row >= rows) return;
+  const int lane = threadIdx.x % 32;
+  float mx = -INFINITY;
+  for (int sp = 0; sp < splits; ++sp)
+    mx = fmaxf(mx, part_ml[2 * (sp * rows + row)]);
+  float acc[DH / 32], sum = 0.f;
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    float s = l[i];
-    s += __shfl_xor_sync(0xffffffffu, s, 1);
-    s += __shfl_xor_sync(0xffffffffu, s, 2);
-    inv[i] = s == 0.f ? 0.f : 1.f / s;
-  }
+  for (int c = 0; c < DH / 32; ++c) acc[c] = 0.f;
+  if (mx != -INFINITY) {
+    for (int sp = 0; sp < splits; ++sp) {
+      const long long at = sp * rows + row;
+      const float w = ex2(part_ml[2 * at] - mx);
+      sum += w * part_ml[2 * at + 1];
 #pragma unroll
-  for (int n = 0; n < kDBlocks; ++n) {
-    const int col = n * 8 + (lane & 3) * 2;
-    *reinterpret_cast<uint32_t*>(qs + r0 * kStr + col) =
-        pack_bf16(oacc[n][0] * inv[0], oacc[n][1] * inv[0]);
-    *reinterpret_cast<uint32_t*>(qs + (r0 + 8) * kStr + col) =
-        pack_bf16(oacc[n][2] * inv[1], oacc[n][3] * inv[1]);
+      for (int c = 0; c < DH / 32; ++c)
+        acc[c] += w * part[at * DH + c * 32 + lane];
+    }
   }
-  __syncwarp();
-  __nv_bfloat16* ob = o + (static_cast<size_t>(b) * S * Hq + h) * DH;
+  const float inv = sum == 0.f ? 0.f : 1.f / sum;
 #pragma unroll
-  for (int c = lane; c < 16 * kChunks; c += 32) {
-    const int r = warp * 16 + c / kChunks, ch = c % kChunks;
-    if (q0 + r < S)
-      *reinterpret_cast<uint4*>(ob + (q0 + r) * q_row + ch * 8) =
-          *reinterpret_cast<const uint4*>(qs + r * kStr + ch * 8);
-  }
+  for (int c = 0; c < DH / 32; ++c)
+    o[row * DH + c * 32 + lane] = __float2bfloat16(acc[c] * inv);
 }
 
 // ---------------------------------------------------------------------------
@@ -448,72 +577,184 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int DH>
-int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
-                int S, int Tk, int Hq, int Hk, int causal, int has_window,
-                int window, float scale, cudaStream_t stream) {
-  constexpr size_t smem = TcLayout<DH>::kBytes;
+// cuTensorMapEncodeTiled from the driver, found once through the runtime
+using EncodeTiled = CUresult (*)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  return fn;
+}
+
+// Error codes of the launcher beyond CUDA's own: the driver entry point is
+// missing, or cuTensorMapEncodeTiled refused a map (kEncodeError + its
+// CUresult).
+constexpr int kNoEncoder = 9999;
+constexpr int kEncodeError = 10000;
+
+// a bf16 tensor map, zeros outside the tensor, swizzled rows of W bf16
+template <int W>
+int encode(CUtensorMap* map, const void* base, cuuint32_t rank,
+           const cuuint64_t* dims, const cuuint64_t* strides,
+           const cuuint32_t* box) {
+  const EncodeTiled fn = encoder();
+  if (fn == nullptr) return kNoEncoder;
+  const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
+  const CUresult r = fn(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base),
+      dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      W == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kEncodeError + static_cast<int>(r);
+}
+
+template <int DH, int NWG>
+int launch_bf16(const void* q, const void* k, const void* v, void* o,
+                void* work, int B, int S, int T, int Hq, int Hk, int causal,
+                int has_window, int window, float scale, int pack, int splits,
+                int stages, cudaStream_t stream) {
+  using H = Hop<DH, NWG>;
+  constexpr int W = H::kW, NC = H::kChunks;
+  if (pack <= 0 || (Hq / Hk) % pack != 0 || pack > H::kRows || splits <= 0
+      || stages < 2 || stages > kMaxStages || (splits > 1 && work == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int positions = H::kRows / pack;
+  const cuuint64_t e = sizeof(__nv_bfloat16);
+  // Q as (W, Hq, S, chunks, B): a box is `pack` heads x `positions`
+  // positions of one column block, so its rows in shared memory are the
+  // block's (position, head) rows in order
+  CUtensorMap tq, tk, tv, to;
+  const cuuint64_t qd[5] = {W, cuuint64_t(Hq), cuuint64_t(S), NC,
+                            cuuint64_t(B)};
+  const cuuint64_t qst[4] = {DH * e, Hq * DH * e, W * e,
+                             cuuint64_t(S) * Hq * DH * e};
+  const cuuint32_t qb[5] = {W, cuuint32_t(pack), cuuint32_t(positions), 1, 1};
+  // K, V as (W, T, Hk x chunks, B): a box is 64 keys x a head's chunks
+  const cuuint64_t kd[4] = {W, cuuint64_t(T), cuuint64_t(Hk) * NC,
+                            cuuint64_t(B)};
+  const cuuint64_t kst[3] = {Hk * DH * e, W * e, cuuint64_t(T) * Hk * DH * e};
+  const cuuint32_t kb[4] = {W, kKeys, NC, 1};
+  int err = encode<W>(&tq, q, 5, qd, qst, qb);
+  if (!err) err = encode<W>(&tk, k, 4, kd, kst, kb);
+  if (!err) err = encode<W>(&tv, v, 4, kd, kst, kb);
+  if (!err) err = encode<W>(&to, o, 5, qd, qst, qb);   // O as Q
+  if (err) return err;
+
   static unsigned opted_in = 0;   // devices whose attribute is set (bit set)
   int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return static_cast<int>(e);
+  cudaError_t ce = cudaGetDevice(&dev);
+  if (ce != cudaSuccess) return static_cast<int>(ce);
   if (dev >= 32 || !(opted_in >> dev & 1u)) {
-    e = cudaFuncSetAttribute(flash_fwd_mma_kernel<DH>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
+    ce = cudaFuncSetAttribute(flash_fwd_wgmma_kernel<DH, NWG>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              227 * 1024);
+    if (ce != cudaSuccess) return static_cast<int>(ce);
     if (dev < 32) opted_in |= 1u << dev;
   }
-  const dim3 grid((S + kTQ - 1) / kTQ, Hq, B);
-  flash_fwd_mma_kernel<DH><<<grid, kTThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      S, Tk, Hq, Hk, causal, has_window, window, scale * kLog2e);
+  const long long rows = static_cast<long long>(B) * S * Hq;
+  HopParams prm;
+  prm.o = static_cast<__nv_bfloat16*>(o);
+  prm.part = static_cast<float*>(work);
+  prm.part_ml = splits > 1 ? prm.part + splits * rows * DH : nullptr;
+  prm.B = B;
+  prm.S = S;
+  prm.T = T;
+  prm.Hq = Hq;
+  prm.Hk = Hk;
+  prm.pack = pack;
+  prm.positions = positions;
+  prm.splits = splits;
+  prm.stages = stages;
+  prm.causal = causal;
+  prm.has_window = has_window;
+  prm.window = window;
+  prm.scale_log2 = scale * kLog2e;
+  const dim3 grid(splits * (Hq / pack) * B, (S + positions - 1) / positions);
+  flash_fwd_wgmma_kernel<DH, NWG><<<grid, H::kThreads, H::smem(stages),
+                                    stream>>>(tq, tk, tv, to, prm);
+  ce = cudaGetLastError();
+  if (ce != cudaSuccess || splits == 1) return static_cast<int>(ce);
+  flash_combine_kernel<DH><<<static_cast<unsigned>((rows + 7) / 8), 256, 0,
+                             stream>>>(prm.part, prm.part_ml,
+                                       prm.o, rows, splits);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int DH>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
-           int Tk, int Hq, int Hk, int causal, int has_window, int window,
-           float scale, int dtype, cudaStream_t st) {
+int launch(const void* q, const void* k, const void* v, void* o, void* work,
+           int B, int S, int Tk, int Hq, int Hk, int causal, int has_window,
+           int window, float scale, int dtype, int rows, int pack, int splits,
+           int stages, cudaStream_t st) {
   if (dtype == 0)
     return launch_f32<DH>(q, k, v, o, B, S, Tk, Hq, Hk, causal, has_window,
                           window, scale, st);
-  if (dtype == 1)
-    return launch_bf16<DH>(q, k, v, o, B, S, Tk, Hq, Hk, causal, has_window,
-                           window, scale, st);
+  if (dtype == 1 && rows == 128)
+    return launch_bf16<DH, 2>(q, k, v, o, work, B, S, Tk, Hq, Hk, causal,
+                              has_window, window, scale, pack, splits, stages,
+                              st);
+  if constexpr (DH <= 128) {      // dh 192 takes two consumer groups
+    if (dtype == 1 && rows == 64)
+      return launch_bf16<DH, 1>(q, k, v, o, work, B, S, Tk, Hq, Hk, causal,
+                                has_window, window, scale, pack, splits,
+                                stages, st);
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
-// dtype: 0 = float32 (FMA kernel), 1 = bfloat16 (tensor-core kernel).
-// Returns cudaGetLastError() after the launch (0 = launched).
+// dtype: 0 = float32 (FMA kernel), 1 = bfloat16 (Hopper kernel).  The bf16
+// kernel takes its plan (kernels/flash_attention.py `plan`): query rows a
+// block (64 or 128), q-heads packed into them, key splits, K/V stages, and
+// `work`, fp32 scratch of splits x B*S*Hq x (dh + 2) when splits > 1; the
+// fp32 kernel ignores them.  Returns cudaGetLastError() after the launches
+// (0 = launched), or an encode error (see kEncodeError).
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* o, int B, int S,
                                    int Tk, int Hq, int Hk, int dh, int causal,
                                    int has_window, int window, float scale,
-                                   int dtype, void* stream) {
+                                   int dtype, int rows, int pack, int splits,
+                                   int stages, void* work, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (B <= 0 || S <= 0 || Tk <= 0 || Hk <= 0 || Hq % Hk != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   switch (dh) {
     case 32:
-      return launch<32>(q, k, v, o, B, S, Tk, Hq, Hk, causal, has_window,
-                        window, scale, dtype, st);
+      return launch<32>(q, k, v, o, work, B, S, Tk, Hq, Hk, causal,
+                        has_window, window, scale, dtype, rows, pack, splits,
+                        stages, st);
     case 64:
-      return launch<64>(q, k, v, o, B, S, Tk, Hq, Hk, causal, has_window,
-                        window, scale, dtype, st);
+      return launch<64>(q, k, v, o, work, B, S, Tk, Hq, Hk, causal,
+                        has_window, window, scale, dtype, rows, pack, splits,
+                        stages, st);
     case 96:                      // phi-3-vision-4.2b
-      return launch<96>(q, k, v, o, B, S, Tk, Hq, Hk, causal, has_window,
-                        window, scale, dtype, st);
+      return launch<96>(q, k, v, o, work, B, S, Tk, Hq, Hk, causal,
+                        has_window, window, scale, dtype, rows, pack, splits,
+                        stages, st);
     case 128:
-      return launch<128>(q, k, v, o, B, S, Tk, Hq, Hk, causal, has_window,
-                         window, scale, dtype, st);
+      return launch<128>(q, k, v, o, work, B, S, Tk, Hq, Hk, causal,
+                         has_window, window, scale, dtype, rows, pack, splits,
+                         stages, st);
     case 192:                     // nemotron-4-340b
-      return launch<192>(q, k, v, o, B, S, Tk, Hq, Hk, causal, has_window,
-                         window, scale, dtype, st);
+      return launch<192>(q, k, v, o, work, B, S, Tk, Hq, Hk, causal,
+                         has_window, window, scale, dtype, rows, pack, splits,
+                         stages, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

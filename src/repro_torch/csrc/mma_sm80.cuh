@@ -1,6 +1,7 @@
 // Fragment and copy helpers for the warp-level tensor-core kernels
 // (`mma.sync`, `ldmatrix`, `cp.async`; sm_80 instructions, built here for
-// sm_90a).  Included by flash_attention.cu and ssd_scan.cu.
+// sm_90a).  Included by ssd_scan.cu; the Hopper kernels' helpers are in
+// sm90.cuh.
 //
 // Fragment layouts of mma.sync.m16n8k16 (g = lane / 4, q = lane % 4):
 //   A (16x16, row): a0 (g, 2q..2q+1), a1 (g+8, 2q..), a2 (g, 2q+8..),

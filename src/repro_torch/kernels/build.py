@@ -22,6 +22,10 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+# flash_attention.cu's ten wgmma instantiations are most of the build:
+# its optimizer runs on every core (--split-compile); the other sources
+# keep one thread each (ssd_scan's kernel timed slower built split)
+SOURCE_FLAGS = {"flash_attention": ["--split-compile=0"]}
 
 # C signatures of the exported launchers, by source: pointers and the
 # stream are c_void_p (a bare int would be cut to 32 bits), sizes c_int,
@@ -30,7 +34,7 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 SIGNATURES = {
     "flash_attention": {"flash_attention_fwd":
                         [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                         _F, _I, _P]},
+                         _F, _I, _I, _I, _I, _I, _P, _P]},
     "paged_attention": {"paged_attention_fwd":
                         [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                          _I, _I, _I, _F, _I, _P]},
@@ -59,7 +63,8 @@ def _lib_path(name: str) -> Path:
     # the shared headers count too: a source includes any of them
     src = b"".join(p.read_bytes() for p in
                    [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))])
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    flags = NVCC_FLAGS + SOURCE_FLAGS.get(name, [])
+    tag = hashlib.sha256(src + " ".join(flags).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{tag[:16]}.so"
 
 
@@ -74,7 +79,8 @@ def build(names: Iterable[str]) -> Dict[str, str]:
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [_nvcc(), *NVCC_FLAGS, *SOURCE_FLAGS.get(name, []), "-o",
+               str(tmp), str(CSRC / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out)

@@ -174,6 +174,85 @@ def test_flash_kernel_head_dims_and_groups(dh, G, dtype):
                                     dtype)
 
 
+# the Hopper kernel's plan (FA.plan): q-heads of a KV group packed into
+# a block's 64 or 128 rows (G 7 and 12 leave rows empty, S off the
+# block's positions), windows under packing, keys split over blocks
+# (T >> S, small grids), and S > T, where the first S - T rows see no key
+FA_PLAN_SHAPES = [
+    (1, 100, 100, 14, 2, 128, True, None),   # G 7: 9 / 18 positions
+    (1, 77, 77, 24, 2, 64, True, None),      # G 12: 5 / 10 positions
+    (2, 53, 53, 24, 2, 192, True, None),     # G 12, dh 192
+    (1, 131, 131, 56, 8, 96, True, None),    # G 7, dh 96
+    (1, 300, 300, 16, 2, 128, True, 50),     # window, G 8
+    (1, 200, 200, 24, 2, 32, True, 33),      # window, G 12
+    (1, 700, 700, 14, 2, 192, True, 130),    # window, G 7, dh 192
+    (1, 40, 2000, 12, 1, 64, True, None),    # T >> S, G 12: split keys
+    (1, 33, 3000, 12, 1, 192, True, None),   # T >> S, dh 192
+    (1, 64, 4096, 8, 8, 128, False, None),   # non-causal, split keys
+    (1, 100, 2000, 8, 4, 96, True, 700),     # window, split keys
+    (1, 300, 100, 14, 2, 128, True, None),   # S > T: 200 rows see no key
+    (2, 150, 64, 8, 8, 64, True, None),      # S > T, G 1
+]
+
+
+@pytest.mark.parametrize("B,S,T,Hq,Hk,dh,causal,window", FA_PLAN_SHAPES)
+def test_flash_kernel_plan_edges(B, S, T, Hq, Hk, dh, causal, window):
+    """bf16 (the Hopper kernel) against the plain version; a row that sees
+    no key emits exactly 0 (the plain version averages it uniformly)."""
+    _cuda()
+    g = torch.Generator(device="cuda").manual_seed(S + T)
+    q, k, v = (torch.randn(B, n, H, dh, generator=g, device="cuda")
+               .bfloat16() for n, H in ((S, Hq), (T, Hk), (T, Hk)))
+    out = FA.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    ref = FA.reference(q, k, v, causal=causal, window=window)
+    dead = torch.zeros(S, dtype=torch.bool, device="cuda")
+    if causal and S > T:
+        dead[:S - T] = True
+    assert bool((out[:, dead] == 0).all())
+    torch.testing.assert_close(out[:, ~dead].float(), ref[:, ~dead].float(),
+                               rtol=2e-2, atol=2e-2)
+
+
+def test_flash_plan_edges_use_packing_and_splits():
+    """The cases above reach what they are named for: rows left empty by
+    G 7 and 12, and key splits."""
+    plans = [FA.plan(B, S, T, Hq, Hk, dh, causal, window)
+             for B, S, T, Hq, Hk, dh, causal, window in FA_PLAN_SHAPES]
+    assert {p.rows % p.pack for p in plans} - {0}
+    assert sum(p.splits > 1 for p in plans) >= 4
+
+
+@pytest.mark.parametrize("shape", [(1, 512, 512, 16, 8, 128, True),
+                                   (1, 192, 1500, 6, 6, 64, False),
+                                   (1, 512, 512, 96, 8, 192, True)])
+def test_flash_kernel_graph_replay_equals_eager(shape):
+    """A CUDA graph records the kernel's tensor maps by value: replays on
+    refilled inputs give the eager call's bits (splits merge in a fixed
+    order)."""
+    _cuda()
+    B, S, T, Hq, Hk, dh, causal = shape
+    g = torch.Generator(device="cuda").manual_seed(3)
+    q, k, v = (torch.randn(B, n, H, dh, generator=g, device="cuda")
+               .bfloat16() for n, H in ((S, Hq), (T, Hk), (T, Hk)))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        FA.flash_attention(q, k, v, causal=causal)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = FA.flash_attention(q, k, v, causal=causal)
+    for seed in (4, 5):
+        g.manual_seed(seed)
+        for t in (q, k, v):
+            t.copy_(torch.randn(t.shape, generator=g, device="cuda"))
+        graph.replay()
+        eager = FA.flash_attention(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        assert torch.equal(out.view(torch.int16), eager.view(torch.int16))
+
+
 def _split_case(B, P, n_max, Hq, Hk, dh, dtype, seed=0):
     """Rows of very different lengths on scrambled pages, positions at the
     split edges, one row at pos -1 where there is room; every page outside
