@@ -20,8 +20,14 @@ Phases (each raises on failure, and then no result is printed):
      positions at the edges of its planned splits (and a row at pos -1,
      which must emit 0), every group and page size, stale pages poisoned
      (the output must not change by a bit) and each call twice (the two
-     outputs must be bit-identical), and at the verify shape (8 table rows,
-     each repeated for 4 candidate rows); both attention kernels at
+     outputs must be bit-identical), and at the verify shape (8 table rows
+     of 4 candidate query rows each, every slot's pages read once, also
+     held against the same rows through the repeated table), G 7 and 12
+     with 4 rows a table row (28 and 48 rows a block), groups past 64
+     rows (G 12 with 6 rows, G 1 with 70: two chunks of rows) and page
+     sizes 1-32 at the edges of the plan's stages and splits, and 300 and
+     512 (sub-pages within a TMA box); both
+     attention kernels at
      phase 4c's shapes (flash at a 512-token prompt, paged at 8 slots on
      321 pages: qwen3-moe 32/4 heads of 128, G 8; deepseek-7b 32/32, G 1;
      arctic-480b 56/8, G 7), and the paged kernel's split edges at G 7;
@@ -65,20 +71,21 @@ Phases (each raises on failure, and then no result is printed):
   4b. serve qwen3-1.7b at full width (28 layers, d_model 2048, bf16) on
      the same stream three times: the plain paged engine, the
      speculative engine with the n-gram lookup draft (k 3), and with
-     qwen3-0.6b drafting (k 3, its weights from another seed); launch
-     counts exact (an admit: 28 flash, and 28 more for the model draft's
-     prefill; a verify round: 28 paged; the draft's dense decode scan:
-     none), every emitted token a near-argmax of a teacher-forced plain
-     forward of the target over prompt + emitted (within 5e-2 x max(1,
+     qwen3-0.6b drafting (k 3, its weights from another seed, its depth
+     cut from 28 to 4 layers at its widths); launch counts exact (an
+     admit: 28 flash, and 4 more for the model draft's prefill; a verify
+     round: 28 paged; the draft's dense decode scan: none), every
+     emitted token a near-argmax of a teacher-forced plain forward of
+     the target over prompt + emitted (within 5e-2 x max(1,
      max|logit|) of its row's maximum); the share of tokens equal to the
-     plain run's reported, not gated; then qwen3-0.6b drafting for itself
-     on 4 requests, with at least one round that accepts all k.  Then
-     qwen3-0.6b and zamba2-1.2b each serve phase 4's stream, drained after
-     11 ticks, the requests re-admitted through ServingDrainReadmit onto
-     a second engine: every harvested page and row read back bit-equal
-     after its install, migrated_admits equal to the harvested count, no
-     prefill of a harvested prefix, every request at its full budget,
-     launch counts exact (no flash, no ssd_scan for a migrated admit);
+     plain run's reported, not gated; then that 4-layer draft drafting
+     for itself on 4 requests, with at least one round that accepts all
+     k.  Then qwen3-0.6b and zamba2-1.2b each serve phase 4's stream,
+     drained after 11 ticks, the requests re-admitted through
+     ServingDrainReadmit onto a second engine: every harvested page and row
+     read back bit-equal after its install, migrated_admits equal to the
+     harvested count, no prefill of a harvested prefix, every request at
+     its full budget, launch counts exact (no flash, no ssd_scan for a migrated admit);
   4c. serve phase 4's stream with qwen3-moe-30b-a3b (48 layers, d_model
      2048, 128 experts of 768 top-8, bf16: 61.1 GB), deepseek-7b (30
      layers, d_model 4096, G 1: 13.8 GB) and arctic-480b at its published
@@ -99,12 +106,12 @@ Phases (each raises on failure, and then no result is printed):
      near-tie that its router probabilities' measured change crosses;
      the plain path with SDPA attention is a control whose flips are
      reported beside the kernel path's;
-  4d. the last families, as 4c: rwkv6-1.6b (24 layers, d_model 2048:
-     2.97 GB; the dense engine, no kernel; its gate the prefill's
-     recurrent state and last logits against the same prompt fed token
-     by token), whisper-tiny (4 + 4 layers over 1500 frames a request
-     drawn from a seed, its stream cut to the 448-token decoder: prompts
-     64-320; launches exact: 12 flash an admit, 4 encoder, 4 self, 4
+  4d. the last families, as 4c: rwkv6-1.6b (d_model 2048, its depth cut
+     from 24 to 6 layers for time; the dense engine, no kernel; its gate
+     the prefill's recurrent state and last logits against the same prompt
+     fed token by token), whisper-tiny (4 + 4 layers over 1500 frames a
+     request drawn from a seed, its stream cut to the 448-token decoder:
+     prompts 64-320; launches exact: 12 flash an admit, 4 encoder, 4 self, 4
      cross, and 4 paged a tick), phi-3-vision-4.2b (32 layers, dh 96,
      576 patches a request drawn from a seed, cache 640 + 576: 7.64 GB)
      and nemotron-4-340b at its published widths cut from 96 to 4 layers
@@ -124,7 +131,8 @@ Phases (each raises on failure, and then no result is printed):
      1024 and 8192 tokens (the latter bound by operations): card time
      from CUDA-graph replays
      (`device_ms`: these kernels take less time than the host needs to
-     issue them), and the eager call time beside it;
+     issue them), and the eager call time beside it; each paged line
+     names its plan (rows a block, tiles, pages a stage, stages, splits);
   6. train qwen3-0.6b at full width (28 layers, bf16, block remat, AdamW,
      warmup-cosine, natural-compressed gradients, the synthetic bigram
      pipeline) at batch 2 x seq 4096: one warm-up step, then timed steps
@@ -139,12 +147,12 @@ Phases (each raises on failure, and then no result is printed):
      on while the writer works: after wait() the restore equals the saved
      params and moments bit for bit (ckpt.snapshot ms, the writer's ms, a
      step with the save in flight against one without); then zamba2-1.2b
-     (batch 2 x 4096), rwkv6-1.6b (2 x 512: its recurrence runs a token
-     at a time), whisper-tiny (8 x 448) and phi-3-vision-4.2b (1 x 2048
-     after 576 patches) train at full width through the launcher, one
-     after another: a warm-up step and 3 timed ones read from the
-     train.step spans, nc launches exactly leaves x steps, finite losses,
-     and one step's compressed gradients through the kernels and the
+     (batch 2 x 4096), rwkv6-1.6b (2 x 512 at 6 of its 24 layers: its
+     recurrence runs a token at a time), whisper-tiny (8 x 448) and
+     phi-3-vision-4.2b (1 x 2048 after 576 patches) train at full width
+     through the launcher, one after another: a warm-up step and 3 timed
+     ones read from the train.step spans, nc launches exactly leaves x
+     steps, finite losses, and one step's compressed gradients through the kernels and the
      plain versions bit-identical, leaf by leaf, and their global norms
      equal; the raw gradients' non-finite elements are counted (phi-3's
      zero-patch prefix overflows at depth: ROADMAP queue 3); then
@@ -154,12 +162,12 @@ Phases (each raises on failure, and then no result is printed):
   7. qwen3-0.6b through `core/data_parallel` (S-SGD, local SGD, EASGD),
      the reshard and stacked save of its params on the card, and the
      Coordinator over ProcTransport worker processes;
-  8. elastic training of qwen3-0.6b at full width through
-     `repro_torch.launch.train --elastic`: sync over 4 workers (batch 4 x
-     2048, compressed gradients, a save every 4 steps, 2 kept) with worker
-     1 killed at wall 6: step 4 restored (2 steps lost), the restored
-     params and moments bit-equal to the save read back, final_alive
-     (0, 2, 3), 10 finite losses, nc_pack / nc_unpack launched exactly 14
+  8. elastic training of qwen3-0.6b at full width, its depth cut to 8
+     layers, through `repro_torch.launch.train --elastic --layers 8`: sync
+     over 4 workers (batch 4 x 2048, compressed gradients, a save every 4
+     steps, 2 kept) with worker 1 killed at wall 6: step 4 restored (2 steps
+     lost), the restored params and moments bit-equal to the save read
+     back, final_alive (0, 2, 3), 10 finite losses, nc_pack / nc_unpack launched exactly 14
      leaves x the 12 steps run and nothing else, one step's compressed
      gradients bit-identical to the plain path's (ms a step, the save
      pauses, the restore time); local_sgd and async_ps over 2 workers of
@@ -221,11 +229,12 @@ Phases (each raises on failure, and then no result is printed):
      `cache_pspecs(serve=True)` says; tokens/s and wall ms a decode
      tick beside phase 4's; (b) `python -m repro_torch.launch.dryrun
      --arch qwen3-0.6b --shape all --mesh single` as a subprocess with no
-     card visible, on the (32, 8) mesh of a fake group of 256: every
-     record ok or skipped, useful_ratio in (0, 1], each record's three
-     terms (H100 SXM published peaks on counted work), bottleneck and
-     bound printed; (c) `launch/steps.cost_plan` of phase 6's train step
-     (qwen3-0.6b, 2 x 4096, AdamW, block remat; without the gradient
+     card visible (started with phase 6, whose train steps leave the
+     host's cores idle, and read here), on the (32, 8) mesh of a fake group
+     of 256: every record ok or skipped, useful_ratio in (0, 1], each
+     record's three terms (H100 SXM published peaks on counted work),
+     bottleneck and bound printed; (c) `launch/steps.cost_plan` of phase
+     6's train step (qwen3-0.6b, 2 x 4096, AdamW, block remat; without the gradient
      compression phase 6 adds) on a fake (1, 1) mesh: its lower bound
      beside phase 6's measured ms a step, which must not beat it (share
      of the bound in the step at most 1.05).  Phase 1 checks first that
@@ -277,8 +286,10 @@ RWKV_PATH_TOL = 1e-1
 ARCH = "qwen3-0.6b"
 HYBRID = "zamba2-1.2b"
 # phase 4b: qwen3-0.6b drafting for qwen3-1.7b (the JAX package's zoo
-# pairing), the draft's weights from another seed
-TARGET, DRAFT_SEED, SPEC_K = "qwen3-1.7b", 7, 3
+# pairing), the draft's weights from another seed and its depth cut from
+# 28 to DRAFT_LAYERS layers at its widths, for time: at full depth its
+# k dense decode steps a round made the model-draft run take 77 s
+TARGET, DRAFT_SEED, SPEC_K, DRAFT_LAYERS = "qwen3-1.7b", 7, 3, 4
 SELF_DRAFT_REQUESTS = 4
 # drain after 8 admits and 3 decode chunks: every slot has emitted
 DRAIN_TICKS = 11
@@ -292,10 +303,14 @@ TIGHT_PAGES = 160
 MOE, DENSE7B, ARCTIC = "qwen3-moe-30b-a3b", "deepseek-7b", "arctic-480b"
 FAMILY = ((MOE, None), (DENSE7B, None), (ARCTIC, 2))
 # phase 4d: the last families the same way; nemotron-4-340b's 341.0B
-# params do not fit one card, so its depth is cut (96 -> 4 layers)
+# params do not fit one card, so its depth is cut (96 -> 4 layers);
+# rwkv6-1.6b's is cut for time (24 -> RWKV_LAYERS layers, here and in
+# phase 6): its WKV recurrence runs one token at a time, and its gate
+# feeds a prompt token by token through every layer
 RWKV, WHISPER, VLM, NEMOTRON = ("rwkv6-1.6b", "whisper-tiny",
                                 "phi-3-vision-4.2b", "nemotron-4-340b")
-LAST = ((RWKV, None), (WHISPER, None), (VLM, None), (NEMOTRON, 4))
+RWKV_LAYERS = 6
+LAST = ((RWKV, RWKV_LAYERS), (WHISPER, None), (VLM, None), (NEMOTRON, 4))
 # whisper's decoder context is 448 tokens (the shape plan's docstring):
 # its prompts 64-320, budgets as phase 4's
 WHISPER_PLEN = (63, 320)
@@ -311,17 +326,19 @@ WINDOW = {ARCH: (24, 12), HYBRID: (24, 6), MOE: (24, 4), DENSE7B: (24, 6),
 # train phase: train_4k's sequence length, its global batch of 256 cut to
 # 2 sequences on one card; one warm-up step, then TRAIN_STEPS timed
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_WARMUP = 2, 4096, 10, 20
-# the other families' train runs: (arch, batch, seq, the cut if any), one
-# warm-up step and TRAIN_TIMED timed ones each.  rwkv6's WKV recurrence
-# runs one token at a time (in the JAX package too), so its sequence is
-# cut to 512; whisper's is its 448-token decoder context; phi-3's 2048
-# tokens follow its 576 patches.
+# the other families' train runs: (arch, batch, seq, layers if cut, the
+# cut if any), one warm-up step and TRAIN_TIMED timed ones each.  rwkv6's
+# WKV recurrence runs one token at a time (in the JAX package too), so
+# its sequence is cut to 512 and its depth to RWKV_LAYERS; whisper's is
+# its 448-token decoder context; phi-3's 2048 tokens follow its 576
+# patches.
 TRAIN_FAMILIES = (
-    (HYBRID, 2, 4096, None),
-    (RWKV, 2, 512, "seq cut from 4096 to 512: the WKV recurrence runs "
-                   "one token at a time"),
-    (WHISPER, 8, 448, None),
-    (VLM, 1, 2048, None))
+    (HYBRID, 2, 4096, None, None),
+    (RWKV, 2, 512, RWKV_LAYERS,
+     f"seq cut from 4096 to 512 and depth from 24 to {RWKV_LAYERS} "
+     f"layers: the WKV recurrence runs one token at a time"),
+    (WHISPER, 8, 448, None, None),
+    (VLM, 1, 2048, None, None))
 TRAIN_TIMED = 3
 # phase 7: data parallelism on qwen3-0.6b at full width.  (a) S-SGD over
 # DP_W workers of 1 x DP_SEQ tokens (phase 6's 2 x 4096 split in two), a
@@ -337,15 +354,19 @@ COORD_STEPS = 6
 # queue 3's decision): PATCH_STEPS AdamW steps at peak PATCH_LR on one
 # batch, its patches from seed PATCH_SEED on the card
 PATCH_STEPS, PATCH_LR, PATCH_SEED = 4, 1e-3, 1234
-# phase 8: elastic training of qwen3-0.6b at full width through the
-# launcher.  (a) sync: EL_W workers sharing a global batch of EL_BATCH x
-# EL_SEQ, compressed gradients, a save every EL_CKPT_EVERY steps, EL_KEEP
-# kept, worker 1 killed at wall EL_FAIL_AT; (b, c) local_sgd and async_ps
-# on EL_LOCAL_W workers of EL_LOCAL_SEQ, worker 1 killed at EL_LOCAL_FAIL;
+# phase 8: elastic training of qwen3-0.6b at full width, its depth cut,
+# through the launcher.  (a) sync: EL_W workers sharing a global batch of
+# EL_BATCH x EL_SEQ, compressed gradients, a save every EL_CKPT_EVERY steps,
+# EL_KEEP kept, worker 1 killed at wall EL_FAIL_AT; (b, c) local_sgd and
+# async_ps on EL_LOCAL_W workers of EL_LOCAL_SEQ, worker 1 killed at
+# EL_LOCAL_FAIL;
 # (d) run_elastic on the card against the CPU in all five modes, on
 # tests/test_elastic.py's single-failure trace (EL_SIM_FAIL of
 # EL_SIM_STEPS)
 EL_W, EL_BATCH, EL_SEQ, EL_STEPS = 4, 4, 2048, 10
+# (a-c) train qwen3-0.6b's widths at EL_LAYERS of its 28 layers (the
+# launcher's --layers), for time: at full depth they took 137 s
+EL_LAYERS = 8
 EL_CKPT_EVERY, EL_KEEP, EL_FAIL_AT = 4, 2, 6
 EL_LOCAL_W, EL_LOCAL_BATCH, EL_LOCAL_SEQ = 2, 8, 1024
 EL_LOCAL_STEPS, EL_LOCAL_FAIL = 4, 2
@@ -566,6 +587,22 @@ LAST_PAGED = {WHISPER: (8, 8 * 28 + 1, 16, 28, 6, 6, 64),
               NEMOTRON: (8, 321, 16, 40, 96, 8, 192)}
 
 
+# phase 3's S-row cases, (B, S, P, n_max, (Hq, Hk, dh)): the verify form
+# at arctic-480b's and nemotron-4-340b's groups (G 7 and 12, S 4), and
+# past 64 rows a group (nemotron at --spec-k 5, G 1 with 70 rows), G 12
+# at dh 32 and G 7 at dh 96 with small pages, then page sizes 1-32 at the
+# stage edges (one and four rows a table row), and pages past a TMA
+# box's 256 rows (300 and 512: bf16 reads them as sub-pages)
+PAGED_ROW_CASES = [(8, 4, 16, 40, (56, 8, 128)), (8, 4, 16, 40, (96, 8, 192)),
+                   (6, 6, 16, 20, (96, 8, 192)), (2, 70, 16, 12, (8, 8, 128)),
+                   (3, 4, 8, 24, (84, 7, 32)), (4, 4, 4, 30, (28, 4, 96)),
+                   (4, 1, 1, 200, (16, 8, 128)), (4, 1, 2, 120, (16, 8, 128)),
+                   (4, 1, 4, 80, (16, 8, 128)), (4, 1, 8, 40, (16, 8, 128)),
+                   (4, 1, 32, 12, (16, 8, 128)), (4, 4, 1, 150, (32, 4, 64)),
+                   (3, 1, 300, 3, (16, 8, 128)), (2, 4, 512, 2, (32, 4, 64)),
+                   (6, 4, 32, 16, (16, 8, 128))]
+
+
 def paged_case(B, Np, P, n_max, Hq, Hk, dh, dtype, seed, pos=None):
     """Scrambled page ids, disjoint across rows, positions drawn at random
     unless given.  Returns the inputs with every page outside the rows'
@@ -594,30 +631,56 @@ def paged_case(B, Np, P, n_max, Hq, Hk, dh, dtype, seed, pos=None):
 def verify_paged_case(PA, dtype, seed, slots=SLOTS, S=SPEC_K + 1, P=PAGE,
                       n_max=40, heads=(16, 8, 128)):
     """The paged kernel as attention_verify launches it: `slots` table
-    rows on scrambled disjoint pages, each repeated for its S candidate
-    rows at positions pos[b] + i, the slots' positions at the edges of
-    the splits planned for slots * S rows; pages outside the live
-    prefixes poisoned.  Returns the inputs and the clean pools."""
+    rows on scrambled disjoint pages, S candidate query rows each at
+    positions pos[b] .. pos[b] + S - 1 through table row b (q
+    (slots,S,Hq,dh), pos (slots,S)), the slots' positions at the edges of
+    the planned splits and stages; pages outside the live prefixes
+    poisoned.  Returns the inputs and the clean pools."""
     import torch
     Hq, Hk, dh = heads
-    _, span = PA.plan_splits(slots * S, Hk, n_max, P)
-    w, last = span * P, n_max * P - S
-    base = [0, w - 3, w - 1, w, w + 1, last, 100, last // 2][:slots]
+    plan = PA.plan(slots, S, Hq, Hk, dh, n_max, P, dtype)
+    w, st, last = plan.span * P, max(1, plan.pages) * P, n_max * P - S
+    base = [0, w - 3, w - 1, w, w + 1, last, st - 2, last // 2][:slots]
     args, pools = paged_case(slots, slots * n_max + 1, P, n_max, Hq, Hk, dh,
                              dtype, seed, pos=torch.tensor(
                                  [p + S - 1 for p in base], dtype=torch.int32))
     q, kp, vp, bt, _ = args
     g = torch.Generator(device="cuda").manual_seed(seed + 2)
-    qv = torch.randn(slots * S, Hq, dh, generator=g, device="cuda").to(dtype)
+    qv = torch.randn(slots, S, Hq, dh, generator=g, device="cuda").to(dtype)
     pos = (torch.tensor(base, dtype=torch.int32, device="cuda")[:, None]
-           + torch.arange(S, dtype=torch.int32, device="cuda")).reshape(-1)
-    return (qv, kp, vp, bt.repeat_interleave(S, dim=0), pos), pools
+           + torch.arange(S, dtype=torch.int32, device="cuda"))
+    return (qv, kp, vp, bt, pos), pools
 
 
-def split_positions(PA, B, Hk, n_max, P):
+def rows_paged_case(PA, B, S, P, n_max, heads, dtype, seed):
+    """S query rows a table row (q (B,S,Hq,dh), pos (B,S)) at the edges
+    of the planned splits and stages, one row's first candidates below 0,
+    a row wholly below 0 where B > 4; pages outside the live prefixes
+    poisoned.  Returns the inputs and the clean pools."""
+    import torch
+    Hq, Hk, dh = heads
+    # (the fp32 plan's splits where bf16 reads sub-pages)
+    plan = PA.plan(B, S, Hq, Hk, dh, n_max, P,
+                   dtype if P <= PA.MAX_SLOT else torch.float32)
+    w, st, last = plan.span * P, max(1, plan.pages) * P, n_max * P - 1
+    edges = [last, w - 1, w, st - 1, st, w + st, S - 3, 2 * w + 1]
+    top = [min(last, edges[b % len(edges)]) for b in range(B)]
+    if B > 4:
+        top[4] = -1
+    args, pools = paged_case(B, B * n_max + 4, P, n_max, Hq, Hk, dh, dtype,
+                             seed, pos=torch.tensor(top, dtype=torch.int32))
+    q, kp, vp, bt, _ = args
+    g = torch.Generator(device="cuda").manual_seed(seed + 2)
+    qv = torch.randn(B, S, Hq, dh, generator=g, device="cuda").to(dtype)
+    pos = (torch.tensor(top, dtype=torch.int32, device="cuda")[:, None]
+           - torch.arange(S - 1, -1, -1, dtype=torch.int32, device="cuda"))
+    return (qv, kp, vp, bt, pos.contiguous()), pools
+
+
+def split_positions(PA, B, Hq, Hk, dh, n_max, P, dtype):
     """Positions at the edges of the planned splits: 0, span-1, span,
     span+1 (in positions), the last position, -1 (no key), and two more."""
-    _, span = PA.plan_splits(B, Hk, n_max, P)
+    span = PA.plan(B, 1, Hq, Hk, dh, n_max, P, dtype).span
     w, last = span * P, n_max * P - 1
     edges = [0, w - 1, w, w + 1, last, -1, last // 3, 2 * w + 1]
     if B == 1:
@@ -625,12 +688,39 @@ def split_positions(PA, B, Hk, n_max, P):
     return [min(last, edges[b % len(edges)]) for b in range(B)]
 
 
+def plan_text(PA, q, pool, bt):
+    """The plan of a paged call as the wrapper makes it (the card's
+    blocks an SM), for a check's or a timing's line."""
+    import torch
+    S = q.shape[1] if q.dim() == 4 else 1
+    bf16 = q.dtype == torch.bfloat16
+    if bf16 and pool.shape[1] > PA.MAX_SLOT:       # read as sub-pages
+        pool, _, bt = PA.box_pages(pool, pool, bt)
+    p = PA.plan(q.shape[0], S, q.shape[-2], pool.shape[2], q.shape[-1],
+                bt.shape[1], pool.shape[1], q.dtype,
+                PA.blocks_per_sm(q.shape[-1]) if bf16 else None)
+    if not bf16:
+        return f"splits={p.splits} span={p.span}"
+    return (f"rows={p.rows}{f' x {p.chunks} chunks' if p.chunks > 1 else ''}"
+            f" tiles={p.tiles} pages={p.pages} stages={p.stages} "
+            f"splits={p.splits} span={p.span} blocks={p.blocks}")
+
+
 def check_paged(torch, PA, name, args, clean_pools, tol):
     """Poisoned stale pages invisible bit for bit, a second call
-    bit-identical, rows at pos -1 zero, the rest within tol of plain."""
+    bit-identical, rows at pos -1 zero, the rest within tol of plain; for
+    S query rows a table row also within tol of the same rows one a table
+    row (the table repeated)."""
     out = PA.paged_attention(*args)
     again = PA.paged_attention(*args)
     clean = PA.paged_attention(args[0], *clean_pools, *args[3:])
+    flat = None
+    if args[0].dim() == 4:
+        q, kp, vp, bt, pos = args
+        B, S = pos.shape
+        flat = PA.paged_attention(q.reshape(B * S, *q.shape[2:]), kp, vp,
+                                  bt.repeat_interleave(S, dim=0),
+                                  pos.reshape(-1)).reshape(q.shape)
     torch.cuda.synchronize()
     if not torch.equal(out, clean):
         fail(f"{name}: poisoned stale pages changed the output")
@@ -640,7 +730,10 @@ def check_paged(torch, PA, name, args, clean_pools, tol):
     if not bool((out[dead] == 0).all()):
         fail(f"{name}: a row with no key did not emit 0")
     ref = PA.reference(*args)
-    return check_close(name, out[~dead], ref[~dead], tol)
+    err = check_close(name, out[~dead], ref[~dead], tol)
+    if flat is not None:
+        check_close(f"{name} (against the repeated table)", out, flat, tol)
+    return err
 
 
 def check_kernels(torch, FA, PA, rows):
@@ -700,16 +793,16 @@ def check_kernels(torch, FA, PA, rows):
         cases = [(shp, None) for shp in shapes]
         for B, P, n_max, Hq, Hk, dh in edge:
             cases.append(((B, B * n_max + 4, P, n_max, Hq, Hk, dh),
-                          torch.tensor(split_positions(PA, B, Hk, n_max, P),
+                          torch.tensor(split_positions(PA, B, Hq, Hk, dh,
+                                                       n_max, P, dt),
                                        dtype=torch.int32)))
         for i, (shp, pos) in enumerate(cases):
             args, pools = paged_case(*shp, dt, seed=10 + i, pos=pos)
-            n_splits, _ = PA.plan_splits(shp[0], shp[5], shp[3], shp[2])
-            e = check_paged(torch, PA, f"paged {dtype} {shp} splits="
-                            f"{n_splits} pos={args[4].tolist()}", args,
-                            pools, TOL[dtype])
-            rows.append(["paged_attention", dtype, shp,
-                         f"splits={n_splits}", e])
+            plan = plan_text(PA, args[0], args[1], args[3])
+            e = check_paged(torch, PA, f"paged {dtype} {shp} {plan} "
+                            f"pos={args[4].tolist()}", args, pools,
+                            TOL[dtype])
+            rows.append(["paged_attention", dtype, shp, plan, e])
             if dtype == "bfloat16" and i < 2:
                 key = ("paged_attention" if i == 0
                        else f"paged_attention@{HYBRID}")
@@ -717,24 +810,36 @@ def check_kernels(torch, FA, PA, rows):
         # phase 4c's and 4d's decode shapes, at random positions
         for arch, shp in (*FAMILY_PAGED.items(), *LAST_PAGED.items()):
             args, pools = paged_case(*shp, dt, seed=10)
-            n_splits, _ = PA.plan_splits(shp[0], shp[5], shp[3], shp[2])
+            plan = plan_text(PA, args[0], args[1], args[3])
             e = check_paged(torch, PA, f"paged {dtype} {shp} ({arch}) "
-                            f"splits={n_splits} pos={args[4].tolist()}",
+                            f"{plan} pos={args[4].tolist()}",
                             args, pools, TOL[dtype])
-            rows.append(["paged_attention", dtype, shp,
-                         f"{arch}, splits={n_splits}", e])
+            rows.append(["paged_attention", dtype, shp, f"{arch}, {plan}",
+                         e])
             if dtype == "bfloat16":
                 errs[f"paged_attention@{arch}"] = e
         # the verify shape: 8 slots x S 4 candidate rows (qwen3-1.7b)
         args, pools = verify_paged_case(PA, dt, seed=30)
-        n_splits, _ = PA.plan_splits(args[0].shape[0], 8, 40, PAGE)
-        e = check_paged(torch, PA, f"paged verify {dtype} splits={n_splits} "
+        plan = plan_text(PA, args[0], args[1], args[3])
+        e = check_paged(torch, PA, f"paged verify {dtype} {plan} "
                         f"pos={args[4].tolist()}", args, pools, TOL[dtype])
         rows.append(["paged_attention", dtype, tuple(args[0].shape),
-                     f"verify, {SLOTS} slots x S {SPEC_K + 1}, "
-                     f"splits={n_splits}", e])
+                     f"verify, {SLOTS} slots x S {SPEC_K + 1}, {plan}", e])
         if dtype == "bfloat16":
             errs["paged_attention@verify"] = e
+        # S query rows a table row at the plan's edges: G 7 and 12 with
+        # S 4 (28 and 48 rows a block), and page sizes 1-32 (page slots
+        # padded to 8 rows, 1-8 pages a stage)
+        for j, (B, S, P, n_max, heads) in enumerate(PAGED_ROW_CASES):
+            args, pools = rows_paged_case(PA, B, S, P, n_max, heads, dt,
+                                          seed=40 + j)
+            plan = plan_text(PA, args[0], args[1], args[3])
+            e = check_paged(torch, PA, f"paged rows {dtype} "
+                            f"{(B, S, P, n_max, *heads)} {plan} "
+                            f"pos={args[4].tolist()}", args, pools,
+                            TOL[dtype])
+            rows.append(["paged_attention", dtype, (B, S, P, n_max, *heads),
+                         f"S {S} rows a table row, {plan}", e])
     return errs
 
 
@@ -1181,7 +1286,8 @@ def recorded_serve(torch, card, cfg, params, ops, ServeEngine, Request,
 
 
 # the port's own kernels, by the names of their CUDA functions
-PORT_KERNELS = ("flash_fwd", "flash_combine", "paged_decode", "paged_merge", "ssd_state",
+PORT_KERNELS = ("flash_fwd", "flash_combine", "paged_tc", "paged_decode",
+                "paged_merge", "ssd_state",
                 "ssd_pass", "ssd_chunk_scan",
                 "pack_kernel", "unpack_kernel")
 
@@ -1597,10 +1703,8 @@ def time_paged(torch, PA, heads, pos_list, cache_len=PLEN[1] + GEN[1]):
               + 4 * (bt.numel() + B))              # block tables and pos
     flops = 4 * Hq * dh * resident
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
-    n_splits, span = PA.plan_splits(B, Hk, n_max, P)
     return {"shape": [B, Hq, Hk, dh, P, n_max], "pos": pos_list, "ms": ms,
-            "call_ms": call_ms,
-            "splits": n_splits, "span": span,
+            "call_ms": call_ms, "plan": plan_text(PA, q, kp, bt),
             "plain_ms": plain_ms, "library_ms": lib_ms,
             "library": "gather + scaled_dot_product_attention",
             "bound_ms": 1e3 * max(t_ops, t_bytes),
@@ -1609,35 +1713,34 @@ def time_paged(torch, PA, heads, pos_list, cache_len=PLEN[1] + GEN[1]):
 
 
 def time_paged_verify(torch, PA, heads, pos_list, S=SPEC_K + 1):
-    """The paged kernel at the verify shape: every slot's S candidate rows
-    as B*S query rows, row (b, i) through table row b at position
-    pos[b] + i (what attention_verify launches).  Library: the slots'
-    K/V gathered once, then one scaled_dot_product_attention of S queries
-    a slot under the candidates' causal mask."""
+    """The paged kernel at the verify shape, as attention_verify launches
+    it: every slot's S candidate rows through its table row (q
+    (B,S,Hq,dh), pos (B,S)), row (b, i) at position pos[b] + i.  Library:
+    the slots' K/V gathered once, then one scaled_dot_product_attention
+    of S queries a slot under the candidates' causal mask.  The bound
+    counts each slot's pages once, up to its last candidate."""
     (Hq, Hk, dh), B, P = heads, len(pos_list), PAGE
     n_max = -(-(PLEN[1] + GEN[1]) // P)
     Np = B * n_max
     g = torch.Generator(device="cuda").manual_seed(46)
-    q = torch.randn(B * S, Hq, dh, generator=g, device="cuda").bfloat16()
+    q = torch.randn(B, S, Hq, dh, generator=g, device="cuda").bfloat16()
     kp = torch.randn(Np + 1, P, Hk, dh, generator=g, device="cuda").bfloat16()
     vp = torch.randn(Np + 1, P, Hk, dh, generator=g, device="cuda").bfloat16()
-    bt8 = torch.randperm(Np, generator=torch.Generator().manual_seed(5)
-                         ).reshape(B, n_max).int().cuda()
-    bt = bt8.repeat_interleave(S, dim=0)
+    bt = torch.randperm(Np, generator=torch.Generator().manual_seed(5)
+                        ).reshape(B, n_max).int().cuda()
     base = torch.tensor(pos_list, dtype=torch.int32, device="cuda")
-    pos = (base[:, None] + torch.arange(S, device="cuda")).reshape(-1).int()
+    pos = (base[:, None] + torch.arange(S, device="cuda")).int()
     ms = device_ms(lambda: PA.paged_attention(q, kp, vp, bt, pos), n=50)
     call_ms = cuda_ms(lambda: PA.paged_attention(q, kp, vp, bt, pos), n=50)
     plain_ms = device_ms(lambda: PA.reference(q, kp, vp, bt, pos), n=10)
     C = n_max * P
-    qpos = pos.reshape(B, S).long()
-    mask = (torch.arange(C, device="cuda")[None, None] <= qpos[:, :, None]
+    mask = (torch.arange(C, device="cuda")[None, None] <= pos[:, :, None]
             )[:, None]                                   # (B,1,S,C)
-    qs = q.reshape(B, S, Hq, dh).transpose(1, 2)         # (B,Hq,S,dh)
+    qs = q.transpose(1, 2)                               # (B,Hq,S,dh)
 
     def library():
-        kg = kp[bt8.long()].reshape(B, C, Hk, dh).transpose(1, 2)
-        vg = vp[bt8.long()].reshape(B, C, Hk, dh).transpose(1, 2)
+        kg = kp[bt.long()].reshape(B, C, Hk, dh).transpose(1, 2)
+        vg = vp[bt.long()].reshape(B, C, Hk, dh).transpose(1, 2)
         return sdpa(qs, kg, vg, attn_mask=mask)
     lib_ms = device_ms(library, n=50)
     resident = sum(p + S for p in pos_list)        # positions a slot holds
@@ -1647,10 +1750,9 @@ def time_paged_verify(torch, PA, heads, pos_list, S=SPEC_K + 1):
               + 4 * (bt.numel() + B * S))          # block tables and pos
     flops = 4 * Hq * dh * attended
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
-    n_splits, span = PA.plan_splits(B * S, Hk, n_max, P)
-    return {"shape": [B * S, Hq, Hk, dh, P, n_max], "pos": pos_list,
+    return {"shape": [B, S, Hq, Hk, dh, P, n_max], "pos": pos_list,
             "rows": f"{B} slots x S {S}", "ms": ms, "call_ms": call_ms,
-            "splits": n_splits, "span": span,
+            "plan": plan_text(PA, q, kp, bt),
             "plain_ms": plain_ms, "library_ms": lib_ms,
             "library": "gather + scaled_dot_product_attention",
             "bound_ms": 1e3 * max(t_ops, t_bytes),
@@ -1956,11 +2058,12 @@ def leafwise_roundtrip_check(torch, ops, NC, grads, seed):
 
 
 def family_train_phase(torch, card, ops, NC):
-    """Phase 6 for the other families: each trains at full width through
-    the launcher (`repro_torch.launch.train`, bf16, block remat, AdamW,
-    compressed gradients through nc_pack / nc_unpack, in-place steps)
-    under a Recorder, one model after another, each freed before the
-    next: one warm-up step and TRAIN_TIMED timed ones, the step times read
+    """Phase 6 for the other families: each trains at full width (rwkv6
+    with its depth cut, `--layers`) through the launcher
+    (`repro_torch.launch.train`, bf16, block remat, AdamW, compressed
+    gradients through nc_pack / nc_unpack, in-place steps) under a Recorder,
+    one model after another, each freed before the next: one warm-up step
+    and TRAIN_TIMED timed ones, the step times read
     from the `train.step` spans; losses finite, nc launches exactly
     leaves x steps, no attention or scan kernel; then one more step's
     gradients through the kernels and the plain versions, leaf by leaf."""
@@ -1975,9 +2078,13 @@ def family_train_phase(torch, card, ops, NC):
     from repro_torch.models.config import param_count
     out = []
     steps = 1 + TRAIN_TIMED
-    for arch, B, S, cut in TRAIN_FAMILIES:
+    for arch, B, S, layers, cut in TRAIN_FAMILIES:
         t_model = time.perf_counter()
         cfg = get_config(arch)
+        depth = []
+        if layers:
+            cfg = cfg.with_(num_layers=layers)
+            depth = ["--layers", str(layers)]
         total, _ = param_count(cfg)
         n_leaves = len(tree_leaves(MD.model_descs(cfg)))
         gc.collect()
@@ -1989,7 +2096,7 @@ def family_train_phase(torch, card, ops, NC):
         with obs.recording(rec):
             res = train(["--arch", arch, "--steps", str(steps),
                          "--batch", str(B), "--seq", str(S),
-                         "--compress-grads", "--log-every", "1000"])
+                         "--compress-grads", "--log-every", "1000"] + depth)
         torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated()
         launches = {n: getattr(ops, n).launches for n in
@@ -2525,12 +2632,14 @@ def near_argmax(torch, MD, cfg, params, reqs, fins):
 def spec_phase(torch, card, ops, MD):
     """qwen3-1.7b at full width through the paged engine three times on
     phase 4's stream: plain, with the lookup draft (k 3), and with
-    qwen3-0.6b drafting (k 3); then qwen3-0.6b drafting for itself on 4
-    requests, which must accept all k in at least one round."""
+    qwen3-0.6b drafting (k 3; its widths, DRAFT_LAYERS layers); then that
+    draft drafting for itself on 4 requests, which must accept all k in
+    at least one round."""
     from repro_torch.models.config import param_count
     from repro_torch.serving import (LookupDraft, ModelDraft, Request,
                                      ServeEngine, SpecDecodeEngine)
-    tcfg, dcfg = kernel_cfg(TARGET), kernel_cfg(ARCH)
+    tcfg = kernel_cfg(TARGET)
+    dcfg = kernel_cfg(ARCH).with_(num_layers=DRAFT_LAYERS)
     tparams = MD.init_model(tcfg, torch.Generator(device="cuda").manual_seed(0))
     dparams = MD.init_model(dcfg, torch.Generator(device="cuda").manual_seed(
         DRAFT_SEED))
@@ -2587,7 +2696,8 @@ def spec_phase(torch, card, ops, MD):
     gap = near_argmax(torch, MD, dcfg, dparams, reqs, fins)
     runs[f"{ARCH} spec self-draft"] = {"launches": launches, "stats": dict(
         st, wall_s=wall), "near_argmax_worst_gap": gap}
-    print(f"spec [{card}]: {ARCH} drafting for itself, "
+    print(f"spec [{card}]: {ARCH} at {dcfg.num_layers} layers drafting "
+          f"for itself, "
           f"{SELF_DRAFT_REQUESTS} requests: rounds={st['spec_rounds']} "
           f"accept_rate={st['accept_rate']:.3f} "
           f"tokens/round={st['tokens_per_round']:.3f} full-accept "
@@ -2597,6 +2707,7 @@ def spec_phase(torch, card, ops, MD):
     torch.cuda.empty_cache()
     total, _ = param_count(tcfg)
     return {"target": TARGET, "target_params": total, "draft": ARCH,
+            "draft_layers": DRAFT_LAYERS,
             "spec_k": SPEC_K, "runs": runs}
 
 
@@ -2767,8 +2878,9 @@ def rwkv_state_check(torch, cfg, params, MD, reqs):
     - the whole model, token by token through decode_step: the last
       logits within LOGIT_TOL x max(1, max|logit|), as phase 4 holds
       the kernel paths, and every layer's state within RWKV_PATH_TOL of
-      its largest entry (the layers' differences compound through 24
-      layers and the prompt's tokens: 0.048 on an H100 at 700 W)."""
+      its largest entry (the layers' differences compound through the
+      layers and the prompt's tokens: 0.048 through all 24 on an H100 at
+      700 W)."""
     from repro_torch.models import rwkv as RW
     from repro_torch.models.common import torch_dtype, tree_map
     p = torch.as_tensor(reqs[0].prompt, device="cuda")[None].int()
@@ -2855,9 +2967,11 @@ def family_phase(torch, card, ops, MD, SS, ServeEngine, Request,
         admit_ms = (1e3 * st["tick_s"].get("prefill", 0.0)
                     / st["prefill_ticks"])
         tps = st["generated_tokens"] / wall
-        cut = (f", depth cut to {depth} of {full_layers} layers (its "
-               f"{full / 1e9:.1f}B params at full depth do not fit one "
-               f"card)" if depth else "")
+        why = ("for time: its recurrence runs a token at a time"
+               if arch == RWKV else f"its {full / 1e9:.1f}B params at full "
+               f"depth do not fit one card")
+        cut = (f", depth cut to {depth} of {full_layers} layers ({why})"
+               if depth else "")
         pool = (f"pool_occupancy={st['pool_occupancy']:.3f}, "
                 if "pool_occupancy" in st else "dense engine, ")
         print(f"family serve [{card}]: {arch} {total / 1e9:.2f}B params "
@@ -3014,8 +3128,9 @@ def equals_saved(torch, ckpt_dir, step, tree):
 
 
 def elastic_phase(torch, card, ops, NC):
-    """Phase 8: qwen3-0.6b at full width (bf16, block remat, AdamW)
-    trained by `repro_torch.launch.train.train([... "--elastic" ...])`.
+    """Phase 8: qwen3-0.6b at full width, its depth cut to EL_LAYERS
+    (bf16, block remat, AdamW), trained by
+    `repro_torch.launch.train.train([... "--elastic" ...])`.
     (a) sync over EL_W workers with compressed gradients and asynchronous
     saves, worker 1 killed at wall EL_FAIL_AT: the restore of step 4 (2
     steps lost) bit-equal to the save read back from disk, final_alive
@@ -3043,7 +3158,7 @@ def elastic_phase(torch, card, ops, NC):
     from repro_torch.models import model as MD
     from repro_torch.models.common import tree_leaves
     t_phase = time.perf_counter()
-    cfg = get_config(ARCH)
+    cfg = get_config(ARCH).with_(num_layers=EL_LAYERS)
     n_leaves = len(tree_leaves(MD.model_descs(cfg)))
     base = os.path.join(ROOT, "build", "elastic_smoke")
     shutil.rmtree(base, ignore_errors=True)
@@ -3068,7 +3183,8 @@ def elastic_phase(torch, card, ops, NC):
         rec = obs.Recorder()
         t = time.perf_counter()
         with obs.recording(rec):
-            res = train(argv + ["--log-every", "1000"])
+            res = train(argv + ["--layers", str(EL_LAYERS),
+                                "--log-every", "1000"])
         torch.cuda.synchronize()
         return (res, rec, time.perf_counter() - t,
                 {n: getattr(ops, n).launches for n in names},
@@ -3145,7 +3261,8 @@ def elastic_phase(torch, card, ops, NC):
             "recovery_span_ms": spans.get("recovery", []),
             "peak_mem_gb": peak, "wall_s": wall, "grad_elements": n,
             "grad_nonfinite": nonfinite}
-        print(f"elastic sync [{card}]: {ARCH} bf16, {EL_W} workers x "
+        print(f"elastic sync [{card}]: {ARCH} bf16 at {EL_LAYERS} layers, "
+              f"{EL_W} workers x "
               f"{EL_BATCH // EL_W} x seq {EL_SEQ}, compressed gradients, a "
               f"save every {EL_CKPT_EVERY} steps (keep {EL_KEEP}), worker 1 "
               f"killed at wall {EL_FAIL_AT}: restored step "
@@ -3185,7 +3302,8 @@ def elastic_phase(torch, card, ops, NC):
             out[mode] = {"losses": losses, "lost_steps": lost,
                          "peak_mem_gb": peak, "wall_s": wall,
                          "span_s": spans}
-            print(f"elastic {mode} [{card}]: {ARCH} bf16, {EL_LOCAL_W} "
+            print(f"elastic {mode} [{card}]: {ARCH} bf16 at {EL_LAYERS} "
+                  f"layers, {EL_LOCAL_W} "
                   f"workers, batch {EL_LOCAL_BATCH} x seq {EL_LOCAL_SEQ}, "
                   f"{EL_LOCAL_STEPS} steps, worker 1 killed at wall "
                   f"{EL_LOCAL_FAIL}: lost steps {lost}, final_alive (0,), "
@@ -4273,10 +4391,10 @@ def classic_phase(torch, card, ops):
 BOUND_SHARE_MAX = 1.05
 
 
-def mesh_serve_phase(torch, card, ops, phase4, fins4, train_ms, out_dir):
+def mesh_serve_phase(torch, card, ops, phase4, fins4, train_ms, dryrun):
     t_phase = time.perf_counter()
     out = {"serve": mesh_serve(torch, card, ops, phase4, fins4)}
-    out["dryrun"] = dryrun_phase(card, out_dir)
+    out["dryrun"] = dryrun_phase(card, dryrun)
     out["roofline"] = roofline_phase(torch, card, train_ms)
     out["seconds"] = time.perf_counter() - t_phase
     print(f"mesh serve [{card}]: phase 13 took {out['seconds']:.1f} s")
@@ -4352,19 +4470,42 @@ def mesh_serve(torch, card, ops, phase4, fins4):
             "phase4_tick_ms": p4_tick_ms, "placements": placed}
 
 
-def dryrun_phase(card, out_dir):
-    """13b: the dry run of qwen3-0.6b on the (32, 8) fake mesh, in a
-    subprocess that sees no card."""
+def start_dryrun(out_dir):
+    """13b's subprocess, started early: the dry run of qwen3-0.6b on the
+    (32, 8) fake mesh, which sees no card.  It is killed at exit if it
+    still runs, and its output goes to `out_dir/dryrun/log.txt`."""
+    import atexit
     dest = os.path.join(out_dir, "dryrun")
+    os.makedirs(dest, exist_ok=True)
     env = dict(os.environ, PYTHONPATH=SRC, CUDA_VISIBLE_DEVICES="")
-    t0 = time.perf_counter()
-    proc = subprocess.run(
+    log = open(os.path.join(dest, "log.txt"), "w")
+    proc = subprocess.Popen(
         [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", ARCH,
          "--shape", "all", "--mesh", "single", "--out", dest],
-        cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
-    secs = time.perf_counter() - t0
+        cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT)
+    log.close()
+
+    def stop():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    atexit.register(stop)
+    return {"proc": proc, "dest": dest, "t0": time.perf_counter()}
+
+
+def dryrun_phase(card, started):
+    """13b: the dry run's records, from the subprocess `start_dryrun`
+    began beside phase 6 (the seconds from its start until read here)."""
+    proc, dest = started["proc"], started["dest"]
+    try:
+        proc.wait(timeout=600)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+    secs = time.perf_counter() - started["t0"]
     if proc.returncode:
-        fail(f"dry run: exit {proc.returncode}: {proc.stderr[-2000:]}")
+        with open(os.path.join(dest, "log.txt")) as fh:
+            fail(f"dry run: exit {proc.returncode}: {fh.read()[-2000:]}")
     with open(os.path.join(dest, "dryrun_32x8.json")) as fh:
         recs = json.load(fh)
     for key, rec in sorted(recs.items()):
@@ -4383,7 +4524,8 @@ def dryrun_phase(card, out_dir):
               f"{rec['useful_ratio']:.3f}, peak "
               f"{rec['peak_memory_bytes'] / 1e9:.2f} GB a chip, counted in "
               f"{rec['compile_s']} s")
-    print(f"dry run [{card}]: {len(recs)} records in {secs:.1f} s")
+    print(f"dry run [{card}]: {len(recs)} records, read {secs:.1f} s "
+          f"after its start")
     return {"records": recs, "seconds": secs}
 
 
@@ -4469,6 +4611,14 @@ def main(argv=None) -> int:
     from repro_torch.serving import Request, ServeEngine
 
     t_start = time.perf_counter()
+    laps, t_lap = {}, [t_start]
+
+    def lap(name):
+        """The seconds since the previous lap, kept under `name`."""
+        now = time.perf_counter()
+        laps[name] = round(now - t_lap[0], 1)
+        t_lap[0] = now
+
     card = card_line()                                          # phase 1
     print(card)
     # phase 13's dry run joins the fake process group: fail now, not
@@ -4482,6 +4632,7 @@ def main(argv=None) -> int:
                            "nat_compress", "ssd_scan"])
     build_s = time.perf_counter() - t0
     print(f"build [{card}]: {build_s:.1f} s")
+    lap("1-2 build")
     for name, rep in reports.items():
         entry = ""
         for line in rep.splitlines():
@@ -4502,6 +4653,7 @@ def main(argv=None) -> int:
         print(f"check [{card}] nc_pack/nc_unpack {r['dtype']} n={r['n']} "
               f"(below 2^-69: {r['below_range']}, at or above 2^57: "
               f"{r['above_range']}): codes and values bit-identical")
+    lap("3 checks")
 
     paths, ample = [], {}
     out_dir = args.out or os.path.join(ROOT, "build")
@@ -4510,14 +4662,19 @@ def main(argv=None) -> int:
             torch, card, arch, ops, MD, SS, ServeEngine, Request,
             args.profile, trace_dir=out_dir if arch == ARCH else None)
         paths.append(rec)
+    lap("4 serve")
     spec = spec_phase(torch, card, ops, MD)                     # phase 4b
+    lap("4b spec")
     drains = [drain_phase(torch, card, arch, ops, MD, ample[arch])
               for arch in (ARCH, HYBRID)]
+    lap("4b drain")
     family = family_phase(torch, card, ops, MD, SS, ServeEngine,  # 4c
                           Request, args.profile)
+    lap("4c")
     last = family_phase(torch, card, ops, MD, SS, ServeEngine,    # 4d
                         Request, args.profile, family=LAST, phase="4d")
     swa = swa_phase(torch, card, ops, MD)
+    lap("4d")
 
     mid = [PLEN[0] + (PLEN[1] + GEN[1] - PLEN[0]) * i // SLOTS
            for i in range(SLOTS)]
@@ -4565,8 +4722,9 @@ def main(argv=None) -> int:
     for name, t in timing.items():
         lib = ("none" if t["library_ms"] is None else
                f"{t['library']} {t['library_ms']:.4f} ms")
-        print(f"time [{card}] {name} {t['shape']}: kernel {t['ms']:.4f} ms "
-              f"(a call {t['call_ms']:.4f} ms), "
+        plan = f" ({t['plan']})" if "plan" in t else ""
+        print(f"time [{card}] {name} {t['shape']}{plan}: kernel "
+              f"{t['ms']:.4f} ms (a call {t['call_ms']:.4f} ms), "
               f"plain {t['plain_ms']:.4f} ms, library {lib}, "
               f"bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
     train_cfg = get_config(ARCH)          # bf16, block remat, flags off
@@ -4580,7 +4738,10 @@ def main(argv=None) -> int:
                   f"{t['launches']} launches): kernel {k['ms']:.4f} ms, "
                   f"plain {k['plain_ms']:.4f} ms, library none, "
                   f"bound {k['bound_ms']:.4f} ms ({k['bound_by']})")
+    lap("5 timing")
 
+    # phase 13b's dry run needs no card: it runs beside the train phases
+    dryrun = start_dryrun(out_dir)
     tr = train_phase(torch, train_cfg, ops, NC, profile=args.profile)
     print(f"train [{card}]: {ARCH} {total / 1e6:.1f}M params bf16, "  # phase 6
           f"remat={train_cfg.remat}, batch {tr['batch']} x seq {tr['seq']}, "
@@ -4601,14 +4762,22 @@ def main(argv=None) -> int:
     fam_train = family_train_phase(torch, card, ops, NC)
     print(f"train [{card}]: the other families took "
           f"{time.perf_counter() - t_fam:.1f} s")
+    lap("6 train")
     dp = dp_phase(torch, card, ops, tr["ms_per_step"])           # phase 7
+    lap("7 dp")
     elastic = elastic_phase(torch, card, ops, NC)                # phase 8
+    lap("8 elastic")
     fleet = fleet_phase(torch, card, ops, MD)                    # phase 9
+    lap("9 fleet")
     mesh = mesh_phase(torch, card, ops, tr["ms_per_step"])      # phase 10
+    lap("10 mesh")
     rl_out = rl_phase(torch, card, ops)                          # phase 11
+    lap("11 rl")
     classic = classic_phase(torch, card, ops)                    # phase 12
+    lap("12 classic")
     mesh_serve = mesh_serve_phase(torch, card, ops, paths[0],    # phase 13
-                                  ample[ARCH], tr["ms_per_step"], out_dir)
+                                  ample[ARCH], tr["ms_per_step"], dryrun)
+    lap("13 mesh serve")
 
     # launches by path: each counted from zero over its own main-path run
     by_path = {f"{p['arch']} serve": p["launches"]
@@ -4679,6 +4848,7 @@ def main(argv=None) -> int:
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
     elapsed = time.perf_counter() - t_start
     result = {"card": card, "build_s": build_s, "elapsed_s": elapsed,
+              "phase_seconds": laps,
               "checks": rows, "serve": paths, "spec": spec,
               "family": family, "last": last, "swa": swa,
               "drain": drains, "nc_checks": nc_rows,
@@ -4690,6 +4860,7 @@ def main(argv=None) -> int:
         os.makedirs(args.out, exist_ok=True)
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as fh:
             json.dump(result, fh, indent=1, default=str)
+    print(f"phases [{card}]: seconds {json.dumps(laps)}")
     print(f"elapsed [{card}]: {elapsed:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

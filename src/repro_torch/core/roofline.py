@@ -177,10 +177,13 @@ def kernel_cost(name: str, **kw) -> Tuple[int, int]:
     output written once, and the operations its result needs.
 
     flash_attention: q, k (shapes), dtype, causal, window.
-    paged_attention: q (B, Hq, dh), pool (Np, P, Hk, dh), tables (B, n),
-      dtype, resident (positions attended, summed over rows; on meta
-      tensors the positions are unknown and every row counts its logical
-      length).
+    paged_attention: q (B, Hq, dh) or (B, S, Hq, dh) (S query rows a
+      table row), pool (Np, P, Hk, dh), tables (B, n), dtype, resident
+      (positions read, summed over table rows: K/V once a table row, up to
+      its last query row's position), attended (query-position pairs,
+      summed over query rows; resident where omitted, one row a table
+      row).  On meta tensors the positions are unknown and every row
+      counts its logical length.
     ssd_scan: xe (B, S, H, P), b (B, S, N), chunk, xe_dtype, b_dtype.
     nc_pack: n elements of in_dtype (fp32 uniforms beside, uint8 out).
     nc_unpack: n elements to out_dtype."""
@@ -193,13 +196,15 @@ def kernel_cost(name: str, **kw) -> Tuple[int, int]:
         return (4 * B * Hq * dh * pairs,
                 e * (2 * _numel(kw["q"]) + 2 * _numel(kw["k"])))
     if name == "paged_attention":
-        B, Hq, dh = kw["q"]
+        B, Hq, dh = kw["q"][0], kw["q"][-2], kw["q"][-1]
         Hk = kw["pool"][2]
         e = _esize(kw["dtype"])
         resident = kw["resident"]
-        return (4 * Hq * dh * resident,
+        attended = kw.get("attended", resident)
+        rows = _numel(kw["q"]) // (Hq * dh)
+        return (4 * Hq * dh * attended,
                 2 * resident * Hk * dh * e + 2 * e * _numel(kw["q"])
-                + 4 * (_numel(kw["tables"]) + B))
+                + 4 * (_numel(kw["tables"]) + rows))
     if name == "ssd_scan":
         B, S, H, P = kw["xe"]
         N = kw["b"][2]

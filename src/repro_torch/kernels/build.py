@@ -37,7 +37,9 @@ SIGNATURES = {
                          _F, _I, _I, _I, _I, _I, _P, _P]},
     "paged_attention": {"paged_attention_fwd":
                         [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                         _I, _I, _I, _F, _I, _P]},
+                         _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
+                        "paged_tc_blocks_per_sm": [_I, _I],
+                        "paged_map_encodes": []},
     "nat_compress": {"nc_pack_fwd": [_P, _P, _P, _L, _I, _P],
                      "nc_unpack_fwd": [_P, _P, _L, _I, _P]},
     "ssd_scan": {"ssd_scan_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,

@@ -90,10 +90,11 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
                     logical_len: Optional[int] = None) -> torch.Tensor:
     """Paged decode attention through a block table.
 
-    q: (B,Hq,dh); k/v_pool: (Np,P,Hk,dh); block_tables: (B,n_max) int32;
-    pos: (B,) int32.  logical_len crops the block table to
-    ceil(logical_len / P) pages, so tables wider than the engine's
-    cache_len cost nothing for their dead pages."""
+    q: (B,Hq,dh) with pos (B,), or (B,S,Hq,dh) with pos (B,S), S query
+    rows sharing table row b (query (b, i) attends 0..pos[b, i]);
+    k/v_pool: (Np,P,Hk,dh); block_tables: (B,n_max) int32.  logical_len
+    crops the block table to ceil(logical_len / P) pages, so tables wider
+    than the engine's cache_len cost nothing for their dead pages."""
     if SH.is_dtensor(q):
         # the pools hold the same heads as q on each rank
         out = paged_attention(q.to_local(), _local(k_pool), _local(v_pool),
@@ -105,10 +106,13 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
         P = k_pool.shape[1]
         block_tables = block_tables[:, :-(-logical_len // P)]
     if q.is_meta:
+        # positions are unknown: every table row reads its logical length
+        # once, and every query row attends all of it
         C = block_tables.shape[1] * k_pool.shape[1]
         return _on_meta("paged_attention", torch.empty_like(q), q=q.shape,
                         pool=k_pool.shape, tables=block_tables.shape,
-                        dtype=q.dtype, resident=q.shape[0] * C)
+                        dtype=q.dtype, resident=q.shape[0] * C,
+                        attended=pos.numel() * C)
     if not q.is_cuda:
         return _ref.paged_attention_ref(q, k_pool, v_pool, block_tables, pos)
     out = _pa.paged_attention(q, k_pool, v_pool, block_tables, pos)

@@ -49,9 +49,15 @@ def paged_attention_ref(q: torch.Tensor, k_pool: torch.Tensor,
                         v_pool: torch.Tensor, block_tables: torch.Tensor,
                         pos: torch.Tensor, *,
                         scale: Optional[float] = None) -> torch.Tensor:
-    """q: (B,Hq,dh) one decode token per row; k/v_pool: (Np,P,Hk,dh);
-    block_tables: (B,n_max) page ids; pos: (B,) — attend idx <= pos[b]."""
-    B, Hq, dh = q.shape
+    """q: (B,Hq,dh) one decode token per row, pos (B,) — attend
+    idx <= pos[b]; or q (B,S,Hq,dh) S query rows per table row (a verify
+    round's candidates), pos (B,S) — query (b, i) attends idx <= pos[b, i]
+    through table row b.  k/v_pool: (Np,P,Hk,dh); block_tables: (B,n_max)
+    page ids."""
+    if q.dim() == 3:
+        return paged_attention_ref(q[:, None], k_pool, v_pool, block_tables,
+                                   pos[:, None], scale=scale)[:, 0]
+    B, S, Hq, dh = q.shape
     _, P, Hk, _ = k_pool.shape
     G = Hq // Hk
     bt = block_tables.long()
@@ -59,14 +65,14 @@ def paged_attention_ref(q: torch.Tensor, k_pool: torch.Tensor,
     sc = scale if scale is not None else dh ** -0.5
     k = k_pool[bt].reshape(B, C, Hk, dh)
     v = v_pool[bt].reshape(B, C, Hk, dh)
-    qg = q.reshape(B, Hk, G, dh)
-    scores = torch.einsum("bkgd,btkd->bkgt", qg.float(), k.float()) * sc
-    valid = (torch.arange(C, device=q.device)[None, :]
-             <= pos.long()[:, None])                          # (B,C)
+    qg = q.reshape(B, S, Hk, G, dh)
+    scores = torch.einsum("bskgd,btkd->bkgst", qg.float(), k.float()) * sc
+    valid = (torch.arange(C, device=q.device)[None, None, :]
+             <= pos.long()[:, :, None])                       # (B,S,C)
     scores = torch.where(valid[:, None, None], scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bkgt,btkd->bkgd", probs.to(v.dtype), v)
-    return out.reshape(B, Hq, dh).to(q.dtype)
+    out = torch.einsum("bkgst,btkd->bskgd", probs.to(v.dtype), v)
+    return out.reshape(B, S, Hq, dh).to(q.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -23,6 +23,8 @@ Perfetto trace, also when the run fails.
 
 Every ``--arch`` trains: the vlm and audio batches carry the stub
 frontends' zeros (`launch.steps.make_extra`), as the JAX launcher's do.
+``--layers N`` cuts the model's depth to N layers and keeps its widths
+(a port-only option: the JAX launcher trains the whole depth).
 
 ``--elastic`` hands the loop to `repro_torch.elastic.elastic_lm_loop`:
 ``--workers`` logical data-parallel workers, each with its own pipeline
@@ -95,6 +97,8 @@ def train(argv=None) -> dict:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen3-0.6b")
     ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the depth to N layers, widths unchanged")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=8)
@@ -144,6 +148,9 @@ def train(argv=None) -> dict:
     ap.add_argument("--no-async-ckpt", dest="async_ckpt",
                     action="store_false")
     args = ap.parse_args(argv)
+    depth = get_config(args.arch, smoke=args.smoke).num_layers
+    if args.layers is not None and not 1 <= args.layers <= depth:
+        ap.error(f"--layers {args.layers}: {args.arch} has {depth} layers")
     if args.elastic and args.mode == "sync" and not args.ckpt_dir:
         ap.error("--elastic --mode=sync requires --ckpt-dir (sync "
                  "recovery restores from the last checkpoint); other "
@@ -233,6 +240,8 @@ def _train(args, mesh=None) -> dict:
     main = mesh is None or torch.distributed.get_rank() == 0
     env = ENVS[args.env]
     cfg = get_config(args.arch, smoke=args.smoke)
+    if args.layers is not None:
+        cfg = cfg.with_(num_layers=args.layers)
     if device.type == "cpu":
         # fp32 params on CPU for small-scale training stability
         cfg = cfg.with_(param_dtype="float32", compute_dtype="float32")

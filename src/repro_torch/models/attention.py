@@ -412,8 +412,8 @@ def attention_verify(p, x, cache_k, cache_v, pos, cfg: ModelConfig, *,
     inactive row writes its own old value back (dense) or to the trash
     page (paged); a position past the cache is masked and never written.
     In paged mode with cfg.use_paged_kernel the attention reads through
-    the paged kernel: one launch of B*S query rows, row (b, i) at
-    position pos[b] + i through table row b.
+    the paged kernel: one launch, query (b, i) at position pos[b] + i
+    through table row b, each row's pages read once for its S queries.
 
     Returns (y (B,S,d), cache_k, cache_v)."""
     B, S, _ = x.shape
@@ -449,15 +449,13 @@ def attention_verify(p, x, cache_k, cache_v, pos, cfg: ModelConfig, *,
         bt = block_tables[mine]
         if cfg.use_paged_kernel:
             from repro_torch.kernels import ops as K
-            # a query past the cache attends every cached position, as
-            # the plain path's mask gives it
-            Bl = q.shape[0]
-            rows = qpos_r.clamp(max=C - 1).reshape(-1).int()
-            bt = bt.int().repeat_interleave(S, dim=0)
-            out = K.paged_attention(q.reshape(Bl * S, *q.shape[2:]), ck, cv,
-                                    bt, rows, logical_len=C)
-            return (_attn_out(p, out.reshape(Bl, S, *out.shape[1:]), qd, S),
-                    cache_k, cache_v)
+            # the S candidates of a row share its table row; a query past
+            # the cache attends every cached position, as the plain
+            # path's mask gives it
+            rows = qpos_r.clamp(max=C - 1).int()
+            out = K.paged_attention(q.contiguous(), ck, cv, bt.int(), rows,
+                                    logical_len=C)
+            return _attn_out(p, out, qd, S), cache_k, cache_v
         k = _paged_gather(ck, bt, C)
         v = _paged_gather(cv, bt, C)
     else:

@@ -69,7 +69,7 @@ FA_EDGE_SHAPES = [
     (1, 64, 256, 4, 2, 128, False, None),    # non-causal, S < T
     (2, 33, 64, 4, 1, 64, False, None),      # non-causal, G 4
 ]
-# paged: (B, P, n_max, Hq, Hk, dh); plan_splits gives each its split
+# paged: (B, P, n_max, Hq, Hk, dh); the plan gives each its split
 # count, and the rows' positions sit at the edges of the splits
 PA_SPLIT_SHAPES = [
     (8, 16, 40, 16, 8, 128),                 # qwen3-0.6b: 5 splits of 8
@@ -259,7 +259,8 @@ def _split_case(B, P, n_max, Hq, Hk, dh, dtype, seed=0):
     the live prefixes poisoned with +-1e9.  Returns (args, clean pools)."""
     r = np.random.RandomState(seed)
     Np = B * n_max + 4
-    n_splits, span = PA.plan_splits(B, Hk, n_max, P)
+    plan = PA.plan(B, 1, Hq, Hk, dh, n_max, P, dtype)
+    n_splits, span = plan.splits, plan.span
     w = span * P
     last = n_max * P - 1
     edges = [0, w - 1, w, w + 1, last, -1, r.randint(0, last + 1),
@@ -325,6 +326,195 @@ def test_attention_kernels_are_deterministic():
         b = PA.paged_attention(*args)
         torch.cuda.synchronize()
         assert torch.equal(a.view(wide), b.view(wide))
+
+
+# paged, S query rows a table row (B, S, P, n_max, Hq, Hk, dh): the
+# verify round (qwen3-1.7b, 8 slots x 4 candidates), G 7 and 12 with S 4
+# (28 and 48 rows a block: two and four 16-row tiles), small pages, and
+# groups past 64 rows (two chunks of rows a KV group: G 12 x S 6, as
+# nemotron verifies at --spec-k 5; G 2 x S 40; G 1 x S 70)
+PA_ROW_SHAPES = [
+    (8, 4, 16, 40, 16, 8, 128),              # verify, qwen3-1.7b
+    (8, 4, 16, 40, 56, 8, 128),              # arctic-480b heads, S 4
+    (8, 4, 16, 40, 96, 8, 192),              # nemotron-4-340b heads, S 4
+    (3, 4, 8, 24, 84, 7, 32),                # G 12, dh 32, P 8
+    (4, 4, 4, 30, 28, 4, 96),                # G 7, dh 96, P 4
+    (5, 2, 16, 20, 16, 2, 64),               # G 8, S 2
+    (6, 6, 16, 20, 96, 8, 192),              # G 12, S 6: 72 rows
+    (3, 40, 8, 30, 16, 8, 64),               # G 2, S 40: 80 rows
+    (2, 70, 16, 12, 8, 8, 128),              # G 1, S 70
+]
+# page sizes 1-32 (a page slot of 8-32 rows, 1-8 pages a stage), and
+# pages past a TMA box's 256 rows (bf16 reads 300 as 2 sub-pages of 150,
+# 512 as 2 of 256)
+PA_PAGE_SHAPES = [(4, 1, P, n, 16, 8, 128) for P, n in
+                  ((1, 200), (2, 120), (4, 80), (8, 40), (32, 12))] + [
+    (4, 4, 1, 150, 32, 4, 64), (3, 4, 2, 90, 24, 2, 96),
+    (3, 1, 300, 3, 16, 8, 128), (2, 4, 512, 2, 32, 4, 64)]
+
+
+def _rows_case(B, S, P, n_max, Hq, Hk, dh, dtype, seed=0):
+    """S query rows a table row on scrambled disjoint pages: the rows'
+    last candidates at the edges of the plan's splits and stages (stage s
+    of a split starts at page span*k + pages*s), one row whose first
+    candidates sit below 0, one row wholly below 0 where B > 4, one at
+    the table's end; every page outside the live prefixes poisoned with
+    +-1e9.  Returns (args, clean pools, plan)."""
+    r = np.random.RandomState(seed)
+    Np = B * n_max + 4
+    # (the fp32 plan's splits where bf16 reads sub-pages)
+    plan = PA.plan(B, S, Hq, Hk, dh, n_max, P,
+                   dtype if P <= PA.MAX_SLOT else torch.float32)
+    w, st, last = plan.span * P, max(1, plan.pages) * P, n_max * P - 1
+    edges = [last, w - 1, w, st - 1, st, w + st, S - 3, 2 * w + 1,
+             w + 2 * st - 1, r.randint(S, last + 1)]
+    top = np.array([min(last, edges[b % len(edges)]) for b in range(B)])
+    if B > 4:
+        top[4] = -1
+    pos = (top[:, None] - np.arange(S)[::-1]).astype(np.int32)
+    q = r.randn(B, S, Hq, dh).astype(np.float32)
+    kp = r.randn(Np, P, Hk, dh).astype(np.float32)
+    vp = r.randn(Np, P, Hk, dh).astype(np.float32)
+    ids = r.permutation(Np)[:B * n_max].reshape(B, n_max).astype(np.int32)
+    live = {int(ids[b, j]) for b in range(B)
+            for j in range(int(pos[b].max()) // P + 1)}
+    stale = [p for p in range(Np) if p not in live]
+    kp2, vp2 = kp.copy(), vp.copy()
+    kp2[stale], vp2[stale] = 1e9, -1e9
+    cuda = [torch.from_numpy(a).cuda().to(dtype)
+            for a in (q, kp2, vp2, kp, vp)]
+    ints = [torch.from_numpy(a).cuda() for a in (ids, pos)]
+    return (cuda[0], cuda[1], cuda[2], *ints), (cuda[3], cuda[4]), plan
+
+
+def _check_rows(args, clean, plan, dtype):
+    out = PA.paged_attention(*args)
+    again = PA.paged_attention(*args)
+    kept = PA.paged_attention(args[0], *clean, *args[3:])
+    q, kp, vp, bt, pos = args
+    B, S = pos.shape
+    flat = PA.paged_attention(q.reshape(B * S, *q.shape[2:]), kp, vp,
+                              bt.repeat_interleave(S, dim=0),
+                              pos.reshape(-1))
+    torch.cuda.synchronize()
+    what = f"plan {plan}"
+    assert torch.equal(out, kept), f"stale pages leaked: {what}"
+    assert torch.equal(out, again), f"two calls differ: {what}"
+    dead = pos < 0
+    assert bool((out[dead] == 0).all()), f"a row with no key: {what}"
+    ref = PA.reference(*args)
+    tol = TOL[dtype]
+    torch.testing.assert_close(out[~dead].float(), ref[~dead].float(),
+                               rtol=tol, atol=tol, msg=what)
+    # the same rows one a table row (the table repeated): another plan,
+    # the same function
+    torch.testing.assert_close(out.float(), flat.reshape(out.shape).float(),
+                               rtol=tol, atol=tol, msg=what)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,P,n_max,Hq,Hk,dh",
+                         PA_ROW_SHAPES + PA_PAGE_SHAPES)
+def test_paged_kernel_query_rows_at_split_and_stage_edges(B, S, P, n_max,
+                                                          Hq, Hk, dh, dtype):
+    """S query rows through one table row (the verify form) and page sizes
+    1-32, 300 and 512 against the plain version and against the flattened form, with
+    poisoned stale pages bit-invisible, two calls bit-identical and rows
+    below 0 zero."""
+    _cuda()
+    args, clean, plan = _rows_case(B, S, P, n_max, Hq, Hk, dh,
+                                   getattr(torch, dtype), seed=P)
+    _check_rows(args, clean, plan, dtype)
+
+
+@pytest.mark.parametrize("shape", [(8, 1, 16, 8, 128, 40),
+                                   (8, 4, 16, 8, 128, 40),
+                                   (8, 1, 96, 8, 192, 40)])
+def test_paged_kernel_graph_replay_equals_eager(shape):
+    """A CUDA graph records the kernel's tensor maps by value: replays on
+    refilled inputs (queries, pools, positions) give the eager call's
+    bits (splits merge in a fixed order)."""
+    _cuda()
+    B, S, Hq, Hk, dh, n_max = shape
+    P, Np = 16, shape[0] * shape[5] + 1
+    g = torch.Generator(device="cuda").manual_seed(3)
+    q = torch.randn(B, S, Hq, dh, generator=g, device="cuda").bfloat16()
+    kp, vp = (torch.randn(Np, P, Hk, dh, generator=g, device="cuda")
+              .bfloat16() for _ in range(2))
+    bt = torch.randperm(Np - 1, generator=torch.Generator().manual_seed(1)
+                        )[:B * n_max].reshape(B, n_max).int().cuda()
+    pos = torch.randint(0, n_max * P, (B, S), generator=g, device="cuda",
+                        dtype=torch.int32)
+    if S == 1:
+        q, pos = q[:, 0].contiguous(), pos[:, 0].contiguous()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        PA.paged_attention(q, kp, vp, bt, pos)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = PA.paged_attention(q, kp, vp, bt, pos)
+    for seed in (4, 5):
+        g.manual_seed(seed)
+        for t in (q, kp, vp):
+            t.copy_(torch.randn(t.shape, generator=g, device="cuda"))
+        pos.copy_(torch.randint(0, n_max * P, pos.shape, generator=g,
+                                device="cuda", dtype=torch.int32))
+        graph.replay()
+        eager = PA.paged_attention(q, kp, vp, bt, pos)
+        torch.cuda.synchronize()
+        assert torch.equal(out.view(torch.int16), eager.view(torch.int16))
+
+
+@pytest.mark.parametrize("dh", PA.HEAD_DIMS)
+def test_paged_plan_residency_matches_the_card(dh):
+    """The plan's RESIDENT (bf16 blocks an SM, bound by registers) is what
+    the card's occupancy calculator gives the kernel at a small shared
+    memory, and at least what it gives at every plan's shared memory
+    that the plan sized for RESIDENT blocks an SM."""
+    _cuda()
+    lib = build.load("paged_attention")
+    assert lib.paged_tc_blocks_per_sm(dh, 16 * 1024) == PA.RESIDENT[dh]
+    assert PA.blocks_per_sm(dh) == PA.RESIDENT[dh]
+    for G in PA.GROUPS:
+        for S, P in ((1, 16), (4, 16), (1, 4), (4, 32)):
+            p = PA.plan(8, S, 2 * G, 2, dh, 40, P)
+            if PA.RESIDENT[dh] * (p.smem + 1024) <= PA.SMEM_SM:
+                assert lib.paged_tc_blocks_per_sm(dh, p.smem) >= \
+                    PA.RESIDENT[dh], p
+
+
+def test_paged_kernel_encodes_each_layer_pool_once():
+    """A serve tick calls the kernel on every layer's pool, each a slice
+    of one stacked tensor: the first pass over 28 layers encodes their 56
+    tensor maps (K and V), a second pass none, and each layer's output is
+    the plain version's on its own slice."""
+    _cuda()
+    L, B, P, n_max, Hq, Hk, dh = 28, 8, 16, 40, 16, 8, 128
+    Np = B * n_max + 3            # a pool shape no other test uses
+    g = torch.Generator(device="cuda").manual_seed(8)
+    pools = [torch.randn(L, Np, P, Hk, dh, generator=g, device="cuda")
+             .bfloat16() for _ in range(2)]
+    q = torch.randn(B, Hq, dh, generator=g, device="cuda").bfloat16()
+    bt = torch.randperm(Np, generator=torch.Generator().manual_seed(2)
+                        )[:B * n_max].reshape(B, n_max).int().cuda()
+    pos = torch.randint(0, n_max * P, (B,), generator=g, device="cuda",
+                        dtype=torch.int32)
+    lib = build.load("paged_attention")
+    outs = []
+    for rnd in range(2):
+        before = lib.paged_map_encodes()
+        outs.append([PA.paged_attention(q, pools[0][i], pools[1][i], bt, pos)
+                     for i in range(L)])
+        torch.cuda.synchronize()
+        assert lib.paged_map_encodes() - before == (2 * L if rnd == 0 else 0)
+    for i in (0, L // 2, L - 1):
+        assert torch.equal(outs[0][i], outs[1][i])
+        ref = PA.reference(q, pools[0][i], pools[1][i], bt, pos)
+        torch.testing.assert_close(outs[0][i].float(), ref.float(),
+                                   rtol=TOL["bfloat16"],
+                                   atol=TOL["bfloat16"])
 
 
 def _ssd_case(B, S, H, P, N, dtype, seed=0, decay=0.1):
@@ -558,7 +748,8 @@ def _verify_layer(device, dtype, seed=0, arch="qwen3-1.7b"):
     p = init_params(A.attn_descs(cfg), g, torch.device(device))
     Bv, S, P, n_max = 8, 4, 16, 40
     Np = Bv * n_max + 4
-    _, span = PA.plan_splits(Bv * S, cfg.num_kv_heads, n_max, P)
+    span = PA.plan(Bv, S, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
+                   n_max, P, dt).span
     w, C = span * P, n_max * P
     pos = torch.tensor([0, w - 3, w - 1, w, w + 1, C - 4, C - 2, 100],
                        dtype=torch.int32)
@@ -607,8 +798,9 @@ def _attention_verify_kernel_vs_plain(device, dtype, arch="qwen3-1.7b"):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_attention_verify_paged_kernel_matches_plain(dtype):
-    """attention_verify through the paged kernel (one launch of 32 query
-    rows) against the plain gather-and-softmax on the same pools."""
+    """attention_verify through the paged kernel (one launch: 8 table rows
+    of 4 query rows) against the plain gather-and-softmax on the same
+    pools."""
     _cuda()
     y, ref, launches = _attention_verify_kernel_vs_plain("cuda", dtype)
     assert launches == 2

@@ -137,6 +137,40 @@ def test_paged_plain_matches_jax(B, Np, P, n_max, Hq, Hk, dh):
     np.testing.assert_allclose(out, np.asarray(oracle), rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("B,Np,P,n_max,Hq,Hk,dh", PA_SHAPES)
+@pytest.mark.parametrize("S", [2, 4])
+def test_paged_plain_rows_match_jax_on_the_repeated_table(B, Np, P, n_max,
+                                                         Hq, Hk, dh, S):
+    """The S-row form, q (B,S,Hq,dh) with pos (B,S) through table row b,
+    equals JAX's paged_attention (interpret mode) and its oracle on the
+    table repeated for each query row, as attention_verify called it with
+    one row a table row: the same function."""
+    _, kp, vp, ids, _ = _paged_case(B, Np, P, n_max, Hq, Hk, dh, seed=S)
+    r = np.random.RandomState(10 + S)
+    q = r.randn(B, S, Hq, dh).astype(np.float32)
+    # a verify round's candidates: last - S + 1 .. last, the first
+    # candidates of a row below 0 where last < S - 1 (they see no key)
+    last = r.randint(0, n_max * P, size=B)
+    last[0] = min(S - 2, n_max * P - 1)
+    pos = (last[:, None] - np.arange(S)[::-1]).astype(np.int32)
+    out = PA.reference(*_t(q, kp, vp, ids, pos)).numpy()
+    assert out.shape == (B, S, Hq, dh)
+    flat = [jnp.asarray(a) for a in (q.reshape(B * S, Hq, dh), kp, vp,
+                                     np.repeat(ids, S, axis=0),
+                                     pos.reshape(-1))]
+    kern = np.asarray(jax_paged(*flat, interpret=True))
+    oracle = np.asarray(JR.paged_attention_ref(*flat))
+    seen = pos.reshape(-1) >= 0   # JAX averages a row with no key
+    for ref in (kern, oracle):
+        np.testing.assert_allclose(out.reshape(B * S, Hq, dh)[seen],
+                                   ref[seen], rtol=1e-5, atol=1e-5)
+    # and the one-row form of the same rows, row by row
+    one = PA.reference(*_t(q.reshape(B * S, Hq, dh), kp, vp,
+                           np.repeat(ids, S, axis=0), pos.reshape(-1)))
+    np.testing.assert_allclose(out.reshape(B * S, Hq, dh), one.numpy(),
+                               rtol=1e-6, atol=1e-6)
+
+
 def test_paged_plain_ignores_stale_pages():
     """Pages past a row's position hold +-1e9 and still contribute an exact
     softmax zero: bit-identical to the clean pool, and equal to JAX."""
@@ -382,18 +416,25 @@ def test_ssd_wrapper_refuses_autograd():
 
 # ---------------------------------------------------------------------------
 # the paged kernel's split plan and sizing: plain host arithmetic
+# (tests/test_torch_paged_plan.py holds the whole plan)
 # ---------------------------------------------------------------------------
-# (B, Hk, n_pages, P) of the serve paths' decode: qwen3-0.6b and
+# (B, Hq, Hk, dh, n_pages, P) of the serve paths' decode: qwen3-0.6b and
 # zamba2-1.2b, 8 slots, cache_len 640, page 16
-MAIN_DECODE = {"qwen3-0.6b": (8, 8, 40, 16), "zamba2-1.2b": (8, 32, 40, 16)}
+MAIN_DECODE = {"qwen3-0.6b": (8, 16, 8, 128, 40, 16),
+               "zamba2-1.2b": (8, 32, 32, 64, 40, 16)}
 
 
 @pytest.mark.parametrize("arch", sorted(MAIN_DECODE))
 def test_paged_plan_fills_the_card_at_the_main_shapes(arch):
-    B, Hk, n_pages, P = MAIN_DECODE[arch]
-    n_splits, span = PA.plan_splits(B, Hk, n_pages, P)
-    assert n_splits > 1
-    assert n_splits * Hk * B >= PA.TARGET_BLOCKS
+    """At least a block an SM: qwen3's 64 (table row, kv-head) pairs
+    split into two blocks an SM; zamba2's 256 fill the SMs unsplit."""
+    B, Hq, Hk, dh, n_pages, P = MAIN_DECODE[arch]
+    p = PA.plan(B, 1, Hq, Hk, dh, n_pages, P)
+    assert p.blocks == p.splits * Hk * B >= PA.SMS
+    if B * Hk < PA.SMS:
+        assert p.splits > 1 and p.blocks >= 2 * PA.SMS
+    else:
+        assert p.splits == 1
 
 
 @pytest.mark.parametrize("B,Hk,n_pages,P", [
@@ -403,15 +444,19 @@ def test_paged_plan_fills_the_card_at_the_main_shapes(arch):
 def test_paged_plan_covers_every_position_once(B, Hk, n_pages, P):
     """Split s takes positions [s*span*P, (s+1)*span*P) of the table's
     n_pages*P: every position is in exactly one split, no split is empty,
-    and a split's table entries fit the kernel's staging."""
-    n_splits, span = PA.plan_splits(B, Hk, n_pages, P)
-    assert 1 <= span <= PA.MAX_SPAN
-    cover = np.zeros(n_pages * P, np.int64)
-    for s in range(n_splits):
-        lo, hi = s * span * P, min((s + 1) * span * P, n_pages * P)
-        assert lo < hi
-        cover[lo:hi] += 1
-    assert (cover == 1).all()
+    and a split's table entries fit the kernel's staging (both dtypes'
+    plans: the fp32 kernel stages at most MAX_SPAN entries, the bf16
+    kernel as many as its span)."""
+    for dtype in (torch.bfloat16, torch.float32):
+        p = PA.plan(B, 1, 2 * Hk, Hk, 64, n_pages, P, dtype)
+        assert 1 <= p.span <= (PA.MAX_SPAN if dtype == torch.float32
+                               else n_pages)
+        cover = np.zeros(n_pages * P, np.int64)
+        for s in range(p.splits):
+            lo, hi = s * p.span * P, min((s + 1) * p.span * P, n_pages * P)
+            assert lo < hi
+            cover[lo:hi] += 1
+        assert (cover == 1).all()
 
 
 @pytest.mark.parametrize("n_pages,P", [(1, 16), (4, 16), (2, 32), (8, 8),
@@ -420,24 +465,31 @@ def test_paged_plan_keeps_short_rows_in_one_split(n_pages, P):
     """A table of at most MIN_SPLIT_POSITIONS positions is one split, so
     no merge pass runs, however few blocks that gives."""
     assert n_pages * P <= PA.MIN_SPLIT_POSITIONS
-    assert PA.plan_splits(1, 1, n_pages, P)[0] == 1
+    assert PA.plan(1, 1, 1, 1, 64, n_pages, P).splits == 1
 
 
 @pytest.mark.parametrize("dh", PA.HEAD_DIMS)
 @pytest.mark.parametrize("G", PA.GROUPS)
 @pytest.mark.parametrize("P", [1, 8, 16, 32, 128])
 def test_paged_sizing_fits_every_accepted_shape(dh, G, P):
-    """Every head dim and group the wrapper accepts fits the 48 KB of
-    static shared memory, for any page size (the table staging is sized
-    by MAX_SPAN pages, not by P); the workspace holds acc, m and l for
-    every (row, q-head, split) and is empty with one split."""
-    assert PA.smem_bytes(dh, G) <= PA._SMEM_LIMIT
+    """Every head dim and group the wrapper accepts fits: the bf16
+    kernel's dynamic shared memory within the 227 KB a block may opt in
+    to, for any page size it takes (a page's slot is at most 256 rows),
+    and the fp32 kernel's static shared memory within 48 KB (the table
+    staging is sized by MAX_SPAN pages, not by P); the fp32 workspace
+    holds acc, m and l for every (query row, q-head, split) and is empty
+    with one split (both kernels)."""
     B, Hk = 8, 2
-    n_splits, span = PA.plan_splits(B, Hk, 40, P)
     Hq = Hk * G
-    n = PA.workspace_numel(B, Hq, dh, n_splits)
-    if n_splits == 1:
-        assert n == 0
-    else:
-        assert n == B * Hq * n_splits * (dh + 2)
-    assert PA.workspace_numel(B, Hq, dh, 1) == 0
+    p = PA.plan(B, 1, Hq, Hk, dh, 40, P)
+    assert p.smem == PA.smem_bytes(dh, p.stages, p.keys, p.tiles, p.span)
+    assert p.smem <= PA.SMEM_LIMIT
+    f = PA.plan(B, 1, Hq, Hk, dh, 40, P, torch.float32)
+    assert f.smem == PA.smem_bytes_f32(dh, G) <= 48 * 1024
+    for q in (p, f):
+        n = PA.workspace_numel(q, B, 1, Hq, dh)
+        if q.splits == 1:
+            assert n == 0
+        else:
+            assert n == B * Hq * q.splits * (dh + 2)
+        assert PA.workspace_numel(q._replace(splits=1), B, 1, Hq, dh) == 0

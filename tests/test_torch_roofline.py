@@ -246,6 +246,56 @@ def test_kernel_cost_of_flash_matches_the_bound_formula():
     assert b == 2 * (2 * 512 * 16 * 128 + 2 * 512 * 8 * 128)
 
 
+@pytest.mark.parametrize("S", [1, 4])
+def test_kernel_cost_of_paged_counts_pages_once_a_table_row(S):
+    """PERF.md's Bound column for the paged kernel: K/V bytes once a table
+    row over the positions its last query row reaches, FLOPs over every
+    query row, q and out once, tables and positions as int32.  One row a
+    table row (S 1) counts as before; S 4 (a verify round, pos..pos+3)
+    reads each slot's pages once."""
+    Hq, Hk, dh, B, n = 16, 8, 128, 8, 40
+    base = [257 + 48 * b for b in range(B)]
+    resident = sum(p + S for p in base)
+    attended = sum(p + i + 1 for p in base for i in range(S))
+    q = (B, Hq, dh) if S == 1 else (B, S, Hq, dh)
+    f, b = RL.kernel_cost("paged_attention", q=q, pool=(321, 16, Hk, dh),
+                          tables=(B, n), dtype=torch.bfloat16,
+                          resident=resident, attended=attended)
+    assert f == 4 * Hq * dh * attended
+    assert b == (2 * resident * Hk * dh * 2 + 2 * 2 * B * S * Hq * dh
+                 + 4 * (B * n + B * S))
+    if S == 1:
+        assert (f, b) == RL.kernel_cost(
+            "paged_attention", q=q, pool=(321, 16, Hk, dh), tables=(B, n),
+            dtype=torch.bfloat16, resident=resident)
+    else:
+        # against the same rows as S table rows each (the repeated
+        # table): the pages' bytes once, not S times
+        f1, b1 = RL.kernel_cost(
+            "paged_attention", q=(B * S, Hq, dh), pool=(321, 16, Hk, dh),
+            tables=(B * S, n), dtype=torch.bfloat16, resident=attended)
+        assert f1 == f and b1 - b == (2 * (attended - resident) * Hk * dh
+                                      * 2 + 4 * (S - 1) * B * n)
+
+
+def test_paged_meta_call_of_the_row_form_counts_each_table_row_once():
+    """ops.paged_attention on meta tensors in the S-row form: the K/V
+    bytes of B table rows' logical lengths, FLOPs over B*S query rows."""
+    from repro_torch.kernels import ops
+    q, pool = _meta(2, 4, 8, 32), _meta(9, 4, 4, 32)
+    bt = _meta(2, 4, dtype=torch.int32)
+    pos = _meta(2, 4, dtype=torch.int32)
+    with RL.Counter() as c:
+        out = ops.paged_attention(q, pool, pool, bt, pos, logical_len=12)
+    assert out.is_meta and tuple(out.shape) == (2, 4, 8, 32)
+    f, b = RL.kernel_cost("paged_attention", q=q.shape, pool=pool.shape,
+                          tables=(2, 3), dtype=q.dtype, resident=2 * 12,
+                          attended=8 * 12)
+    assert c.kernels == {"paged_attention": {"calls": 1, "flops": f,
+                                             "bytes": b}}
+    assert f == 4 * 8 * 32 * 8 * 12
+
+
 @pytest.mark.parametrize("multi", [False, True], ids=["single", "multi"])
 def test_production_mesh_on_a_fake_world(multi):
     import torch.distributed as dist

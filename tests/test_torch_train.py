@@ -210,3 +210,30 @@ def test_train_launcher_refuses_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         train(["--smoke", "--steps", "1"])
+
+
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "rwkv6-1.6b"])
+def test_train_launcher_layers_cuts_the_depth(arch):
+    """--layers N trains the config cut to N layers at its widths: the
+    trained tree has the cut model's shapes, and the losses are finite."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import train
+    from repro_torch.models.common import tree_leaves
+    cfg = get_config(arch, smoke=True)
+    out = train(["--arch", arch, "--smoke", "--device", "cpu", "--steps",
+                 "2", "--batch", "2", "--seq", "16", "--layers", "1",
+                 "--log-every", "100"])
+    got = [tuple(x.shape) for x in tree_leaves(out["params"])]
+    cut = [tuple(d.shape) for d in
+           tree_leaves(TMD.model_descs(cfg.with_(num_layers=1)))]
+    whole = [tuple(d.shape) for d in tree_leaves(TMD.model_descs(cfg))]
+    assert got == cut != whole
+    assert len(out["losses"]) == 2 and all(np.isfinite(out["losses"]))
+
+
+@pytest.mark.parametrize("layers", ["0", "3"])
+def test_train_launcher_refuses_layers_past_the_depth(layers):
+    from repro_torch.launch.train import train
+    with pytest.raises(SystemExit):
+        train(["--smoke", "--device", "cpu", "--steps", "1", "--layers",
+               layers])
