@@ -876,7 +876,9 @@ def check_ssd(torch, SS, TR, rows):
     a step, as zamba2's random weights give: L reaches ~-120 in a chunk)
     at S 512 and 500 that must stay finite and hold to the plain version
     and to the float64 recurrence; the sequential oracle at a small
-    shape; and every call made twice, the two bit-identical."""
+    shape; and every call made twice, the two bit-identical.  Also many
+    chunks: S 2048 in 16 of 128 and in 8 of 256 (P = N = 128, where fp32
+    tiles by 32), S 4096 in 16 of 256, S 544 in 17 of 32 over 3 heads."""
     shapes = [(1, 512, 64, 64, 64, 128),            # zamba2-1.2b prefill
               (2, 256, 4, 64, 64, 128), (1, 128, 2, 32, 16, 64),
               (2, 512, 3, 64, 64, 128), (1, 256, 1, 128, 32, 256),
@@ -884,7 +886,9 @@ def check_ssd(torch, SS, TR, rows):
               (1, 96, 4, 64, 64, 32),
               (1, 500, 64, 64, 64, 128),            # ragged last chunks
               (2, 130, 4, 64, 64, 128), (1, 17, 2, 16, 16, 32),
-              (1, 300, 2, 128, 128, 256)]   # fp32: the kernel tiles by 32
+              (1, 300, 2, 128, 128, 256),   # fp32: the kernel tiles by 32
+              (1, 2048, 64, 64, 64, 128), (1, 4096, 8, 64, 64, 256),
+              (1, 2048, 2, 128, 128, 256), (1, 544, 3, 32, 64, 32)]
 
     def scan_twice(name, *args, chunk):
         y, fin = SS.ssd_scan(*args, chunk=chunk)
@@ -4719,6 +4723,11 @@ def main(argv=None) -> int:
     timing["flash_attention S=8192"] = time_flash(torch, FA, HEADS[ARCH],
                                                   S=8192)
     timing["ssd_scan"] = time_ssd(torch, SS)
+    # zamba2's shorter prompts (3 chunks) and a prompt past any serve
+    # path's (16 chunks)
+    timing["ssd_scan S=384"] = time_ssd(torch, SS, (1, 384, 64, 64, 64, 128))
+    timing["ssd_scan S=2048"] = time_ssd(torch, SS,
+                                         (1, 2048, 64, 64, 64, 128))
     for name, t in timing.items():
         lib = ("none" if t["library_ms"] is None else
                f"{t['library']} {t['library_ms']:.4f} ms")

@@ -270,10 +270,16 @@ def dbs_partition(samples_per_sec, global_batch: int,
 
     Returns int32 batch sizes summing exactly to global_batch (largest-
     remainder rounding to `multiple`; ties in the remainder go to the
-    lower worker index, by a stable sort as in JAX)."""
+    lower worker index, by a stable sort as in JAX).  The rates are summed
+    left to right in fp32, as XLA's CPU reduction adds them: torch's sum
+    rounds like a float64 sum, and the last bit of the total can move a
+    remainder past its neighbour's."""
     rates = torch.as_tensor(samples_per_sec, dtype=torch.float32)
     units = global_batch // multiple
-    rate = rates / rates.sum()
+    total = rates.new_zeros(())
+    for r in rates:
+        total = total + r
+    rate = rates / total
     raw = rate * units
     base = torch.floor(raw).to(torch.int32)
     rem = units - base.sum()

@@ -88,7 +88,10 @@ PA_SPLIT_SHAPES = [
 SSD_SHAPES = [
     # B, S, H, P, N, chunk: tests/test_kernels.py's, then zamba2-1.2b's
     # prefill, a short prompt (S < chunk), SMOKE's chunk, and ragged last
-    # chunks (a preempted request's re-prefill)
+    # chunks (a preempted request's re-prefill); then 8 chunks of 256 at
+    # P = N = 128 (fp32 tiles of 32), 17 chunks of 32 over 3 heads, the
+    # state passed over 1 to 32 chunks, and sequences of 1 and 17 rows at
+    # the smallest, zamba2's and the largest widths
     (2, 256, 4, 64, 64, 128),
     (1, 128, 2, 32, 16, 64),
     (2, 512, 3, 64, 64, 128),
@@ -100,6 +103,11 @@ SSD_SHAPES = [
     (1, 500, 64, 64, 64, 128),
     (2, 130, 4, 64, 64, 128),
     (1, 17, 2, 16, 16, 32),
+    (1, 2048, 2, 128, 128, 256),
+    (1, 544, 3, 32, 64, 32),
+    *[(1, nc * 128 - 3, 4, 64, 64, 128) for nc in (3, 8, 9, 32)],
+    (1, 17 * 64 - 3, 4, 64, 64, 64),
+    *[(2, S, 3, W, W, 128) for S in (1, 17) for W in (16, 64, 128)],
 ]
 SSD_TOL = 1e-4
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -584,13 +592,13 @@ def _ssd_f64(xe, loga, b, c):
     return torch.stack(ys, 1), state
 
 
-@pytest.mark.parametrize("S", [512, 500])
+@pytest.mark.parametrize("S", [512, 500, 2048])
 def test_ssd_kernel_strong_decay_is_finite(S):
     """loga ~ -0.8 a step, as zamba2's random weights give: L falls to about
     -120 over a 128-step chunk, where exp(L_s - L_t) above the diagonal is
     inf in fp32.  The kernel never takes it there: no NaN, no inf; and it
     holds to its plain version and to the float64 recurrence, also with a
-    ragged last chunk (S 500)."""
+    ragged last chunk (S 500) and over 16 chunks (S 2048)."""
     _cuda()
     xe, loga, b, c = _ssd_case(1, S, 64, 64, 64, torch.bfloat16, seed=3,
                                decay=0.2)

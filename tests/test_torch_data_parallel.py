@@ -22,6 +22,12 @@ import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 from _hyp_compat import given, settings, st  # noqa: E402
 
+try:
+    from hypothesis import example
+except ModuleNotFoundError:   # _hyp_compat's sweep: no pinned examples
+    def example(**_kw):
+        return lambda fn: fn
+
 from repro.core import data_parallel as JDP  # noqa: E402
 from repro.elastic.reshard import plan_split as jax_plan_split  # noqa: E402
 from repro.models import model as JMD  # noqa: E402
@@ -274,10 +280,27 @@ def test_detsgrad_fires_match_jax_step_by_step():
                                  1.3, 4.0]), min_size=1, max_size=8),
        st.integers(1, 512), st.sampled_from([1, 2, 4, 8]),
        st.floats(0.1, 10.0))
+# the fp32 sum's last bit decides this one's remainders (worker 0's 3 rows)
+@example(rates=[0.7, 1.3, 4.0, 3.0, 0.7, 0.5], batch=34, multiple=1,
+         scale=1.558169554282709)
 def test_dbs_partition_and_plan_split_match_jax(rates, batch, multiple,
                                                 scale):
     """Splits equal JAX's exactly, with tied rates (the sampled values
     repeat) and scaled ones; ties in the remainder go to the lower id."""
+    _dbs_matches_jax(rates, batch, multiple, scale)
+
+
+@pytest.mark.parametrize("rates,batch,multiple,scale", [
+    # the fp32 sum's last bit decides worker 0's 3 rows (without hypothesis
+    # the sweep above never draws it)
+    ([0.7, 1.3, 4.0, 3.0, 0.7, 0.5], 34, 1, 1.558169554282709),
+    ([0.7, 1.3, 4.0, 3.0, 0.7, 0.5], 34, 2, 1.558169554282709),
+])
+def test_dbs_partition_sums_rates_as_jax_does(rates, batch, multiple, scale):
+    _dbs_matches_jax(rates, batch, multiple, scale)
+
+
+def _dbs_matches_jax(rates, batch, multiple, scale):
     rates = [r * scale for r in rates]
     js = np.asarray(JDP.dbs_partition(jnp.asarray(rates, jnp.float32),
                                       batch, multiple))

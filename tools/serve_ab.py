@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """A/B of two checkouts of the port on one card: phase 4's warm serve run
-of `chip_smoke.py` and the paged kernel's host time a call.
+of `chip_smoke.py` and the paged and SSD kernels' host time a call.
 
     python3 tools/serve_ab.py ROOT_A ROOT_B [--order ABBA] [--runs 2]
                               [--arch qwen3-0.6b] [--out FILE]
@@ -14,8 +14,11 @@ counts checked.  The child then times the eager `ops.paged_attention`
 over every layer's pool, each a slice of one stacked tensor as a serve
 tick calls it (8 slots on 40 pages of 16, the arch's heads): the host's
 microseconds a call, the launches queued faster than the card runs them.
-Both checkouts are built first, in parallel.  Prints one JSON line a
-child and, last, one JSON object of every child's numbers by checkout.
+For an arch with Mamba2 layers (zamba2-1.2b) it then times the eager
+`ops.ssd_scan` the same way over every layer's own fresh inputs at a
+512-token prefill.  Both checkouts are built first, in parallel.  Prints
+one JSON line a child and, last, one JSON object of every child's numbers
+by checkout.
 """
 from __future__ import annotations
 
@@ -73,7 +76,25 @@ def child(root: str, runs: int, arch: str) -> dict:
         torch.cuda.synchronize()
         if rep:                                  # the first pass warms up
             calls.append(1e6 * (t1 - t0) / L)
-    return {"root": root, "runs": out, "paged_host_us_a_call": calls}
+    res = {"root": root, "runs": out, "paged_host_us_a_call": calls}
+    del k, v
+    if getattr(cfg, "ssm_heads", 0):
+        S, H = 512, cfg.ssm_heads
+        P, N = cfg.ssm_head_dim, cfg.ssm_state
+        layers = [cs.ssd_case(torch, 1, S, H, P, N, torch.bfloat16, seed=i)
+                  for i in range(L)]
+        ssd = []
+        for rep in range(6):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for xe, loga, b, c in layers:
+                ops.ssd_scan(xe, loga, b, c, chunk=cfg.ssm_chunk)
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            if rep:
+                ssd.append(1e6 * (t1 - t0) / L)
+        res["ssd_host_us_a_call"] = ssd
+    return res
 
 
 def main(argv=None) -> int:
