@@ -200,7 +200,14 @@ Phases (each raises on failure, and then no result is printed):
      DDG over the 28 layers as 4 modules of 7 for 12 ticks (JAX's fill
      sequence of active modules, finite and falling losses) and K = 1 at
      2 layers bit-equal to sequential_step; pipeline_apply at S = 1 over
-     the 28 blocks bit-equal to sequential_apply;
+     the 28 blocks bit-equal to sequential_apply; then at qwen3-0.6b's
+     widths cut to 4 of its 28 layers: the dp_tp mesh state after a
+     compressed AdamW step saved blocking and through AsyncCheckpointer,
+     byte-identical to the save of the plain state at the same step, its
+     restore into the mesh layout bit-equal leaf for leaf with the same
+     placements, and a step from the restore bit-equal to the step from
+     the unbroken state; one Adafactor step under dp_tp bit-equal to the
+     plain Adafactor step, parameters and statistics;
  11. deep RL (no kernel on this path: every launch count stays put):
      `repro_torch.launch.rl` at its defaults on the card under sim, then
      actor 1 killed at wall 15 under sim and under `--transport proc`
@@ -227,13 +234,17 @@ Phases (each raises on failure, and then no result is printed):
      phase 4's token for token, flash launches 28 an admit and paged 28
      a decode tick exactly, the k and v pools DTensors placed as
      `cache_pspecs(serve=True)` says; tokens/s and wall ms a decode
-     tick beside phase 4's; (b) `python -m repro_torch.launch.dryrun
-     --arch qwen3-0.6b --shape all --mesh single` as a subprocess with no
-     card visible (started with phase 6, whose train steps leave the
-     host's cores idle, and read here), on the (32, 8) mesh of a fake group
-     of 256: every record ok or skipped, useful_ratio in (0, 1], each
-     record's three terms (H100 SXM published peaks on counted work),
-     bottleneck and bound printed; (c) `launch/steps.cost_plan` of phase
+     tick beside phase 4's; the run takes --trace-out, and its trace
+     holds one `request` span a request and the engine's `serve.*`
+     events, by name, cat and count those of phase 4's recorded run;
+     (b) `python -m repro_torch.launch.dryrun --arch qwen3-0.6b --shape
+     all --mesh single` as a subprocess with no card visible (started with
+     phase 6, whose train steps leave the host's cores idle, and read
+     here), on the (32, 8) mesh of a fake group of 256: every record ok or
+     skipped, useful_ratio in (0, 1], each record's three terms (H100 SXM
+     published peaks on counted work),
+     bottleneck and bound printed; train_4k's temp below the card's
+     80 GB (the vocab-parallel loss); (c) `launch/steps.cost_plan` of phase
      6's train step (qwen3-0.6b, 2 x 4096, AdamW, block remat; without the gradient
      compression phase 6 adds) on a fake (1, 1) mesh: its lower bound
      beside phase 6's measured ms a step, which must not beat it (share
@@ -386,6 +397,13 @@ FLEET_FP32_LAYERS = 4
 # PP_B x PP_S, also in PP_M microbatches
 DDG_K, DDG_B, DDG_S, DDG_TICKS, DDG_LR = 4, 2, 1024, 12, 0.05
 PP_B, PP_S, PP_M = 2, 1024, 2
+# (e, f) the mesh state's save, restore and Adafactor step: qwen3-0.6b's
+# widths at MESH_STATE_LAYERS of its 28 layers, phase 6's batch
+MESH_STATE_LAYERS = 4
+# phase 13b: the dry run's train_4k before the vocab-parallel loss
+# (PERF.md, the dry run on the card's host): a chip's temp and bound
+DRY_TRAIN_4K_BEFORE = {"temp_gb": 679.4, "bound_s": 0.886}
+CARD_BYTES = 80e9
 # phase 11: deep RL.  (a) `launch.rl` at its defaults (4 actors, 40
 # rounds), then actor 1 killed at wall RL_KILL_AT under sim and under
 # proc; (b) each architecture's round on the card and on the CPU over
@@ -3628,7 +3646,13 @@ def mesh_phase(torch, card, ops, train_ms):
          loss falling; and K = 1 at 2 layers bit-equal to sequential_step;
     10d. pipeline_apply at S = 1 over the 28 blocks bit-equal to
          sequential_apply (M = 1), and at M = PP_M to sequential_apply of
-         each microbatch; bubble_fraction(4, 8) printed."""
+         each microbatch; bubble_fraction(4, 8) printed;
+    10e. at MESH_STATE_LAYERS layers, the dp_tp mesh state after a step
+         saved blocking and through AsyncCheckpointer, byte-identical to
+         the plain state's save, restored into the mesh layout bit-equal
+         with its placements, and stepped from the restore bit-equal to
+         the unbroken state's step;
+    10f. one Adafactor step under dp_tp bit-equal to the plain one."""
     import logging
     import tempfile
 
@@ -3654,6 +3678,8 @@ def mesh_phase(torch, card, ops, train_ms):
             out["prefill"] = mesh_prefill(torch, card, ops, cfg, mesh)
             out["ddg"] = ddg_phase(torch, card, cfg)
             out["pp"] = pp_phase(torch, card, cfg)
+            out["state"] = mesh_state(torch, card, ops, mesh, tmp)
+            out["adafactor"] = mesh_adafactor(torch, card, ops, mesh)
         finally:
             dist.destroy_process_group()
     out["seconds"] = time.perf_counter() - t_phase
@@ -3783,6 +3809,168 @@ def mesh_prefill(torch, card, ops, cfg, mesh):
           f"prompt: logits and cache bit-equal to the unsharded prefill, "
           f"{flash} flash launches")
     return {"launches": {"flash_attention": flash}, "prompt": plen}
+
+
+def _state_setup(torch, opt_fn):
+    """qwen3-0.6b's widths at MESH_STATE_LAYERS layers: the config, the
+    seed-0 weights, the optimizer, the compressed train step, phase 6's
+    first two batches on the card and the noise of step i."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_pipeline
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import model as MD
+    from repro_torch.optim.optimizers import warmup_cosine
+    cfg = get_config(ARCH).with_(num_layers=MESH_STATE_LAYERS)
+    params0 = MD.init_model(cfg, torch.Generator(device="cuda").manual_seed(0))
+    opt = opt_fn(warmup_cosine(3e-3, TRAIN_WARMUP, 1 + TRAIN_STEPS))
+    batches = iter(make_pipeline(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ,
+                                 seed=0))
+    data = [{k: torch.from_numpy(v).cuda() for k, v in
+             next(batches).items()} for _ in range(2)]
+    return (cfg, params0, opt, make_train_step(cfg, opt, compress_grads=True),
+            data, lambda i: torch.Generator(device="cuda").manual_seed(1 + i))
+
+
+def _on_dp_tp(torch, cfg, params0, opt, data, mesh):
+    """The seed weights and a fresh state laid out under DP_TP_ENV, and
+    the batches split (call under the env and the mesh)."""
+    from repro_torch.core import sharding as SH
+    from repro_torch.launch.steps import batch_pspecs
+    from repro_torch.models import model as MD
+    from repro_torch.models.common import tree_map
+    p = MD.distribute_params(tree_map(torch.clone, params0), cfg, mesh)
+    specs = batch_pspecs(cfg, data[0])
+    return p, opt.init(p), [{k: SH.distribute(v, specs[k], mesh)
+                             for k, v in b.items()} for b in data]
+
+
+def _locals(tree):
+    from repro_torch.core import sharding as SH
+    from repro_torch.models.common import tree_map
+    return tree_map(SH.local, tree)
+
+
+def mesh_state(torch, card, ops, mesh, tmp):
+    """10e: the dp_tp mesh state's save, restore and resumed step."""
+    import shutil
+
+    from repro_torch.checkpoint import (AsyncCheckpointer,
+                                        restore_checkpoint, save_checkpoint)
+    from repro_torch.core import sharding as SH
+    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.optim.optimizers import adamw
+    t_phase = time.perf_counter()
+    cfg, params0, opt, step_fn, data, noise = _state_setup(torch, adamw)
+    n = len(tree_leaves(params0))
+    meta = {"step": 1, "arch": ARCH}
+    dirs = {k: os.path.join(tmp, k) for k in ("plain", "mesh", "async")}
+    secs = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        secs[name] = time.perf_counter() - t
+        return out
+
+    p = tree_map(torch.clone, params0)
+    p, st, _ = step_fn(p, opt.init(p), data[0], noise(0))
+    plain = {"params": p, "opt": st}
+    timed("plain save", lambda: save_checkpoint(dirs["plain"], 1, plain,
+                                                meta))
+    del plain, p, st
+    try:
+        with SH.axis_env(SH.DP_TP_ENV), SH.use_mesh(mesh):
+            pd, sd, bs = _on_dp_tp(torch, cfg, params0, opt, data, mesh)
+            ops.reset_launches()
+            pd, sd, _ = step_fn(pd, sd, bs[0], noise(0))
+            tree = {"params": pd, "opt": sd}
+            timed("mesh save", lambda: save_checkpoint(dirs["mesh"], 1,
+                                                       tree, meta))
+            with AsyncCheckpointer(dirs["async"]) as ck:
+                timed("async snapshot", lambda: ck.save(1, tree, meta))
+                timed("async wait", ck.wait)
+            same = {k: dir_bytes_equal(dirs["plain"], dirs[k])
+                    for k in ("mesh", "async")}
+            if not all(same.values()):
+                fail(f"mesh state: saves of the dp_tp state differ from "
+                     f"the plain state's save: {same}")
+            back, got = timed("restore", lambda: restore_checkpoint(
+                dirs["mesh"], tree_map(torch.zeros_like, tree)))
+            placed = all(a.placements == b.placements for a, b in
+                         zip(tree_leaves(back), tree_leaves(tree))
+                         if SH.is_dtensor(b))
+            if got != meta or not placed or not same_tree_bits(
+                    torch, _locals(back), _locals(tree)):
+                fail(f"mesh state: the restore into the mesh layout "
+                     f"differs (metadata {got}, placements kept: "
+                     f"{placed})")
+            pr, sr, mr = step_fn(back["params"], back["opt"], bs[1],
+                                 noise(1))
+            pd, sd, md = step_fn(pd, sd, bs[1], noise(1))
+            launches = {k: getattr(ops, k).launches
+                        for k in ("nc_pack", "nc_unpack")}
+            if not same_tree_bits(
+                    torch, _locals({"p": pr, "s": sr, "l": mr["loss"]}),
+                    _locals({"p": pd, "s": sd, "l": md["loss"]})):
+                fail("mesh state: the step from the restore differs from "
+                     "the unbroken state's step")
+            size = sum(os.path.getsize(os.path.join(dirs["mesh"], r, f))
+                       for r, _, fs in os.walk(dirs["mesh"]) for f in fs)
+    finally:
+        for d in dirs.values():
+            shutil.rmtree(d, ignore_errors=True)
+    if any(v != 3 * n for v in launches.values()):
+        fail(f"mesh state: nc launches {launches} over three mesh steps, "
+             f"want {3 * n} each")
+    out = {"seconds": time.perf_counter() - t_phase, "launches": launches,
+           "stored_gb": size / 1e9, "layers": cfg.num_layers,
+           "times_s": secs}
+    print(f"mesh state [{card}]: {ARCH} widths at {cfg.num_layers} of 28 "
+          f"layers, dp_tp on a 1x1 mesh after a compressed AdamW step "
+          f"({out['stored_gb']:.2f} GB as stored): saved blocking and "
+          f"asynchronously byte-identical to the plain state's save, "
+          f"restored bit-equal with its placements, the next step from "
+          f"the restore bit-equal to the unbroken one; nc launches "
+          f"{launches}; seconds "
+          f"{json.dumps({k: round(v, 2) for k, v in secs.items()})}, "
+          f"{out['seconds']:.1f} in all")
+    return out
+
+
+def mesh_adafactor(torch, card, ops, mesh):
+    """10f: one compressed Adafactor step under dp_tp against the plain
+    one: parameters, statistics and loss bit-equal."""
+    from repro_torch.core import sharding as SH
+    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.optim.optimizers import adafactor
+    t_phase = time.perf_counter()
+    cfg, params0, opt, step_fn, data, noise = _state_setup(torch, adafactor)
+    n = len(tree_leaves(params0))
+    p = tree_map(torch.clone, params0)
+    p, st, m = step_fn(p, opt.init(p), data[0], noise(0))
+    with SH.axis_env(SH.DP_TP_ENV), SH.use_mesh(mesh):
+        pd, sd, bs = _on_dp_tp(torch, cfg, params0, opt, data, mesh)
+        ops.reset_launches()
+        pd, sd, md = step_fn(pd, sd, bs[0], noise(0))
+        launches = {k: getattr(ops, k).launches
+                    for k in ("nc_pack", "nc_unpack")}
+        same = {"params": same_tree_bits(torch, _locals(pd), p),
+                "statistics": same_tree_bits(torch, _locals(sd["f"]),
+                                             st["f"]),
+                "loss": same_tree_bits(torch, md["loss"], m["loss"])}
+    if not all(same.values()):
+        fail(f"mesh adafactor: the dp_tp step is not bit-equal to the "
+             f"plain one: {same}")
+    if any(v != n for v in launches.values()):
+        fail(f"mesh adafactor: nc launches {launches}, want {n} each")
+    out = {"seconds": time.perf_counter() - t_phase, "launches": launches,
+           "loss": float(m["loss"])}
+    print(f"mesh adafactor [{card}]: {ARCH} widths at {cfg.num_layers} "
+          f"layers, one compressed Adafactor step under dp_tp on a 1x1 "
+          f"mesh: parameters, statistics and loss bit-equal to the plain "
+          f"step; nc launches {launches}; {out['seconds']:.1f} s")
+    return out
 
 
 def _ddg_modules(torch, cfg, params, K):
@@ -4407,7 +4595,9 @@ def mesh_serve_phase(torch, card, ops, phase4, fins4, train_ms, dryrun):
 
 def mesh_serve(torch, card, ops, phase4, fins4):
     """13a: phase 4's requests through the serve launcher on a (1, 1)
-    mesh over an NCCL group of one rank."""
+    mesh over an NCCL group of one rank, with --trace-out: the trace
+    holds one `request` span a request and the engine's `serve.*`
+    events, by name, cat and count those of phase 4's recorded run."""
     import logging
     import tempfile
 
@@ -4433,7 +4623,10 @@ def mesh_serve(torch, card, ops, phase4, fins4):
             mesh = make_device_mesh(1, 1)
             torch.cuda.synchronize()
             ops.reset_launches()
-            res = serve(argv, mesh=mesh, requests=reqs)
+            res = serve(argv + ["--trace-out", f"{tmp}/trace.json"],
+                        mesh=mesh, requests=reqs)
+            t_trace = time.perf_counter()
+            events = trace_counts(f"{tmp}/trace.json")
             torch.cuda.synchronize()
             launches = {n: getattr(ops, n).launches for n in
                         ("flash_attention", "paged_attention", "ssd_scan")}
@@ -4457,6 +4650,23 @@ def mesh_serve(torch, card, ops, phase4, fins4):
     if [f.tokens for f in fins] != [f.tokens for f in fins4]:
         fail(f"mesh serve: the streams part from phase 4's ({same:.4f} of "
              f"the tokens equal)")
+    names = {}
+    for (name, _), k in events.items():
+        names[name] = names.get(name, 0) + k
+    if names.get("request") != len(reqs) or not any(
+            n.startswith("serve.") for n in names):
+        fail(f"mesh serve: trace events {names}, want one request span "
+             f"for each of {len(reqs)} requests and the serve.* events")
+    rec4 = phase4.get("recorded")
+    if rec4 and events != trace_counts(rec4["trace"]):
+        fail(f"mesh serve: trace events {sorted(events.items())} differ "
+             f"from phase 4's recorded run's "
+             f"{sorted(trace_counts(rec4['trace']).items())}")
+    trace_s = time.perf_counter() - t_trace
+    print(f"mesh serve trace [{card}]: rank 0's trace holds "
+          f"{json.dumps(names)} (cats "
+          f"{sorted({c for _, c in events})}), "
+          f"{'as phase 4 recorded' if rec4 else 'no recorded run to match'}")
     tps = st["generated_tokens"] / res["t_total"]
     tick_ms = 1e3 * res["t_total"] / st["decode_ticks"]
     p4 = phase4["stats"]
@@ -4471,7 +4681,21 @@ def mesh_serve(torch, card, ops, phase4, fins4):
           f"equal to phase 4's; pools {[p[0] for p in placed]}")
     return {"launches": launches, "stats": st, "tok_s": tps,
             "tick_ms": tick_ms, "phase4_tok_s": p4["tok_s"],
-            "phase4_tick_ms": p4_tick_ms, "placements": placed}
+            "phase4_tick_ms": p4_tick_ms, "placements": placed,
+            "trace_events": names, "trace_s": trace_s}
+
+
+def trace_counts(path):
+    """{(name, cat): count} of a written trace's events, metadata left
+    out."""
+    with open(path) as fh:
+        evs = json.load(fh)["traceEvents"]
+    out = {}
+    for e in evs:
+        if e["ph"] != "M":
+            key = (e["name"], e.get("cat"))
+            out[key] = out.get(key, 0) + 1
+    return out
 
 
 def start_dryrun(out_dir):
@@ -4530,6 +4754,16 @@ def dryrun_phase(card, started):
               f"{rec['compile_s']} s")
     print(f"dry run [{card}]: {len(recs)} records, read {secs:.1f} s "
           f"after its start")
+    rec = recs[f"{ARCH}|train_4k"]
+    before = DRY_TRAIN_4K_BEFORE
+    print(f"dry run {ARCH}|train_4k [{card}]: temp "
+          f"{rec['temp_bytes'] / 1e9:.2f} GB a chip (before the "
+          f"vocab-parallel loss {before['temp_gb']} GB), bytes "
+          f"{rec['bytes_per_chip']:.4e} a chip, bound "
+          f"{rec['step_lower_bound']:.4f} s (before {before['bound_s']} s)")
+    if rec["temp_bytes"] >= CARD_BYTES:
+        fail(f"dry run train_4k: temp {rec['temp_bytes'] / 1e9:.2f} GB a "
+             f"chip, at or above the card's {CARD_BYTES / 1e9:.0f} GB")
     return {"records": recs, "seconds": secs}
 
 
@@ -4780,6 +5014,9 @@ def main(argv=None) -> int:
     lap("9 fleet")
     mesh = mesh_phase(torch, card, ops, tr["ms_per_step"])      # phase 10
     lap("10 mesh")
+    laps.update({"10e state (in 10)": round(mesh["state"]["seconds"], 1),
+                 "10f adafactor (in 10)":
+                     round(mesh["adafactor"]["seconds"], 1)})
     rl_out = rl_phase(torch, card, ops)                          # phase 11
     lap("11 rl")
     classic = classic_phase(torch, card, ops)                    # phase 12
@@ -4787,6 +5024,7 @@ def main(argv=None) -> int:
     mesh_serve = mesh_serve_phase(torch, card, ops, paths[0],    # phase 13
                                   ample[ARCH], tr["ms_per_step"], dryrun)
     lap("13 mesh serve")
+    laps["13a trace (in 13)"] = round(mesh_serve["serve"]["trace_s"], 1)
 
     # launches by path: each counted from zero over its own main-path run
     by_path = {f"{p['arch']} serve": p["launches"]
@@ -4811,6 +5049,8 @@ def main(argv=None) -> int:
     by_path[f"{ARCH} fleet, hedged"] = fleet["hedged"]["launches"]
     by_path.update({f"{ARCH} mesh train, {env}": r["launches"]
                     for env, r in mesh["train"]["envs"].items()})
+    by_path[f"{ARCH} mesh state, dp_tp"] = mesh["state"]["launches"]
+    by_path[f"{ARCH} mesh adafactor, dp_tp"] = mesh["adafactor"]["launches"]
     by_path[f"{ARCH} mesh prefill"] = mesh["prefill"]["launches"]
     by_path[f"{ARCH} mesh serve"] = mesh_serve["serve"]["launches"]
     timing.update(nc_pack=nc_t["embed"]["nc_pack"],

@@ -41,6 +41,11 @@ Thread-safety contract:
   * `wait()` is the barrier: after it returns, every save handed over so
     far is durably committed and `last_committed_step()` reflects it.
 
+A mesh's tree (DTensor leaves) is saved by every rank: the snapshot and
+its collectives run on each rank's caller thread, only rank 0 starts the
+writer and hands it the job, and `wait()` is a barrier of every rank
+after rank 0's commit.
+
 Failure injection: pass ``failpoint=fn``; the writer calls ``fn(name)``
 at each point in `FAILPOINTS` and treats any exception it raises as the
 process dying right there — the job is abandoned with the directory
@@ -59,7 +64,8 @@ import numpy as np
 
 from repro_torch.checkpoint.ckpt import (commit_staged, fsync_staged,
                                          gc_checkpoints, host_snapshot,
-                                         latest_step, stage_dirs,
+                                         latest_step, mesh_barrier,
+                                         mesh_rank, stage_dirs,
                                          write_staged)
 from repro_torch.obs import recorder as obs
 
@@ -102,11 +108,11 @@ class AsyncCheckpointer:
         self._job: Optional[tuple] = None  # (step, flat_host, manifest, floor)
         self._errors: list = []
         self._closed = False
+        self._mesh = False       # a mesh's tree was saved: wait() barriers
         # a restarted process resumes from whatever the dead one committed
         self._committed: Optional[int] = latest_step(self.ckpt_dir)
-        self._thread = threading.Thread(
-            target=self._writer_loop, name="async-ckpt-writer", daemon=True)
-        self._thread.start()
+        # started by the first save this rank writes
+        self._thread: Optional[threading.Thread] = None
 
     # -- caller side ---------------------------------------------------
     def save(self, step: int, tree: Pytree,
@@ -122,11 +128,20 @@ class AsyncCheckpointer:
             raise RuntimeError("checkpointer is closed")
         # double buffer: stage to the host while the writer drains the
         # previous job, then block only on a still-busy writer
+        rank = mesh_rank(tree)
+        self._mesh = self._mesh or rank is not None
         rec = obs.get()
         with rec.span("ckpt.snapshot", cat="ckpt", step=step):
             flat_host, manifest = host_snapshot(step, tree, metadata)
         rec.count("ckpt.saves")
+        if rank:                 # rank 0 writes a mesh's save
+            return str(pathlib.Path(self.ckpt_dir) / f"step_{step:08d}")
         floor = self._floor_fn() if self._floor_fn is not None else None
+        if self._thread is None:
+            self._thread = threading.Thread(target=self._writer_loop,
+                                            name="async-ckpt-writer",
+                                            daemon=True)
+            self._thread.start()
         with self._cv:
             while self._job is not None:
                 self._cv.wait()
@@ -138,11 +153,16 @@ class AsyncCheckpointer:
     def wait(self) -> None:
         """Barrier: block until no save is in flight, then surface any
         writer failure.  On clean return, `last_committed_step()` covers
-        every save handed over so far."""
-        with self._cv:
-            while self._job is not None:
-                self._cv.wait()
-            self._raise_deferred_locked()
+        every save handed over so far.  After a mesh's save every rank
+        leaves only once rank 0's writer has committed."""
+        try:
+            with self._cv:
+                while self._job is not None:
+                    self._cv.wait()
+                self._raise_deferred_locked()
+        finally:
+            if self._mesh:
+                mesh_barrier()
 
     def last_committed_step(self) -> Optional[int]:
         """Newest step whose rename hit the disk (None before any)."""
@@ -161,7 +181,8 @@ class AsyncCheckpointer:
             with self._cv:
                 self._closed = True
                 self._cv.notify_all()
-            self._thread.join(timeout=60)
+            if self._thread is not None:
+                self._thread.join(timeout=60)
 
     def __enter__(self) -> "AsyncCheckpointer":
         return self

@@ -18,6 +18,12 @@ the same bytes.  They differ only in data flow: the blocking
 leaf), the asynchronous one stages the whole snapshot first
 (`host_snapshot` + `write_staged`), the host copy that lets a background
 thread write while training goes on.
+
+A tree with DTensor leaves (a mesh's state) is saved by every rank of
+the mesh in the same leaf order: each leaf is made whole on every rank
+(a collective), rank 0 writes it and the other ranks drop it at once, so
+the files are those of the same tree saved whole.  A restore into such a
+tree reads each leaf and keeps the rank's own shard, with no collective.
 """
 from __future__ import annotations
 
@@ -29,6 +35,8 @@ from typing import Any, Callable, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
+
+from repro_torch.core import sharding as SH
 
 Pytree = Any
 
@@ -141,12 +149,35 @@ def gc_checkpoints(ckpt_dir: str, keep_last: int,
 # ---------------------------------------------------------------------------
 # The write stages (shared by the blocking and async savers)
 # ---------------------------------------------------------------------------
+def mesh_rank(tree: Pytree) -> Optional[int]:
+    """This rank in the default process group when `tree` holds a DTensor
+    leaf (every rank of the mesh saves it, rank 0 writes), else None."""
+    if not any(SH.is_dtensor(t) for t in _flatten(tree).values()):
+        return None
+    import torch.distributed as dist
+    return dist.get_rank()
+
+
+def mesh_barrier() -> None:
+    """Every rank of the default group waits here for the others (after
+    a mesh save: until rank 0 has committed)."""
+    import torch.distributed as dist
+    dist.barrier()
+
+
 def iter_snapshot(tree: Pytree) -> Iterator[Tuple[str, np.ndarray, str]]:
     """Yield (key, host numpy leaf as stored, logical dtype) one leaf at a
     time.  Each leaf is copied to the host on the calling thread (a copy
     even of a CPU tensor), so a yielded leaf never sees a later in-place
-    update of the tensor it came from."""
+    update of the tensor it came from.  A DTensor leaf is made whole on
+    every rank first (a collective: every rank runs this over the same
+    tree); only rank 0 yields, the other ranks drop each whole leaf at
+    once and yield nothing."""
+    keep = mesh_rank(tree) in (None, 0)
     for key, t in _flatten(tree).items():
+        t = SH.whole(t)
+        if not keep:
+            continue
         name = _NP_NAMES[t.dtype]
         stored = torch.float32 if t.dtype == torch.bfloat16 else t.dtype
         yield key, t.detach().to("cpu", stored, copy=True).numpy(), name
@@ -237,17 +268,29 @@ def save_checkpoint(ckpt_dir: str, step: int, tree: Pytree,
     about one leaf).  Every save sweeps tmp dirs left by killed runs.
     keep_last > 0 enables retention: after the save only the newest
     `keep_last` checkpoints survive, plus the newest step at or below
-    `floor`, the fleet's rewind floor (`gc_checkpoints`)."""
-    tmp, final = stage_dirs(ckpt_dir, step)
-    manifest = {"step": step, "metadata": metadata or {}, "leaves": {}}
-    for key, arr, dtype in iter_snapshot(tree):  # stream, leaf by leaf
-        np.save(tmp / f"{key}.npy", arr)
-        manifest["leaves"][key] = {"shape": list(arr.shape), "dtype": dtype}
-    (tmp / "manifest.json").write_text(json.dumps(manifest, indent=1))
-    commit_staged(tmp, final)
-    if keep_last:
-        gc_checkpoints(ckpt_dir, keep_last, floor=floor)
-    return str(final)
+    `floor`, the fleet's rewind floor (`gc_checkpoints`).  A mesh's tree
+    (DTensor leaves) is saved by every rank: rank 0 writes, commits and
+    collects, and no rank returns before rank 0 has committed."""
+    rank = mesh_rank(tree)
+    try:
+        if rank:                     # the others gather with rank 0
+            for _ in iter_snapshot(tree):
+                pass
+            return str(pathlib.Path(ckpt_dir) / f"step_{step:08d}")
+        tmp, final = stage_dirs(ckpt_dir, step)
+        manifest = {"step": step, "metadata": metadata or {}, "leaves": {}}
+        for key, arr, dtype in iter_snapshot(tree):  # stream, leaf by leaf
+            np.save(tmp / f"{key}.npy", arr)
+            manifest["leaves"][key] = {"shape": list(arr.shape),
+                                       "dtype": dtype}
+        (tmp / "manifest.json").write_text(json.dumps(manifest, indent=1))
+        commit_staged(tmp, final)
+        if keep_last:
+            gc_checkpoints(ckpt_dir, keep_last, floor=floor)
+        return str(final)
+    finally:
+        if rank is not None:
+            mesh_barrier()
 
 
 def latest_step(ckpt_dir: str) -> Optional[int]:
@@ -262,8 +305,9 @@ def restore_checkpoint(ckpt_dir: str, like: Pytree,
                        step: Optional[int] = None) -> Tuple[Pytree, Dict]:
     """Load checkpoint `step` (default the newest) into the structure of
     `like`, a tree of tensors whose shapes must match; each leaf comes
-    back with its `like` leaf's dtype and device.  Returns (tree,
-    metadata)."""
+    back with its `like` leaf's dtype and device, and a DTensor leaf as
+    this rank's shard of it, laid out as its `like` leaf (no collective;
+    one whole leaf on the host at a time).  Returns (tree, metadata)."""
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
@@ -276,6 +320,9 @@ def restore_checkpoint(ckpt_dir: str, like: Pytree,
         if tuple(arr.shape) != tuple(want.shape):
             raise ValueError(f"{key}: checkpoint shape {arr.shape} != "
                              f"expected {tuple(want.shape)}")
-        out[key] = torch.from_numpy(arr).to(device=want.device,
-                                            dtype=want.dtype)
+        if SH.is_dtensor(want):
+            arr = np.ascontiguousarray(SH.own_part(arr, want))
+        out[key] = SH.from_local_like(
+            torch.from_numpy(arr).to(device=want.device, dtype=want.dtype),
+            want)
     return _unflatten_like(like, out), manifest["metadata"]

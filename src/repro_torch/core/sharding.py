@@ -363,6 +363,15 @@ def local_slice(t, dim: int) -> slice:
     return slice(start, start + size)
 
 
+def own_part(t, like):
+    """This rank's shard of the whole tensor `t` (the same on every rank)
+    laid out as the DTensor `like`: a view of `t`, with no communication;
+    `t` itself when `like` is a plain tensor."""
+    if not is_dtensor(like):
+        return t
+    return t[tuple(local_slice(like, d) for d in range(like.dim()))]
+
+
 def from_local_like(out, like):
     """The local result `out` as a DTensor laid out as the DTensor `like`
     (its global shape follows from the even splits), or `out` itself when

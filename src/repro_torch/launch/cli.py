@@ -96,8 +96,9 @@ def run_traced(args, fn: Callable[[], Any]) -> Any:
     """Run ``fn()`` and, when ``--trace-out`` was given, record it and
     write the Chrome/Perfetto trace on the way out, also when ``fn``
     raises (a trace of a failed run is the one you want most); the
-    exception then propagates."""
-    if not getattr(args, "trace_out", None):
+    exception then propagates.  Under a process group (a mesh's ranks)
+    rank 0 records and writes; the others run with no recorder."""
+    if not getattr(args, "trace_out", None) or _rank() != 0:
         return fn()
     from repro_torch.obs import recorder as obs
     from repro_torch.obs.trace import write_trace
@@ -108,3 +109,9 @@ def run_traced(args, fn: Callable[[], Any]) -> Any:
             write_trace(args.trace_out, rec.events)
             print(f"wrote trace: {args.trace_out} "
                   f"({len(rec.events)} events)", flush=True)
+
+
+def _rank() -> int:
+    """This process's rank in the default process group, 0 without one."""
+    import torch.distributed as dist
+    return dist.get_rank() if dist.is_initialized() else 0

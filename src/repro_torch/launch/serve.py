@@ -64,8 +64,9 @@ attention kernels run on each rank's local heads, and the caches and
 page pools are split on their K/V heads (``launch/steps.cache_pspecs``
 with serve=True).  With D*M > 1 the launcher spawns D*M ranks itself
 (gloo on the CPU, NCCL with one card a rank), each running the same
-stream; rank 0 prints the summary.  `serve(argv, mesh=...)` runs on a
-mesh over a group the caller initialised (a world of one, say).
+stream; rank 0 prints the summary and records --trace-out.
+`serve(argv, mesh=...)` runs on a mesh over a group the caller
+initialised (a world of one, say).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
       --continuous --paged --page-size 4 --requests 6 --batch 2 \
@@ -324,11 +325,9 @@ def serve(argv=None, *, mesh=None, requests=None, params=None) -> dict:
                  f"{args.model}")
     if mesh is None and args.data * args.model > 1:
         if args.transport == "proc":
-            ap.error("--transport proc runs its replicas in worker "
-                     "processes; under a mesh only 'sim' is ported")
-        if args.trace_out:
-            ap.error("--trace-out is not ported for a mesh larger than 1x1 "
-                     "(--data/--model)")
+            ap.error("--transport proc with a mesh larger than 1x1 "
+                     "(--data/--model) is not ported yet (ROADMAP, slice "
+                     "9b); under a mesh 'sim' runs")
         return _serve_spawned(args, params)
     return cli.run_traced(args, lambda: _serve(args, mesh, requests, params))
 
@@ -444,7 +443,8 @@ def _rank_main(rank: int, args, world: int, tmp: str, threads: int,
     try:
         mesh = (make_host_mesh if cpu else make_device_mesh)(args.data,
                                                             args.model)
-        out = _serve(args, mesh, weights=weights)
+        out = cli.run_traced(args, lambda: _serve(args, mesh,
+                                                  weights=weights))
         with SH.axis_env(SH.DP_TP_ENV), SH.use_mesh(mesh):
             res = summary(out)
         if rank == 0:

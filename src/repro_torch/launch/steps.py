@@ -22,7 +22,7 @@ from repro_torch.core import sharding as SH
 from repro_torch.core.compression import wire_roundtrip
 from repro_torch.core.data_parallel import value_and_grad
 from repro_torch.models import model as MD
-from repro_torch.models.common import torch_dtype, tree_map
+from repro_torch.models.common import torch_dtype, tree_leaves, tree_map
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim.optimizers import (clip_leaf, clip_scale,
                                           get_optimizer, warmup_cosine)
@@ -189,7 +189,12 @@ def apply_grads(opt, params, opt_state, grads, max_norm: float = 1.0):
     would hold the old and the new parameters and moments at once (for
     AdamW 2 x (2 + 8) bytes a bf16 parameter); this one, the temporaries
     of one slice.  The bits are the whole-tree update's: an update reads
-    nothing beyond the leaf, or the slice, it writes."""
+    nothing beyond the leaf, or the slice, it writes.
+
+    DTensor leaves: an elementwise update runs on each rank's own shard;
+    a whole-leaf one (Adafactor: statistics over whole rows and columns,
+    an update clipped by the whole leaf's RMS) on the leaf made whole on
+    every rank, one leaf at a time, each rank keeping its own shard."""
     scale, gnorm = clip_scale(grads, max_norm)
     step = opt_state["step"]
     moments = [k for k in opt_state if k != "step"]
@@ -201,7 +206,12 @@ def apply_grads(opt, params, opt_state, grads, max_norm: float = 1.0):
     for path in _leaf_paths(params):
         p, g = _at(params, path), _at(grads, path)
         leaf = {k: _at(opt_state[k], path) for k in moments}
-        if SH.is_dtensor(p) and opt.elementwise:
+        whole = SH.is_dtensor(p) and not opt.elementwise
+        if whole:
+            dst = (p, leaf)
+            p, g = SH.whole(p), SH.whole(g)
+            leaf = tree_map(SH.whole, leaf)
+        elif SH.is_dtensor(p):
             p, g = p.to_local(), g.to_local()
             leaf = tree_map(lambda t: t.to_local(), leaf)
         for sl in leaf_slices(p, opt.elementwise):
@@ -213,6 +223,10 @@ def apply_grads(opt, params, opt_state, grads, max_norm: float = 1.0):
             for k in moments:
                 _copy_into(_index(leaf[k], sl), new_s[k]["x"])
             new_step = new_s["step"]
+        if whole:                    # each rank keeps its own shard
+            for d, w in zip([dst[0]] + tree_leaves(dst[1]),
+                            [p] + tree_leaves(leaf)):
+                SH.local(d).copy_(SH.own_part(w, d))
     step.copy_(new_step)
     return params, opt_state, gnorm
 

@@ -44,13 +44,21 @@ ranks itself: gloo on ``--device cpu``, one card a rank over NCCL on
 ``cuda`` (it raises with fewer cards than ranks).  Every rank draws the
 same whole parameters from the seed and keeps its own shard; the batches
 are the unsharded run's, split on their batch dim; rank 0 prints the
-summary.  A 1x1 mesh is the unsharded step.
+summary.  A 1x1 mesh is the unsharded step.  Every option but
+``--elastic`` runs on the mesh: every rank saves (rank 0 writes the
+files of the same state saved whole) and restores its own shards,
+rank 0 records ``--trace-out``, and Adafactor's statistics span whole
+rows and columns.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \
       --steps 25 --batch 4 --seq 64 --compress-grads
   PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \
       --env dp_tp --data 2 --model 2 --steps 3 --batch 8 --seq 32
+  PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \
+      --env dp_tp --data 2 --model 2 --steps 4 --batch 8 --seq 32 \
+      --ckpt-dir /tmp/ck --ckpt-every 2 --async-ckpt \
+      --trace-out /tmp/trace.json --optimizer adafactor
   PYTHONPATH=src python -m repro_torch.launch.train --steps 10 --batch 2 \
       --seq 4096 --compress-grads
   PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-1.2b \
@@ -94,6 +102,14 @@ ENVS = {
 
 
 def train(argv=None) -> dict:
+    args = parse_args(argv)
+    if args.data * args.model > 1:
+        return _train_spawned(args)
+    return cli.run_traced(args, lambda: _train(args))
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    """The launcher's flags, checked."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen3-0.6b")
     ap.add_argument("--smoke", action="store_true")
@@ -159,18 +175,10 @@ def train(argv=None) -> dict:
         # elastic checkpoints every few steps: a blocking save there
         # steals a whole step from every worker, so async is the default
         args.async_ckpt = args.elastic
-    if args.data * args.model > 1:
-        if args.elastic:
-            ap.error("--elastic runs its own logical workers; it takes no "
-                     "mesh larger than 1x1 (--data/--model)")
-        if args.ckpt_dir or args.resume or args.trace_out:
-            ap.error("--ckpt-dir, --resume and --trace-out are not ported "
-                     "for a mesh larger than 1x1 (--data/--model)")
-        if args.optimizer == "adafactor":
-            ap.error("--optimizer adafactor reads whole leaves; under a "
-                     "mesh only the elementwise adamw and sgd run")
-        return _train_spawned(args)
-    return cli.run_traced(args, lambda: _train(args))
+    if args.data * args.model > 1 and args.elastic:
+        ap.error("--elastic with a mesh larger than 1x1 (--data/--model) "
+                 "is not ported yet (ROADMAP, slice 9b)")
+    return args
 
 
 def _train_spawned(args) -> dict:
@@ -214,7 +222,7 @@ def _rank_main(rank: int, args, world: int, tmp: str,
     try:
         mesh = (make_host_mesh if cpu else make_device_mesh)(args.data,
                                                             args.model)
-        out = _train(args, mesh=mesh)
+        out = cli.run_traced(args, lambda: _train(args, mesh=mesh))
         if rank == 0:
             ls = out["losses"]
             print(f"trained {len(ls)} steps on a {args.data}x{args.model} "
@@ -262,7 +270,8 @@ def _train(args, mesh=None) -> dict:
                                         {"params": params, "opt": opt_state})
         params, opt_state = tree["params"], tree["opt"]
         step0 = meta.get("step", 0)
-        print(f"resumed from step {step0}")
+        if main:
+            print(f"resumed from step {step0}")
 
     # the step updates params and optimizer state in place, as the JAX
     # launcher's jit donates them

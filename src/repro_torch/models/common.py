@@ -239,3 +239,75 @@ def embed_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     out_pl = [Shard(0) if isinstance(p, Shard) else Replicate()
               for p in id_pl]
     return DTensor.from_local(out, mesh, out_pl, run_check=False)
+
+
+# --------------------------------------------------------------------------
+# Vocab-parallel cross-entropy
+# --------------------------------------------------------------------------
+class _VocabCrossEntropy(torch.autograd.Function):
+    """logsumexp(x) - x[label] by position over fp32 logits whose local
+    shard holds vocab columns [lo, lo + V_local): the max, the sum of
+    exp(x - max) and the gold logit are reduced over `groups` (the mesh
+    dims the vocab is split over) as (B, S) partials.  The backward
+    writes g * (softmax - onehot) into the local columns, with no
+    communication.  Nothing of (B, S, V) beyond the local shard's fp32
+    copy is ever allocated."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, lo: int, groups):
+        x = logits.float()
+        m = x.amax(dim=-1)
+        for g in groups:
+            torch.distributed.all_reduce(m, torch.distributed.ReduceOp.MAX,
+                                         group=g)
+        s = (x - m[..., None]).exp_().sum(dim=-1)
+        inside = (labels >= lo) & (labels < lo + x.shape[-1])
+        local = torch.where(inside, labels - lo, 0)
+        gold = torch.where(inside, x.gather(-1, local[..., None])[..., 0],
+                           0.0)
+        for g in groups:
+            torch.distributed.all_reduce(s, group=g)
+            torch.distributed.all_reduce(gold, group=g)
+        ctx.save_for_backward(logits, m, s, local, inside)
+        return torch.log(s) + m - gold
+
+    @staticmethod
+    def backward(ctx, grad):
+        logits, m, s, local, inside = ctx.saved_tensors
+        # the cotangents in the order JAX's autodiff of logsumexp and of
+        # the gold pick forms them: exp(x - max) * (g / sum), then - g
+        p = (logits.float() - m[..., None]).exp_().mul_((grad / s)[..., None])
+        p.scatter_add_(-1, local[..., None], -(grad * inside)[..., None])
+        return p.to(logits.dtype), None, None, None
+
+
+def vocab_cross_entropy(logits: torch.Tensor,
+                        labels: torch.Tensor) -> torch.Tensor:
+    """Cross-entropy by position, (B, S) fp32, of (B, S, V) logits against
+    (B, S) labels: logsumexp of the fp32 logits less the gold logit.  One
+    formula for plain tensors and DTensors.  DTensor logits keep their
+    vocab dim split (over the mesh dims that split it) and their batch
+    rows; each rank reduces its own columns and the partials are summed
+    as (B, S), so no rank holds the whole vocab.  The result is a DTensor
+    split like the logits' batch rows."""
+    from repro_torch.core import sharding as SH
+    if not SH.is_dtensor(logits):
+        return _VocabCrossEntropy.apply(logits, labels.long(), 0, [])
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    mesh = logits.device_mesh
+    last = logits.dim() - 1
+    want = [p if isinstance(p, Shard) and p.dim % logits.dim() in (0, last)
+            else Replicate() for p in logits.placements]
+    logits = logits.redistribute(mesh, want)
+    rows = [p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+            for p in want]
+    if SH.is_dtensor(labels):
+        labels = labels.redistribute(mesh, rows).to_local()
+    else:
+        labels = labels[SH.local_slice(logits, 0)]
+    groups = [mesh.get_group(i) for i, p in enumerate(want)
+              if isinstance(p, Shard) and p.dim % logits.dim() == last]
+    nll = _VocabCrossEntropy.apply(
+        logits.to_local(grad_placements=want), labels.long(),
+        SH.local_slice(logits, last).start, groups)
+    return DTensor.from_local(nll, mesh, rows, run_check=False)

@@ -32,7 +32,8 @@ from repro_torch.core import sharding as SH
 from repro_torch.core.sharding import shard
 from repro_torch.models.common import (ParamDesc, dense, embed_lookup,
                                        init_params, param_pspecs, rms_norm,
-                                       torch_dtype, tree_map)
+                                       torch_dtype, tree_map,
+                                       vocab_cross_entropy)
 from repro_torch.models.config import ModelConfig
 
 # the attention families: a position-indexed K/V cache, one per layer
@@ -749,8 +750,7 @@ def lm_loss(params, cfg: ModelConfig, batch, aux_weight: float = 0.01):
     Mean next-token cross-entropy over fp32 logits, plus aux_weight * aux."""
     logits, aux, _ = forward(params, cfg, batch["tokens"],
                              extra_embeds=batch.get("extra_embeds"))
-    # vocab-sharded logits gathered whole before the softmax statistics
-    logits = shard(logits, "batch", None, None).float()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = logits.gather(-1, batch["labels"].long()[..., None])[..., 0]
-    return (logz - gold).mean() + aux_weight * aux
+    # vocab-parallel: the logits keep their vocab split (no rank holds
+    # the whole (B, S, V) or its gradient)
+    nll = vocab_cross_entropy(logits, batch["labels"])
+    return nll.mean() + aux_weight * aux

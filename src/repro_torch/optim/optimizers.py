@@ -8,7 +8,8 @@ State trees mirror the parameters with float32 moments and an int32
 A bf16 parameter updates in float32 and is cast back, as there.  Under a
 mesh the moments of a DTensor parameter are DTensors laid out as it is
 (``state_specs``: the moments take their parameters' specs, ``step`` is
-replicated).
+replicated), and Adafactor's row and column statistics keep the splits
+of the dims they keep.
 """
 from __future__ import annotations
 
@@ -36,6 +37,27 @@ def _zeros_f32(p: torch.Tensor) -> torch.Tensor:
     """fp32 zeros of p's shape on p's device (a DTensor p: laid out as p)."""
     return torch.zeros_like(p, dtype=torch.float32,
                             memory_format=torch.contiguous_format)
+
+
+def _stat_zeros(p: torch.Tensor, drop: int) -> torch.Tensor:
+    """fp32 zeros of p's shape without dim `drop` (Adafactor's row or
+    column statistics); for a DTensor p laid out as its spec with that
+    dim removed (`adafactor`'s ``state_specs``): the other dims keep
+    their splits, and a mesh dim that split `drop` holds it whole."""
+    from repro_torch.core import sharding as SH
+    shape = p.shape[:drop] + p.shape[drop + 1:]
+    if not SH.is_dtensor(p):
+        return torch.zeros(shape, dtype=torch.float32, device=p.device)
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    pls = []
+    for q in p.placements:
+        d = q.dim % p.dim() if isinstance(q, Shard) else None
+        pls.append(Replicate() if d is None or d == drop
+                   else Shard(d - (d > drop)))
+    mesh = p.device_mesh
+    local = torch.zeros(SH.local_shape(shape, pls, mesh),
+                        dtype=torch.float32, device=p.device)
+    return DTensor.from_local(local, mesh, pls, run_check=False)
 
 
 def _step0(params) -> torch.Tensor:
@@ -138,8 +160,8 @@ def adafactor(lr: Callable, eps: float = 1e-30,
     def init(params):
         def mk(p):
             if _factored(p):
-                return {"r": _zeros_f32(p[..., 0]),
-                        "c": _zeros_f32(p[..., 0, :])}
+                return {"r": _stat_zeros(p, p.dim() - 1),
+                        "c": _stat_zeros(p, p.dim() - 2)}
             return {"v": _zeros_f32(p)}
         return {"f": tree_map(mk, params), "step": _step0(params)}
 

@@ -17,9 +17,24 @@ intra-op thread.
   pp                   pipeline_apply over a (4,) stage mesh, M = 4
   smdp                 all_reduce of per-rank gradients / W
   moe, hybrid, ssm     SMOKE forwards under dp_tp on (2,2) and unsharded
+  ckpt_<env>           dp_tp and fsdp state after an AdamW step saved
+                       blocking and asynchronously, the files against the
+                       state saved whole, and a restore into the layout
+  adafactor_<env>      two Adafactor steps under dp_tp and fsdp and the
+                       unsharded ones, with each step's gradients
+  launch_<env>         the launcher's loop (`launch.train._train`) on a
+                       (2,2) mesh under each env with --optimizer
+                       adafactor, --ckpt-dir, --async-ckpt and
+                       --trace-out, and unsharded
+
+Each train check also counts the ops whose local output holds whole
+vocab rows of the logits, (rows, S, V): a vocab-parallel loss makes none
+where the vocab is split.
 """
 import contextlib
 import datetime
+import os
+import pathlib
 import pickle
 import traceback
 
@@ -31,6 +46,7 @@ from repro_torch.core.compression import wire_roundtrip
 from repro_torch.core import sharding as SH
 from repro_torch.core.pipeline import pipeline_apply
 from repro_torch.core.sharding import whole
+from torch.utils._python_dispatch import TorchDispatchMode
 from repro_torch.launch.steps import (apply_grads, loss_and_grads,
                                       make_train_step)
 from repro_torch.models import mlp as M
@@ -71,18 +87,39 @@ def _opt():
     return get_optimizer("adamw", lambda s: LR)
 
 
-def _step(params, batch):
+class _WholeVocab(TorchDispatchMode):
+    """Counts the ops whose output (a DTensor's local shard) is 3-D with
+    (S, V) trailing dims: whole vocab rows of the logits or of their
+    gradient."""
+
+    def __init__(self, S, V):
+        super().__init__()
+        self.SV, self.hits = (S, V), 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        for t in torch.utils._pytree.tree_leaves(out):
+            if isinstance(t, torch.Tensor):
+                t = getattr(t, "_local_tensor", t)
+                self.hits += t.dim() == 3 and tuple(t.shape[1:]) == self.SV
+        return out
+
+
+def _step(params, batch, watch=False):
     """lm_loss gradients and one AdamW update (no clip, as the JAX
-    worker's step), in place; gnorm of the unclipped gradients."""
+    worker's step), in place; gnorm of the unclipped gradients.  With
+    `watch`, the loss and gradients count their whole-vocab-row ops."""
     opt = _opt()
     st = opt.init(params)
-    loss, grads = loss_and_grads(params, CFG, batch)
+    counter = _WholeVocab(batch["tokens"].shape[1], CFG.vocab_size)
+    with counter if watch else contextlib.nullcontext():
+        loss, grads = loss_and_grads(params, CFG, batch)
     g_np = _np(grads)
     params, st, gnorm = apply_grads(opt, params, st, grads,
                                     max_norm=float("inf"))
     return {"loss": float(whole(loss)), "grads": g_np,
             "params": _np(params), "nu": _np(st["nu"]),
-            "gnorm": float(whole(gnorm))}
+            "gnorm": float(whole(gnorm)), "whole_vocab_ops": counter.hits}
 
 
 def check_train(refs, env, shape):
@@ -91,7 +128,7 @@ def check_train(refs, env, shape):
         params = MD.distribute_params(
             params_from_numpy(refs["params"], "cpu"), CFG, mesh)
         with SH.use_mesh(mesh):
-            out = _step(params, _batch(refs, mesh))
+            out = _step(params, _batch(refs, mesh), watch=True)
             out["placements"] = {
                 k: str(tuple(v.placements)) for k, v in
                 (("embed", params["embed"]), ("wq", params["blocks"][
@@ -130,6 +167,142 @@ def check_compressed(refs):
     whole_grads = tree_map(torch.from_numpy, out["sharded"]["grads"])
     out["rewired"] = _np(wire_roundtrip(whole_grads,
                                         torch.Generator().manual_seed(5)))
+    return out
+
+
+def _files(d):
+    d = pathlib.Path(d)
+    return {str(p.relative_to(d)): p.read_bytes()
+            for p in sorted(d.rglob("*")) if p.is_file()}
+
+
+def _all_ranks(ok: bool) -> bool:
+    flag = torch.tensor([int(ok)])
+    dist.all_reduce(flag, dist.ReduceOp.MIN)
+    return bool(flag.item())
+
+
+def check_ckpt(refs, env, tmp):
+    """The mesh state after an AdamW step (params, moments) saved by
+    every rank, blocking and through AsyncCheckpointer; rank 0 saves the
+    same state made whole; each rank restores into the mesh layout."""
+    from repro_torch.checkpoint import (AsyncCheckpointer,
+                                        restore_checkpoint, save_checkpoint)
+    from repro_torch.models.common import tree_leaves
+    mesh = _mesh((2, 2))
+    opt = _opt()
+    tmp = os.path.join(tmp, env)
+    with SH.axis_env(getattr(SH, env)):
+        params = MD.distribute_params(
+            params_from_numpy(refs["params"], "cpu"), CFG, mesh)
+        st = opt.init(params)
+        with SH.use_mesh(mesh):
+            _, grads = loss_and_grads(params, CFG, _batch(refs, mesh))
+            apply_grads(opt, params, st, grads)
+    tree = {"params": params, "opt": st}
+    save_checkpoint(f"{tmp}/mesh", 1, tree, {"step": 1})
+    with AsyncCheckpointer(f"{tmp}/async") as ck:
+        ck.save(1, tree, {"step": 1})
+    made_whole = tree_map(whole, tree)
+    if dist.get_rank() == 0:
+        save_checkpoint(f"{tmp}/whole", 1, made_whole, {"step": 1})
+    dist.barrier()
+    like = tree_map(torch.zeros_like, tree)
+    back, meta = restore_checkpoint(f"{tmp}/mesh", like)
+    same = all(
+        SH.is_dtensor(a) == SH.is_dtensor(b)
+        and (not SH.is_dtensor(a) or a.placements == b.placements)
+        and torch.equal(SH.local(a), SH.local(b))
+        for a, b in zip(tree_leaves(back), tree_leaves(tree)))
+    out = {"restored_bit_equal": _all_ranks(same), "meta": meta,
+           "split": sum(SH.local(t).numel() < t.numel()
+                        for t in tree_leaves(tree))}
+    if dist.get_rank() == 0:
+        files = {k: _files(f"{tmp}/{k}/step_00000001")
+                 for k in ("mesh", "async", "whole")}
+        out["n_files"] = len(files["whole"])
+        out["blocking_equal"] = files["mesh"] == files["whole"]
+        out["async_equal"] = files["async"] == files["whole"]
+    return out
+
+
+def check_adafactor(refs, env):
+    """Two Adafactor steps (no clip) under `env` on (2,2) and unsharded,
+    from the same weights on the same batch: params and statistics,
+    each step's gradients, and whether the statistics are placed as
+    `state_specs` says."""
+    from repro_torch.models.common import tree_leaves
+    mesh = _mesh((2, 2))
+    opt = get_optimizer("adafactor", lambda s: LR)
+    out = {}
+    for name in ("sharded", "unsharded"):
+        on = mesh if name == "sharded" else None
+        with SH.axis_env(getattr(SH, env)), (
+                SH.use_mesh(on) if on else contextlib.nullcontext()):
+            params = params_from_numpy(refs["params"], "cpu")
+            if on:
+                params = MD.distribute_params(params, CFG, mesh)
+            st = opt.init(params)
+            grads_np = []
+            for _ in range(2):
+                _, grads = loss_and_grads(params, CFG, _batch(refs, on))
+                grads_np.append(_np(grads))
+                apply_grads(opt, params, st, grads, max_norm=float("inf"))
+            if on:
+                specs = opt.state_specs(MD.model_pspecs(CFG))["f"]
+                out["placed_as_specs"] = all(
+                    t.placements == SH.placements(sp, mesh)
+                    for t, sp in zip(tree_leaves(st["f"]),
+                                     _spec_leaves(specs)))
+                out["split_stats"] = sum(
+                    SH.local(t).numel() < t.numel()
+                    for t in tree_leaves(st["f"]))
+        out[name] = {"grads": grads_np, "params": _np(params),
+                     "f": _np(st["f"]), "step": int(st["step"])}
+    return out
+
+
+def _spec_leaves(tree):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _spec_leaves(tree[k])]
+    return [tree]
+
+
+def check_launcher(env, tmp):
+    """`launch.train._train` on the (2,2) mesh under `env` with Adafactor,
+    an asynchronous save every step and rank 0's trace, then unsharded
+    with the same flags: losses, the saved steps and the trace's
+    events."""
+    import json
+
+    from repro_torch.launch import train as T
+    argv = ["--smoke", "--device", "cpu", "--steps", "2", "--batch", "8",
+            "--seq", "32", "--optimizer", "adafactor", "--ckpt-every",
+            "1", "--async-ckpt", "--log-every", "100", "--env", env]
+    tmp = os.path.join(tmp, "launch_" + env)
+    args = T.parse_args(argv + ["--data", "2", "--model", "2",
+                                "--ckpt-dir", f"{tmp}/mesh", "--trace-out",
+                                f"{tmp}/mesh.json"])
+    from repro_torch.obs import recorder as obs
+    recording = []
+
+    def run():
+        recording.append(obs.get().enabled)
+        return T._train(args, mesh=_mesh((2, 2)))
+    out = {"losses": {"mesh": T.cli.run_traced(args, run)["losses"]},
+           "rank_0_records": _all_ranks(recording == [dist.get_rank() == 0])}
+    if dist.get_rank() == 0:         # the unsharded run writes alone
+        args = T.parse_args(argv + ["--ckpt-dir", f"{tmp}/plain",
+                                    "--trace-out", f"{tmp}/plain.json"])
+        out["losses"]["plain"] = T.cli.run_traced(
+            args, lambda: T._train(args))["losses"]
+        out["steps"] = sorted(os.listdir(f"{tmp}/mesh"))
+        out["events"] = [
+            sorted((e["name"], e.get("cat"),
+                    json.dumps(e.get("args"), sort_keys=True))
+                   for e in json.loads(pathlib.Path(
+                       f"{tmp}/{n}.json").read_text())["traceEvents"]
+                   if e["ph"] != "M") for n in ("mesh", "plain")]
     return out
 
 
@@ -239,6 +412,13 @@ def run(rank, world, store, refs, out_path):
     results = {}
     checks = [(name, (lambda e=env, s=shape: check_train(refs, e, s)))
               for name, env, shape in TRAIN]
+    tmp = os.path.dirname(out_path)
+    for env in ("DP_TP_ENV", "TRAIN_ENV"):
+        checks += [(f"ckpt_{env}", lambda e=env: check_ckpt(refs, e, tmp)),
+                   (f"adafactor_{env}",
+                    lambda e=env: check_adafactor(refs, e))]
+    checks += [(f"launch_{env}", lambda e=env: check_launcher(e, tmp))
+               for env in ("dp", "tp", "dp_tp", "fsdp")]
     checks += [("dp_tp_nc", lambda: check_compressed(refs)),
                ("pp", lambda: check_pp(refs)),
                ("smdp", lambda: check_smdp(refs))]

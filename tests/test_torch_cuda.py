@@ -1438,6 +1438,84 @@ def test_pipeline_and_ddg_on_card(one_rank_mesh):
     assert all(torch.equal(st.params[0][n], seq[0][n]) for n in p)
 
 
+
+@pytest.mark.parametrize("env", ["dp", "tp", "dp_tp", "fsdp"])
+def test_mesh_lm_loss_bit_equal_on_card(env, one_rank_mesh):
+    """The vocab-parallel lm_loss of qwen3 SMOKE on the card (bf16) on a
+    1x1 mesh: loss and gradients bit-equal to the plain loss's."""
+    from repro_torch.core import sharding as SH
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import batch_pspecs, loss_and_grads
+    from repro_torch.launch.train import ENVS
+    from repro_torch.models import model as MD
+    from repro_torch.models.common import tree_leaves, tree_map
+    cfg = get_config("qwen3-0.6b", smoke=True)
+    p0 = MD.init_model(cfg, torch.Generator(device="cuda").manual_seed(0))
+    g = torch.Generator(device="cuda").manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (4, 33), generator=g,
+                         device="cuda")
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    loss, grads = loss_and_grads(p0, cfg, batch)
+    with SH.axis_env(ENVS[env]):
+        pd = MD.distribute_params(tree_map(torch.clone, p0), cfg,
+                                  one_rank_mesh)
+        with SH.use_mesh(one_rank_mesh):
+            specs = batch_pspecs(cfg, batch)
+            bd = {k: SH.distribute(v, specs[k], one_rank_mesh)
+                  for k, v in batch.items()}
+            dloss, dgrads = loss_and_grads(pd, cfg, bd)
+    assert torch.equal(SH.whole(dloss), loss)
+    for a, b in zip(tree_leaves(dgrads), tree_leaves(grads)):
+        assert a.dtype == b.dtype and torch.equal(SH.local(a), b)
+
+
+def test_mesh_checkpoint_round_trip_on_card(one_rank_mesh, tmp_path):
+    """A DTensor tree on the card (qwen3 SMOKE's bf16 params and AdamW
+    moments under fsdp on a 1x1 mesh), saved blocking and through
+    AsyncCheckpointer: the files of the plain tree's save; restored into
+    the layout bit-equal, placements kept."""
+    from repro_torch.checkpoint import (AsyncCheckpointer,
+                                        restore_checkpoint, save_checkpoint)
+    from repro_torch.core import sharding as SH
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import ENVS
+    from repro_torch.models import model as MD
+    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.optim.optimizers import adamw
+    cfg = get_config("qwen3-0.6b", smoke=True)
+    p0 = MD.init_model(cfg, torch.Generator(device="cuda").manual_seed(0))
+    opt = adamw(lambda s: 1e-2)
+    plain = {"params": p0, "opt": opt.init(p0)}
+    g = torch.Generator(device="cuda").manual_seed(2)
+    for t in tree_leaves(plain["opt"]["mu"]):
+        t.normal_(generator=g)
+    save_checkpoint(str(tmp_path / "plain"), 1, plain, {"step": 1})
+    with SH.axis_env(ENVS["fsdp"]):
+        pd = MD.distribute_params(p0, cfg, one_rank_mesh)
+        sd = opt.init(pd)
+        for a, b in zip(tree_leaves(sd["mu"]), tree_leaves(plain["opt"]
+                                                           ["mu"])):
+            a.to_local().copy_(b)
+    tree = {"params": pd, "opt": sd}
+    save_checkpoint(str(tmp_path / "mesh"), 1, tree, {"step": 1})
+    with AsyncCheckpointer(str(tmp_path / "async")) as ck:
+        ck.save(1, tree, {"step": 1})
+
+    def files(d):
+        return {p.relative_to(d): p.read_bytes()
+                for p in sorted(d.rglob("*")) if p.is_file()}
+    want = files(tmp_path / "plain")
+    assert files(tmp_path / "mesh") == want == files(tmp_path / "async")
+    back, meta = restore_checkpoint(str(tmp_path / "mesh"),
+                                    tree_map(torch.zeros_like, tree))
+    assert meta == {"step": 1}
+    for a, b in zip(tree_leaves(back), tree_leaves(tree)):
+        assert SH.is_dtensor(a) == SH.is_dtensor(b)
+        if SH.is_dtensor(b):
+            assert a.placements == b.placements
+        assert a.dtype == b.dtype and torch.equal(SH.local(a),
+                                                  SH.local(b))
+
 # ---------------------------------------------------------------------------
 # deep RL and classic ML on the card (no kernel on these paths)
 # ---------------------------------------------------------------------------

@@ -2,8 +2,10 @@
 the (32, 8) production mesh of a fake group of 256 ranks, with no
 device, it writes the JAX dry run's record keys for qwen3-0.6b at full
 width, skips whisper-tiny x long_500k as JAX's `shape_plan` does, and
-keeps a record that fails with its error.  The module and the roofline
-and mesh modules it runs load no JAX and nothing of `repro`."""
+keeps a record that fails with its error.  train_4k's step keeps
+lm_loss's logits split over the vocab: its temp fits a card.  The
+module and the roofline and mesh modules it runs load no JAX and
+nothing of `repro`."""
 import json
 import os
 import pathlib
@@ -44,7 +46,7 @@ def _dryrun(out, *args):
 @pytest.fixture(scope="module")
 def qwen(tmp_path_factory):
     return _dryrun(tmp_path_factory.mktemp("dry"), "--arch", "qwen3-0.6b",
-                   "--shape", "decode_32k,long_500k")
+                   "--shape", "decode_32k,long_500k,train_4k")
 
 
 @pytest.mark.parametrize("shape", ["decode_32k", "long_500k"])
@@ -67,6 +69,16 @@ def test_dryrun_records_carry_jax_keys(qwen, shape):
                                         + rec["output_bytes"]
                                         + rec["temp_bytes"])
     assert f"[32x8] qwen3-0.6b x {shape}: ok" in out
+
+
+def test_dryrun_train_4k_fits_a_card(qwen):
+    """The vocab-parallel loss: no rank holds the (B, S, V) fp32 logits
+    gradient (637.3 GB at train_4k), so a chip's temp is below the
+    card's 80 GB."""
+    rec = qwen[1]["qwen3-0.6b|train_4k"]
+    assert rec["status"] == "ok", rec.get("error")
+    assert 0 < rec["temp_bytes"] < 80e9
+    assert rec["peak_memory_bytes"] < 80e9
 
 
 def test_dryrun_skips_and_keeps_failures(tmp_path):

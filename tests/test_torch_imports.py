@@ -226,13 +226,19 @@ def test_train_mesh_refuses_without_enough_cards(monkeypatch):
                "2", "--steps", "1"])
 
 
-@pytest.mark.parametrize("flag", [["--elastic"], ["--ckpt-dir", "x"],
-                                  ["--optimizer", "adafactor"]])
+@pytest.mark.parametrize("flag", [
+    ["train", "--elastic"], ["train", "--elastic", "--mode", "local_sgd"],
+    ["serve", "--replicas", "2", "--transport", "proc"]])
 def test_train_mesh_refuses_unported_options(flag):
+    """Under a mesh larger than 1x1 only `train --elastic` and `serve
+    --transport proc` are still refused, before any rank is spawned."""
+    from repro_torch.launch.serve import serve
     from repro_torch.launch.train import train
+    launcher = {"train": train, "serve": serve}[flag[0]]
     with pytest.raises(SystemExit):
-        train(["--smoke", "--device", "cpu", "--data", "2", "--model", "1",
-               "--steps", "1"] + flag)
+        launcher(["--smoke", "--device", "cpu", "--data", "2", "--model",
+                  "1", "--steps" if flag[0] == "train" else "--gen", "1"]
+                 + flag[1:])
 
 
 # the RL and classic slices: their packages load without torch (the

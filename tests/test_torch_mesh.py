@@ -22,7 +22,25 @@ hold to the JAX worker's own tolerances:
   * smdp: the all-reduce mean == data_parallel's W-axis mean == JAX's
     vmap mean, 1e-5 / 1e-6;
   * the MoE, hybrid and ssm families' SMOKE forwards under dp_tp equal
-    the unsharded forward at fp32 2e-5 (the MoE's expert choices first).
+    the unsharded forward at fp32 2e-5 (the MoE's expert choices first);
+  * the vocab-parallel `lm_loss`: where the vocab is split (tp, dp_tp,
+    fsdp) no op of the loss and its gradients outputs whole vocab rows
+    (its values are the train step's above: loss rtol 1e-5, gradients
+    rtol 1e-4 / atol 1e-6 against JAX and the unsharded port);
+  * the mesh state saved by every rank (dp_tp, fsdp), blocking and
+    asynchronous: the files of the same state saved whole, byte for
+    byte, and a restore into the layout bit-equal;
+  * two Adafactor steps under dp_tp and fsdp against the unsharded ones
+    (the AdamW case's relative squared difference below 1e-9) and
+    against JAX's `adafactor` on the same gradients (statistics at rtol
+    1e-5; parameters at rtol 1e-5 with atol 1e-7, `test_torch_optim`'s
+    fp32 atol: where the update cancels a parameter a few ulps of the
+    update are a large share of it), its statistics placed as
+    `state_specs` says;
+  * the launcher's loop on a (2,2) mesh under every env with Adafactor,
+    an asynchronous save every step and --trace-out: losses at rtol 1e-5
+    of the unsharded loop's, rank 0 alone recording, its trace holding
+    the unsharded run's events.
 """
 import os
 import pickle
@@ -281,3 +299,58 @@ def test_family_forward_under_dp_tp(world, arch):
     np.testing.assert_allclose(r["aux"], r["plain_aux"], rtol=2e-5,
                                atol=2e-5)
     assert os.environ.get("JAX_PLATFORMS", "cpu") == "cpu"
+
+
+@pytest.mark.parametrize("name", ["dp", "tp", "dp_tp", "fsdp"])
+def test_lm_loss_keeps_the_vocab_split(world, name):
+    """Whole vocab rows of the logits appear only where no mesh dim
+    splits the vocab (dp: there the count sees them)."""
+    _, r = _result(world, name)
+    if name == "dp":
+        assert r["whole_vocab_ops"] > 0
+    else:
+        assert r["whole_vocab_ops"] == 0
+
+
+STATE_ENVS = [("DP_TP_ENV", "dp_tp"), ("TRAIN_ENV", "fsdp")]
+
+
+@pytest.mark.parametrize("env", [e for e, _ in STATE_ENVS],
+                         ids=[i for _, i in STATE_ENVS])
+def test_mesh_save_is_the_state_saved_whole(world, env):
+    _, r = _result(world, f"ckpt_{env}")
+    assert r["split"] > 0 and r["n_files"] > 1
+    assert r["blocking_equal"] and r["async_equal"]
+    assert r["restored_bit_equal"] and r["meta"] == {"step": 1}
+
+
+@pytest.mark.parametrize("env", [e for e, _ in STATE_ENVS],
+                         ids=[i for _, i in STATE_ENVS])
+def test_adafactor_on_the_mesh_equals_unsharded_and_jax(world, env):
+    refs, r = _result(world, f"adafactor_{env}")
+    sh, un = r["sharded"], r["unsharded"]
+    assert r["placed_as_specs"] and r["split_stats"] > 0
+    assert sh["step"] == un["step"] == 2
+    assert _rel_sq_diff(un["params"], sh["params"]) < 1e-9
+    assert _rel_sq_diff(un["f"], sh["f"]) < 1e-9
+    opt = get_optimizer("adafactor", lambda s: 1e-2)
+    p = refs["params"]
+    st = opt.init(p)
+    update = jax.jit(opt.update)
+    for g in sh["grads"]:
+        p, st = update(g, st, p)
+    for a, c in zip(_leaves(_np(p)), _leaves(sh["params"])):
+        np.testing.assert_allclose(c, a, rtol=1e-5, atol=1e-7)
+    for a, c in zip(_leaves(_np(st["f"])), _leaves(sh["f"])):
+        np.testing.assert_allclose(c, a, rtol=1e-5)
+
+
+@pytest.mark.parametrize("env", ["dp", "tp", "dp_tp", "fsdp"])
+def test_launcher_loop_with_state_options_on_the_mesh(world, env):
+    _, r = _result(world, f"launch_{env}")
+    np.testing.assert_allclose(r["losses"]["mesh"], r["losses"]["plain"],
+                               rtol=1e-5)
+    assert r["rank_0_records"]
+    assert r["steps"] == ["step_00000001", "step_00000002"]
+    mesh, plain = r["events"]
+    assert mesh == plain and any(e[0] == "ckpt.commit" for e in mesh)

@@ -9,7 +9,13 @@ One more 4-rank world (`tests/_torch_serve_mesh_worker.py`, no JAX in
 it) holds, on a (2, 2) and a (1, 4) mesh, the sharded prefill's and
 decode ticks' logits to the unsharded port's at 1e-5, a tight pool's
 preemptions, a drain whose KV migrates to a second sharded engine, and
-the pools' placements to `cache_pspecs(serve=True)`."""
+the pools' placements to `cache_pspecs(serve=True)`.
+
+The unsharded and the (2, 2) runs record --trace-out: rank 0's trace
+holds the unsharded run's events (names, cats, phases, args), one
+`request` span a request beside the engine's `serve.*` events."""
+import collections
+import json
 import pickle
 
 import numpy as np
@@ -37,25 +43,32 @@ def _jax_weights():
 
 
 @pytest.fixture(scope="module")
-def launched():
+def launched(tmp_path_factory):
     """JAX's launcher, then the port's unsharded and on both meshes, all
-    on JAX's seed-0 weights."""
+    on JAX's seed-0 weights; the unsharded and (2, 2) runs traced."""
     from repro.launch.serve import serve as jax_serve
     from repro_torch.launch.serve import serve, summary
     jout = jax_serve(JAX_ARGS)
     weights = _jax_weights()
     jax_tokens = {str(f.rid): list(map(int, f.tokens))
                   for f in jout["finished"]}
-    plain = summary(serve(ARGS, params=weights))
+    tmp = tmp_path_factory.mktemp("serve_traces")
+    traces = {shape: tmp / f"{shape[0]}x{shape[1]}.json"
+              for shape in [(1, 1)] + MESHES}
+    plain = summary(serve(ARGS + ["--trace-out", str(traces[(1, 1)])],
+                          params=weights))
     meshes = {shape: serve(ARGS + ["--data", str(shape[0]), "--model",
-                                   str(shape[1])], params=weights)
+                                   str(shape[1])] + (
+                               ["--trace-out", str(traces[shape])]
+                               if shape == (2, 2) else []),
+                           params=weights)
               for shape in MESHES}
-    return jax_tokens, plain, meshes
+    return jax_tokens, plain, meshes, traces
 
 
 @pytest.mark.parametrize("shape", MESHES, ids=IDS)
 def test_mesh_serve_streams_equal_unsharded_and_jax(launched, shape):
-    jax_tokens, plain, meshes = launched
+    jax_tokens, plain, meshes = launched[:3]
     assert plain["tokens"] == jax_tokens
     out = meshes[shape]
     assert out["tokens"] == plain["tokens"]
@@ -138,3 +151,23 @@ def test_migrated_install_on_sharded_pool(world, shape):
 def test_engine_pools_placed_by_cache_pspecs(world, shape):
     for got, want, gshape, is_dt in world[shape]["placements"]:
         assert is_dt and got == want
+
+
+def _events(path) -> collections.Counter:
+    return collections.Counter(
+        (e["name"], e.get("cat"), e["ph"],
+         json.dumps(e.get("args"), sort_keys=True))
+        for e in json.loads(path.read_text())["traceEvents"]
+        if e["ph"] != "M")
+
+
+def test_mesh_serve_trace_holds_the_unsharded_events(launched):
+    traces = launched[3]
+    assert not traces[(1, 4)].exists()
+    mesh, plain = _events(traces[(2, 2)]), _events(traces[(1, 1)])
+    assert mesh == plain
+    names = collections.Counter()
+    for (name, _, _, _), n in mesh.items():
+        names[name] += n
+    assert names["request"] == 6
+    assert names["serve.admit"] == 6 and names["serve.first_token"] == 6
