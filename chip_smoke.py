@@ -150,7 +150,7 @@ Phases (each raises on failure, and then no result is printed):
      (batch 2 x 4096), rwkv6-1.6b (2 x 512 at 6 of its 24 layers: its
      recurrence runs a token at a time), whisper-tiny (8 x 448) and
      phi-3-vision-4.2b (1 x 2048 after 576 patches) train at full width
-     through the launcher, one after another: a warm-up step and 3 timed
+     through the launcher, one after another: a warm-up step and 2 timed
      ones read from the train.step spans, nc launches exactly leaves x
      steps, finite losses, and one step's compressed gradients through the kernels and the
      plain versions bit-identical, leaf by leaf, and their global norms
@@ -162,16 +162,17 @@ Phases (each raises on failure, and then no result is printed):
   7. qwen3-0.6b through `core/data_parallel` (S-SGD, local SGD, EASGD),
      the reshard and stacked save of its params on the card, and the
      Coordinator over ProcTransport worker processes;
-  8. elastic training of qwen3-0.6b at full width, its depth cut to 8
-     layers, through `repro_torch.launch.train --elastic --layers 8`: sync
+  8. elastic training of qwen3-0.6b at full width, its depth cut to 4
+     layers, through `repro_torch.launch.train --elastic --layers 4`: sync
      over 4 workers (batch 4 x 2048, compressed gradients, a save every 4
      steps, 2 kept) with worker 1 killed at wall 6: step 4 restored (2 steps
      lost), the restored params and moments bit-equal to the save read
-     back, final_alive (0, 2, 3), 10 finite losses, nc_pack / nc_unpack launched exactly 14
-     leaves x the 12 steps run and nothing else, one step's compressed
+     back, final_alive (0, 2, 3), 8 finite losses, nc_pack / nc_unpack launched exactly 14
+     leaves x the 10 steps run and nothing else, one step's compressed
      gradients bit-identical to the plain path's (ms a step, the save
      pauses, the restore time); local_sgd and async_ps over 2 workers of
-     1024 tokens with a death at wall 2: no step lost, final_alive (0,),
+     1024 tokens for 3 steps with a death at wall 2: no step lost,
+     final_alive (0,),
      finite losses (peak memory); `run_elastic` on the card against the
      CPU in all five modes (transitions, recoveries, sim_time, goodput
      equal, losses within 1e-5) and a sync run over ProcTransport equal to
@@ -207,7 +208,16 @@ Phases (each raises on failure, and then no result is printed):
      restore into the mesh layout bit-equal leaf for leaf with the same
      placements, and a step from the restore bit-equal to the step from
      the unbroken state; one Adafactor step under dp_tp bit-equal to the
-     plain Adafactor step, parameters and statistics;
+     plain Adafactor step, parameters and statistics; 10g: phase 8's
+     runs again through `launch.train._train(args, mesh)` with --elastic
+     on the 1x1 mesh, phase 8's kills: over --transport proc sync with
+     --compress-grads --async-ckpt and local_sgd, async_ps over sim:
+     recoveries, transitions, final_alive and the restored step phase
+     8's, losses bit-equal, nc launches one a gradient leaf a step run;
+     10h: phase 9's killed run through `serve(... "--replicas",
+     "--transport", "proc", "--paged" ..., mesh=mesh)`: every request
+     once at its full budget, one drain, the streams phase 9's, launches
+     exact, tokens/s beside phase 9's;
  11. deep RL (no kernel on this path: every launch count stays put):
      `repro_torch.launch.rl` at its defaults on the card under sim, then
      actor 1 killed at wall 15 under sim and under `--transport proc`
@@ -350,7 +360,7 @@ TRAIN_FAMILIES = (
      f"layers: the WKV recurrence runs one token at a time"),
     (WHISPER, 8, 448, None, None),
     (VLM, 1, 2048, None, None))
-TRAIN_TIMED = 3
+TRAIN_TIMED = 2
 # phase 7: data parallelism on qwen3-0.6b at full width.  (a) S-SGD over
 # DP_W workers of 1 x DP_SEQ tokens (phase 6's 2 x 4096 split in two), a
 # warm-up step and DP_TIMED timed ones; (b) the fp32 equivalence, 1 x
@@ -374,13 +384,14 @@ PATCH_STEPS, PATCH_LR, PATCH_SEED = 4, 1e-3, 1234
 # (d) run_elastic on the card against the CPU in all five modes, on
 # tests/test_elastic.py's single-failure trace (EL_SIM_FAIL of
 # EL_SIM_STEPS)
-EL_W, EL_BATCH, EL_SEQ, EL_STEPS = 4, 4, 2048, 10
+EL_W, EL_BATCH, EL_SEQ, EL_STEPS = 4, 4, 2048, 8
 # (a-c) train qwen3-0.6b's widths at EL_LAYERS of its 28 layers (the
-# launcher's --layers), for time: at full depth they took 137 s
-EL_LAYERS = 8
+# launcher's --layers), for time: at full depth they took 137 s; 8
+# layers and 10 steps until 10g ran them again on the mesh
+EL_LAYERS = 4
 EL_CKPT_EVERY, EL_KEEP, EL_FAIL_AT = 4, 2, 6
 EL_LOCAL_W, EL_LOCAL_BATCH, EL_LOCAL_SEQ = 2, 8, 1024
-EL_LOCAL_STEPS, EL_LOCAL_FAIL = 4, 2
+EL_LOCAL_STEPS, EL_LOCAL_FAIL = 3, 2
 EL_SIM_STEPS, EL_SIM_FAIL = 60, 23
 ELASTIC_MODES = ("sync", "local_sgd", "easgd", "async_ps", "ssp")
 # phase 9: FLEET_REPLICAS replicas of qwen3-0.6b at full width on phase
@@ -3272,6 +3283,7 @@ def elastic_phase(torch, card, ops, NC):
         n, nonfinite = leafwise_roundtrip_check(torch, ops, NC, grads,
                                                 seed=EL_STEPS + 1)
         final_alive = tuple(res["final_alive"])
+        transitions = res["transitions"]
         del res, grads, b
         timed = sorted(step_ms[1:])
         out["sync"] = {
@@ -3282,7 +3294,8 @@ def elastic_phase(torch, card, ops, NC):
             "save_pause_ms": spans.get("ckpt.snapshot", []),
             "recovery_span_ms": spans.get("recovery", []),
             "peak_mem_gb": peak, "wall_s": wall, "grad_elements": n,
-            "grad_nonfinite": nonfinite}
+            "grad_nonfinite": nonfinite, "final_alive": final_alive,
+            "transitions": transitions}
         print(f"elastic sync [{card}]: {ARCH} bf16 at {EL_LAYERS} layers, "
               f"{EL_W} workers x "
               f"{EL_BATCH // EL_W} x seq {EL_SEQ}, compressed gradients, a "
@@ -3316,6 +3329,7 @@ def elastic_phase(torch, card, ops, NC):
                 fail(f"elastic {mode}: losses {losses}")
             if any(launches.values()):
                 fail(f"elastic {mode}: a kernel launched: {launches}")
+            transitions = res["transitions"]
             del res
             spans = {}
             for e in rec.events:
@@ -3323,7 +3337,7 @@ def elastic_phase(torch, card, ops, NC):
                     spans[e.name] = spans.get(e.name, 0.0) + e.dur
             out[mode] = {"losses": losses, "lost_steps": lost,
                          "peak_mem_gb": peak, "wall_s": wall,
-                         "span_s": spans}
+                         "span_s": spans, "transitions": transitions}
             print(f"elastic {mode} [{card}]: {ARCH} bf16 at {EL_LAYERS} "
                   f"layers, {EL_LOCAL_W} "
                   f"workers, batch {EL_LOCAL_BATCH} x seq {EL_LOCAL_SEQ}, "
@@ -3558,7 +3572,8 @@ def fleet_phase(torch, card, ops, MD):
         fail("fleet kill: an installed page or row differs from its "
              "harvest")
     share = same_share(fins, free)
-    out["killed"].update(kill_wall=kill, same_token_share=share)
+    out["killed"].update(kill_wall=kill, same_token_share=share,
+                         tokens=[list(f.tokens) for f in fins])
     if share != 1.0:
         out["fp32"] = fleet_fp32(torch, MD, stream, kill)
     print(f"fleet kill [{card}]: replica {FLEET_VICTIM} killed at wall "
@@ -3627,7 +3642,7 @@ def fleet_fp32(torch, MD, stream, kill):
 # ---------------------------------------------------------------------------
 # phase 10: model parallelism and the mesh, on a world of one
 # ---------------------------------------------------------------------------
-def mesh_phase(torch, card, ops, train_ms):
+def mesh_phase(torch, card, ops, train_ms, elastic, fleet):
     """qwen3-0.6b at full width on a world of one: an NCCL group of one
     rank (a file:// store) and `make_device_mesh(1, 1)`.
 
@@ -3652,7 +3667,11 @@ def mesh_phase(torch, card, ops, train_ms):
          the plain state's save, restored into the mesh layout bit-equal
          with its placements, and stepped from the restore bit-equal to
          the unbroken state's step;
-    10f. one Adafactor step under dp_tp bit-equal to the plain one."""
+    10f. one Adafactor step under dp_tp bit-equal to the plain one;
+    10g. the elastic launcher on the mesh over --transport proc, held to
+         phase 8's plain runs (`elastic`);
+    10h. the proc fleet on the mesh, held to phase 9's killed run
+         (`fleet`)."""
     import logging
     import tempfile
 
@@ -3680,6 +3699,8 @@ def mesh_phase(torch, card, ops, train_ms):
             out["pp"] = pp_phase(torch, card, cfg)
             out["state"] = mesh_state(torch, card, ops, mesh, tmp)
             out["adafactor"] = mesh_adafactor(torch, card, ops, mesh)
+            out["elastic"] = mesh_elastic(torch, card, ops, mesh, elastic)
+            out["fleet"] = mesh_fleet(torch, card, ops, mesh, fleet)
         finally:
             dist.destroy_process_group()
     out["seconds"] = time.perf_counter() - t_phase
@@ -3970,6 +3991,201 @@ def mesh_adafactor(torch, card, ops, mesh):
           f"layers, one compressed Adafactor step under dp_tp on a 1x1 "
           f"mesh: parameters, statistics and loss bit-equal to the plain "
           f"step; nc launches {launches}; {out['seconds']:.1f} s")
+    return out
+
+
+def mesh_elastic(torch, card, ops, mesh, plain):
+    """10g: `launch.train._train(args, mesh)` with --elastic at phase 8's
+    shapes and kills, on the 1x1 mesh: over --transport proc (worker
+    processes) sync with --compress-grads --async-ckpt and local_sgd,
+    then async_ps over sim.  Each run's recoveries, final_alive and transitions are
+    phase 8's plain run's, its losses bit-equal (sync: the restored step
+    too; nc_pack / nc_unpack one a gradient leaf a step run, the redone
+    ones included; local_sgd and async_ps: no kernel)."""
+    import gc
+    import shutil
+    from repro_torch.configs import get_config
+    from repro_torch.elastic import recovery as RC
+    from repro_torch.launch import train as T
+    from repro_torch.models import model as MD
+    from repro_torch.models.common import tree_leaves
+    t_phase = time.perf_counter()
+    n_leaves = len(tree_leaves(MD.model_descs(
+        get_config(ARCH).with_(num_layers=EL_LAYERS))))
+    base = os.path.join(ROOT, "build", "mesh_elastic")
+    shutil.rmtree(base, ignore_errors=True)
+    os.makedirs(base)
+    out = {}
+
+    def run(mode, fail_at, argv, transport="proc"):
+        trace = os.path.join(base, f"{mode}.json")
+        with open(trace, "w") as fh:
+            json.dump([{"step": fail_at, "kind": "fail", "worker": 1}], fh)
+        args = T.parse_args(argv + [
+            "--elastic", "--mode", mode, "--transport", transport,
+            "--failure-trace", trace, "--layers", str(EL_LAYERS),
+            "--log-every", "1000", "--data", "1", "--model", "1"])
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t = time.perf_counter()
+        res = T._train(args, mesh=mesh)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launches = {n: getattr(ops, n).launches for n in KERNEL_NAMES}
+        ref = plain[mode]
+        recs = [(r.wall_step, r.worker, r.cause, r.lost_steps)
+                for r in res["recoveries"]]
+        want_recs = ref["recoveries"] if mode == "sync" else [
+            (fail_at, 1, "fail", 0)]
+        if recs != want_recs or res["transitions"] != ref["transitions"] \
+                or tuple(res["final_alive"]) != (
+                    ref["final_alive"] if mode == "sync" else (0,)):
+            fail(f"mesh elastic {mode}: recoveries {recs}, final_alive "
+                 f"{res['final_alive']}, transitions {res['transitions']}; "
+                 f"phase 8's {want_recs}, {ref['transitions']}")
+        if res["losses"] != ref["losses"]:
+            err = max(abs(a - b) / abs(b)
+                      for a, b in zip(res["losses"], ref["losses"]))
+            fail(f"mesh elastic {mode}: losses {res['losses']} not "
+                 f"bit-equal to phase 8's {ref['losses']} (max relative "
+                 f"difference {err:.3g})")
+        del res
+        return {"recoveries": recs, "launches": launches, "wall_s": wall}
+
+    try:
+        # sync: the restore read back as phase 8 reads it
+        real_recover = RC.SyncCheckpointRestore.recover
+        restored = {}
+
+        def checked_recover(self, params, opt_state):
+            p, o, step = real_recover(self, params, opt_state)
+            restored.update(step=step, equal=equals_saved(
+                torch, self.ckpt_dir, step, {"params": _locals(p)}))
+            return p, o, step
+        RC.SyncCheckpointRestore.recover = checked_recover
+        try:
+            out["sync"] = run("sync", EL_FAIL_AT, [
+                "--workers", str(EL_W), "--batch", str(EL_BATCH), "--seq",
+                str(EL_SEQ), "--steps", str(EL_STEPS), "--compress-grads",
+                "--async-ckpt", "--ckpt-dir", os.path.join(base, "ckpt"),
+                "--ckpt-every", str(EL_CKPT_EVERY), "--keep-last",
+                str(EL_KEEP)])
+        finally:
+            RC.SyncCheckpointRestore.recover = real_recover
+        ref = plain["sync"]
+        launches = out["sync"]["launches"]
+        want = n_leaves * ref["steps_run"]
+        if restored.get("step") != ref["restored_step"] or \
+                not restored["equal"]:
+            fail(f"mesh elastic sync: restored {restored}, phase 8 "
+                 f"restored step {ref['restored_step']}")
+        if launches["nc_pack"] != want or launches["nc_unpack"] != want \
+                or any(launches[n] for n in KERNEL_NAMES[:3]):
+            fail(f"mesh elastic sync: launches {launches}, want {want} "
+                 f"nc_pack and nc_unpack ({n_leaves} leaves x "
+                 f"{ref['steps_run']} steps run) and nothing else")
+        print(f"mesh elastic sync [{card}]: {ARCH} bf16 at {EL_LAYERS} "
+              f"layers through `launch.train._train(args, mesh)` --elastic "
+              f"--transport proc --compress-grads --async-ckpt on the 1x1 "
+              f"mesh, worker 1 killed at wall {EL_FAIL_AT}: restored step "
+              f"{restored['step']} (bit-equal to the save read back), "
+              f"recoveries, transitions, final_alive and {EL_STEPS} losses "
+              f"bit-equal to phase 8's plain run; launches {launches}; "
+              f"{out['sync']['wall_s']:.1f} s (phase 8: "
+              f"{ref['wall_s']:.1f} s)")
+        # async_ps over sim: over proc each push and pull carries the
+        # whole model (218M fp32 entries, the embedding 71% of them) as
+        # base64 JSON through a worker's pipe, about half a minute each
+        for mode, transport in (("local_sgd", "proc"), ("async_ps", "sim")):
+            out[mode] = run(mode, EL_LOCAL_FAIL, [
+                "--workers", str(EL_LOCAL_W), "--batch",
+                str(EL_LOCAL_BATCH), "--seq", str(EL_LOCAL_SEQ), "--steps",
+                str(EL_LOCAL_STEPS)], transport)
+            if any(out[mode]["launches"].values()):
+                fail(f"mesh elastic {mode}: a kernel launched: "
+                     f"{out[mode]['launches']}")
+            print(f"mesh elastic {mode} [{card}]: {ARCH} bf16 at "
+                  f"{EL_LAYERS} layers over --transport {transport} on the 1x1 "
+                  f"mesh, worker 1 killed at wall {EL_LOCAL_FAIL}: no step "
+                  f"lost, transitions and {EL_LOCAL_STEPS} losses "
+                  f"bit-equal to phase 8's plain run; "
+                  f"{out[mode]['wall_s']:.1f} s (phase 8: "
+                  f"{plain[mode]['wall_s']:.1f} s)")
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+def mesh_fleet(torch, card, ops, mesh, fleet9):
+    """10h: phase 9's killed run again through `serve(... "--replicas",
+    "--transport", "proc", "--paged" ..., mesh=mesh)` on the 1x1 mesh:
+    every request finished once with its full budget, one drain, the
+    streams phase 9's, flash and paged launched one a layer an admit and
+    a decode tick; tokens/s beside phase 9's."""
+    import argparse
+    import gc
+    from repro_torch.launch.serve import _make_stream, serve
+    t_phase = time.perf_counter()
+    cfg = kernel_cfg(ARCH)
+    L = cfg.num_layers
+    killed = fleet9["killed"]
+    stream = _make_stream(cfg, argparse.Namespace(
+        seed=0, prompt_len=PLEN[1], gen=GEN[1], requests=REQUESTS),
+        torch.device("cpu"))
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    trace = os.path.join(ROOT, "build", "mesh_fleet_kill.json")
+    with open(trace, "w") as fh:
+        json.dump([{"step": killed["kill_wall"], "kind": "fail",
+                    "worker": FLEET_VICTIM}], fh)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t = time.perf_counter()
+    res = serve(["--continuous", "--paged", "--replicas",
+                 str(FLEET_REPLICAS), "--requests", str(REQUESTS),
+                 "--batch", str(SLOTS), "--prompt-len", str(PLEN[1]),
+                 "--gen", str(GEN[1]), "--page-size", str(PAGE),
+                 "--transport", "proc", "--failure-trace", trace,
+                 "--data", "1", "--model", "1"], mesh=mesh)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    os.remove(trace)
+    launches = {n: getattr(ops, n).launches for n in
+                ("flash_attention", "paged_attention", "ssd_scan")}
+    es, st, fins = res["engine_stats"], res["stats"], res["finished"]
+    want = {"flash_attention": L * es["prefill_ticks"],
+            "paged_attention": L * es["decode_ticks"], "ssd_scan": 0}
+    if launches != want:
+        fail(f"mesh fleet: launches {launches}, want {want}")
+    if [f.rid for f in fins] != [r.rid for r in stream] or any(
+            len(f.tokens) != r.max_new_tokens for f, r in zip(fins, stream)):
+        fail("mesh fleet: a request did not finish once with its budget")
+    if st["drains"] != 1 or len(res["worker_pids"]) != FLEET_REPLICAS:
+        fail(f"mesh fleet: drains {st['drains']}, worker processes "
+             f"{len(res['worker_pids'])}")
+    got = [list(f.tokens) for f in fins]
+    if got != killed["tokens"]:
+        eq = sum(a == b for g, k in zip(got, killed["tokens"])
+                 for a, b in zip(g, k))
+        fail(f"mesh fleet: streams part from phase 9's killed run ({eq} "
+             f"of {sum(map(len, killed['tokens']))} tokens equal)")
+    tok_s = st["delivered_tokens"] / wall
+    out = {"launches": launches, "stats": st, "wall_s": wall,
+           "tok_s": tok_s, "phase9_tok_s": killed["tok_s"],
+           "seconds": time.perf_counter() - t_phase}
+    print(f"mesh fleet [{card}]: {ARCH} bf16, {FLEET_REPLICAS} replicas "
+          f"over --transport proc ({len(res['worker_pids'])} worker "
+          f"processes) on the 1x1 mesh, replica {FLEET_VICTIM} killed at "
+          f"wall {killed['kill_wall']}: {st['delivered_tokens']} tokens in "
+          f"{wall:.2f} s = {tok_s:.1f} tok/s (phase 9's killed run: "
+          f"{killed['tok_s']:.1f}), one drain, {st['readmitted']} "
+          f"re-admitted, streams equal to phase 9's; launches {launches}")
     return out
 
 
@@ -5012,11 +5228,14 @@ def main(argv=None) -> int:
     lap("8 elastic")
     fleet = fleet_phase(torch, card, ops, MD)                    # phase 9
     lap("9 fleet")
-    mesh = mesh_phase(torch, card, ops, tr["ms_per_step"])      # phase 10
+    mesh = mesh_phase(torch, card, ops, tr["ms_per_step"],      # phase 10
+                      elastic, fleet)
     lap("10 mesh")
     laps.update({"10e state (in 10)": round(mesh["state"]["seconds"], 1),
                  "10f adafactor (in 10)":
-                     round(mesh["adafactor"]["seconds"], 1)})
+                     round(mesh["adafactor"]["seconds"], 1),
+                 "10g elastic (in 10)": round(mesh["elastic"]["seconds"], 1),
+                 "10h fleet (in 10)": round(mesh["fleet"]["seconds"], 1)})
     rl_out = rl_phase(torch, card, ops)                          # phase 11
     lap("11 rl")
     classic = classic_phase(torch, card, ops)                    # phase 12
@@ -5052,6 +5271,8 @@ def main(argv=None) -> int:
     by_path[f"{ARCH} mesh state, dp_tp"] = mesh["state"]["launches"]
     by_path[f"{ARCH} mesh adafactor, dp_tp"] = mesh["adafactor"]["launches"]
     by_path[f"{ARCH} mesh prefill"] = mesh["prefill"]["launches"]
+    by_path[f"{ARCH} mesh elastic"] = mesh["elastic"]["sync"]["launches"]
+    by_path[f"{ARCH} mesh fleet"] = mesh["fleet"]["launches"]
     by_path[f"{ARCH} mesh serve"] = mesh_serve["serve"]["launches"]
     timing.update(nc_pack=nc_t["embed"]["nc_pack"],
                   nc_unpack=nc_t["embed"]["nc_unpack"])

@@ -32,7 +32,10 @@ Architecture (the survey's coordination layer, made a subsystem):
   actuates injected traces against them, detects organic
   crashes/silence, and captures everything it observed back into the
   same `FailureTrace` JSON — so a live incident replays
-  deterministically under sim.
+  deterministically under sim.  Under a mesh's ranks
+  `RankZeroTransport` (`transport.py`) wraps rank 0's transport and
+  broadcasts its every result, or error, to the others over a gloo
+  group, so each rank's coordinator sees one control plane.
 * **Role registry** (`roles.py`) — hosts can serve stateful roles
   (parameter-server shard, replay shard, RL learner, ...) registered
   as verb->handler tables that speak the JSON-safe wire format on
@@ -79,6 +82,7 @@ from typing import TYPE_CHECKING
 _EXPORTS = {
     "Coordinator": "repro_torch.cluster.coordinator",
     "Transport": "repro_torch.cluster.transport",
+    "RankZeroTransport": "repro_torch.cluster.transport",
     "SimTransport": "repro_torch.cluster.sim",
     "ProcTransport": "repro_torch.cluster.proc",
 }
@@ -89,7 +93,7 @@ if TYPE_CHECKING:  # pragma: no cover - type checkers only
     from repro_torch.cluster.coordinator import Coordinator
     from repro_torch.cluster.proc import ProcTransport
     from repro_torch.cluster.sim import SimTransport
-    from repro_torch.cluster.transport import Transport
+    from repro_torch.cluster.transport import RankZeroTransport, Transport
 
 
 def __getattr__(name):

@@ -45,7 +45,8 @@ from repro_torch.elastic.membership import (DEAD, SUSPECT, FailureTrace,
 from repro_torch.elastic.straggler import (BackupDecision,
                                            ThroughputMonitor, plan_backup,
                                            replan_on_straggle)
-from repro_torch.models.common import tree_map
+from repro_torch.core import sharding as SH
+from repro_torch.models.common import tree_leaves, tree_map
 from repro_torch.obs import recorder as obs
 
 from repro_torch.cluster.sim import SimTransport
@@ -259,7 +260,11 @@ class Coordinator:
         doesn't own yet — the stacked compute runs on the driver host —
         so the tree is returned unchanged (see ROADMAP: multi-host data
         plane).  Identity when the transport has no host -> device map
-        (simulated transports)."""
+        (simulated transports), and for DTensor rows (a mesh's: each
+        rank's shard stays on its own card; `host_devices` is rank 0's
+        map)."""
+        if any(SH.is_dtensor(t) for t in tree_leaves(tree_w)):
+            return tree_w
         devmap = self.transport.host_devices()
         devices = {devmap[w] for w in worker_ids if w in devmap}
         if len(devices) != 1 or len(devmap) == 0:

@@ -32,7 +32,7 @@ must not pay (or depend on) the torch import.
 from __future__ import annotations
 
 import abc
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 
 class RoleHostDied(RuntimeError):
@@ -46,6 +46,11 @@ class RoleHostDied(RuntimeError):
                          f"(its role state is gone)")
         self.host = host
         self.verb = verb
+
+    def __reduce__(self):
+        # rebuilt from (host, verb): `RankZeroTransport` ships it to the
+        # other ranks of a mesh
+        return type(self), (self.host, self.verb)
 
 
 class Transport(abc.ABC):
@@ -129,6 +134,12 @@ class Transport(abc.ABC):
         reply = self.role_call(ps_id, "ps_pull")
         return reply["version"], decode_entries(reply["entries"])
 
+    def on_rank0(self, fn: Callable[[], Any]) -> Any:
+        """``fn()`` as the control plane's host computes it.  One process
+        holds the whole control plane here; under a mesh's ranks
+        (`RankZeroTransport`) every rank gets rank 0's result."""
+        return fn()
+
     def close(self) -> None:
         """Tear down workers/queues (idempotent)."""
 
@@ -138,3 +149,130 @@ class Transport(abc.ABC):
 
     def __exit__(self, *exc) -> None:
         self.close()
+
+
+class RankZeroTransport(Transport):
+    """One control plane for the ranks of a mesh: rank 0's transport, each
+    of its results broadcast to every rank.
+
+    The JAX package runs a mesh from a single controller: one process
+    holds the one transport, the one membership and the one parameter
+    server, and needs no such wrapper.  The port runs a mesh as one
+    process a rank, each running the same loop and calling every
+    collective, so each rank builds its own `Coordinator`.  Were each to
+    build its own transport, a `ProcTransport` a rank would start its own
+    worker processes and parameter server and judge a hang by its own
+    clock; memberships a heartbeat apart would send one rank to a restore
+    while the others step, and the collectives would hang.  Here rank 0
+    alone holds the real transport (`inner`; None on the other ranks)
+    and every call runs there; its result, or its exception, is broadcast
+    over `group`, a gloo group of every rank, so each rank applies the
+    same events, commits and replies in the same order, and an error on
+    rank 0 is raised on every rank instead of leaving the others in a
+    collective.  Host objects never ride the card's NCCL stream.
+
+    Every rank must make the same calls in the same order, as with any
+    collective; `host_events` is rank 0's alone (its recorder merges the
+    flight rings) and `worker_pids` is each rank's own."""
+
+    def __init__(self, inner: Optional[Transport], group):
+        import torch.distributed as dist
+        self.inner = inner
+        self.group = group
+        self.rank = dist.get_rank()
+        self._closed = False
+
+    @classmethod
+    def build(cls, make: Callable[[], Transport],
+              group) -> "RankZeroTransport":
+        """The wrapper around ``make()``, run on rank 0 only; an error in
+        it is raised on every rank."""
+        t = cls(None, group)
+        t.inner = t._rank0(make, share=False)
+        return t
+
+    def _rank0(self, fn: Callable[[], Any], share: bool = True) -> Any:
+        """fn() on rank 0, then its result (`share`) or its exception on
+        every rank."""
+        import torch.distributed as dist
+        msg = [None]
+        if self.rank == 0:
+            try:
+                out = fn()
+                msg[0] = ("ok", out if share else None)
+            except Exception as e:      # noqa: BLE001 - every rank raises
+                msg[0] = ("err", _portable(e))
+                dist.broadcast_object_list(msg, src=0, group=self.group)
+                raise
+        dist.broadcast_object_list(msg, src=0, group=self.group)
+        kind, val = msg[0]
+        if kind == "err":
+            raise val
+        return out if self.rank == 0 else val
+
+    def on_rank0(self, fn: Callable[[], Any]) -> Any:
+        return self._rank0(fn)
+
+    def start(self, num_workers: int) -> None:
+        self._rank0(lambda: self.inner.start(num_workers))
+
+    def poll(self, step: int) -> List[Any]:
+        return self._rank0(lambda: self.inner.poll(step))
+
+    def commit_reports(self) -> List[Tuple[int, int]]:
+        return self._rank0(lambda: self.inner.commit_reports())
+
+    def host_devices(self) -> Dict[int, Any]:
+        return self._rank0(lambda: self.inner.host_devices())
+
+    def captured_trace(self):
+        return self._rank0(lambda: self.inner.captured_trace())
+
+    def role_open(self, host: int, role: str, **kwargs: Any) -> None:
+        self._rank0(lambda: self.inner.role_open(host, role, **kwargs))
+
+    def role_call(self, host: int, verb: str,
+                  payload: Optional[Dict[str, Any]] = None
+                  ) -> Dict[str, Any]:
+        return self._rank0(lambda: self.inner.role_call(host, verb, payload))
+
+    # the ParamServer wrappers: only rank 0 encodes what it sends
+    def ps_open(self, ps_id: int, lr: float, entries: Dict[str, Any],
+                momentum: float = 0.0) -> None:
+        self._rank0(lambda: self.inner.ps_open(ps_id, lr, entries,
+                                               momentum=momentum))
+
+    def ps_push(self, ps_id: int, worker: int, clock: int,
+                grads: Dict[str, Any]) -> int:
+        return self._rank0(lambda: self.inner.ps_push(ps_id, worker, clock,
+                                                      grads))
+
+    def ps_pull(self, ps_id: int) -> Tuple[int, Dict[str, Any]]:
+        return self._rank0(lambda: self.inner.ps_pull(ps_id))
+
+    def host_events(self) -> List[Any]:
+        """Rank 0's workers' flight rings (no broadcast); none elsewhere."""
+        pull = getattr(self.inner, "host_events", None)
+        return pull() if pull is not None else []
+
+    def worker_pids(self) -> List[int]:
+        """The worker processes this rank's transport started (none off
+        rank 0)."""
+        pids = getattr(self.inner, "worker_pids", None)
+        return pids() if pids is not None else []
+
+    def close(self) -> None:
+        if self._closed:
+            return
+        self._closed = True
+        self._rank0(lambda: self.inner is not None and self.inner.close())
+
+
+def _portable(e: BaseException) -> BaseException:
+    """`e` if it survives pickling, else a RuntimeError that names it."""
+    import pickle
+    try:
+        pickle.loads(pickle.dumps(e))
+        return e
+    except Exception:                  # noqa: BLE001
+        return RuntimeError(f"on rank 0: {type(e).__name__}: {e}")

@@ -36,6 +36,7 @@ from typing import Any, Callable, Dict, Tuple, Union
 
 import torch
 
+from repro_torch.core import sharding as SH
 from repro_torch.core.compression import natural_compress, uniforms_like
 from repro_torch.models.common import tree_leaves, tree_map
 
@@ -49,12 +50,21 @@ def tree_bytes(tree) -> int:
 
 def value_and_grad(loss_fn: Callable, params: Pytree, batch: Pytree):
     """(loss, grads) of loss_fn at params; grads mirror params (zeros
-    where the loss does not reach a leaf, as in JAX), params untouched."""
+    where the loss does not reach a leaf, as in JAX), params untouched.
+    A DTensor parameter's gradient comes back laid out as the parameter
+    (its partial sums over the data axes reduced: the data-parallel
+    all-reduce)."""
     leaves = tree_map(lambda p: p.detach().requires_grad_(True), params)
     loss = loss_fn(leaves, batch)
     grads = iter(torch.autograd.grad(loss, tree_leaves(leaves),
                                      materialize_grads=True))
-    return loss.detach(), tree_map(lambda _: next(grads), params)
+    return loss.detach(), tree_map(lambda p: _like(next(grads), p), params)
+
+
+def _like(g, p):
+    if not SH.is_dtensor(g) or tuple(g.placements) == tuple(p.placements):
+        return g
+    return g.redistribute(p.device_mesh, p.placements)
 
 
 def worker_mean(t: torch.Tensor) -> torch.Tensor:

@@ -40,6 +40,7 @@ from repro_torch import DeviceLike, resolve_device
 # imports this package's membership/straggler modules, so a top-level
 # import here would cycle when repro_torch.cluster is the entry point
 from repro_torch.core import data_parallel as DP
+from repro_torch.core import sharding as SH
 from repro_torch.elastic.membership import FailureTrace, Transition
 from repro_torch.elastic.modes import MODES, ModeContext, host_flat
 from repro_torch.elastic.recovery import SyncCheckpointRestore
@@ -360,16 +361,38 @@ def _lm_trace(args) -> FailureTrace:
             if args.failure_trace else FailureTrace())
 
 
-def _on(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
-    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
-            for k, v in batch.items()}
+def _on(batch: Dict[str, np.ndarray], device,
+        mesh=None) -> Dict[str, torch.Tensor]:
+    """numpy -> tensors on `device`; with `mesh`, each whole on every
+    rank (a replicated DTensor), as a JAX loop's host batch enters a
+    step whose params are sharded."""
+    out = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+           for k, v in batch.items()}
+    if mesh is None:
+        return out
+    return {k: SH.distribute(t, (None,) * t.dim(), mesh)
+            for k, t in out.items()}
+
+
+def lm_batch(cfg, batch: Dict[str, np.ndarray],
+             device) -> Dict[str, torch.Tensor]:
+    """The sync loop's numpy batch as its step takes it on `device`, the
+    vlm and audio batches with the stub frontends' zeros, as the JAX
+    loop's."""
+    from repro_torch.launch.steps import make_extra
+    out = _on(batch, device)
+    extra = make_extra(cfg, out["tokens"].shape[0], device)
+    if extra is not None:
+        out["extra_embeds"] = extra
+    return out
 
 
 def elastic_lm_loop(*, args, cfg, step_fn, params, opt_state,
                     pipe_factory: Callable[[int, int], Any],
                     step0: int = 0, opt=None,
                     loss_fn: Optional[Callable] = None,
-                    device: DeviceLike = None) -> Dict[str, Any]:
+                    device: DeviceLike = None, mesh=None,
+                    place: Optional[Callable] = None) -> Dict[str, Any]:
     """Elastic LM training over logical data-parallel workers.
 
     `args.mode` selects the same strategy family as `run_elastic`:
@@ -392,6 +415,15 @@ def elastic_lm_loop(*, args, cfg, step_fn, params, opt_state,
     trace injected against them.  Batches go to `device` (the card unless
     the CPU is asked for); the vlm and audio batches of the sync mode
     carry the stub frontends' zeros, as the JAX loop's do.
+
+    Under a mesh (`mesh`, and `params` DTensors laid out on it; every
+    rank of the mesh runs the loop, with the mesh active) `place` turns
+    the sync mode's assembled numpy batch into the step's (the launcher
+    splits it on its batch dim, JAX's `bshard`; default `lm_batch`);
+    the other modes' batches are whole on every rank, as JAX's loops
+    place none, and their worker-stacked rows and pulls are laid out as
+    the params.  The control plane is rank 0's (`launch.cli.
+    make_transport`), so every rank sees the same transitions.
     """
     device = resolve_device(device)
     mode = getattr(args, "mode", "sync")
@@ -410,12 +442,12 @@ def elastic_lm_loop(*, args, cfg, step_fn, params, opt_state,
             return _lm_local_loop(args=args, mode=mode, params=params,
                                   opt=opt, loss_fn=loss_fn,
                                   pipe_factory=pipe_factory, step0=step0,
-                                  device=device)
+                                  device=device, mesh=mesh)
         return _lm_ps_loop(args=args, mode=mode, params=params,
                            loss_fn=loss_fn, pipe_factory=pipe_factory,
-                           step0=step0, device=device)
-
-    from repro_torch.launch.steps import make_extra
+                           step0=step0, device=device, mesh=mesh)
+    if place is None:
+        place = lambda b: lm_batch(cfg, b, device)  # noqa: E731
 
     W0 = args.workers
     coord = _make_lm_coordinator(args, _lm_trace(args), W0, device)
@@ -470,11 +502,8 @@ def elastic_lm_loop(*, args, cfg, step_fn, params, opt_state,
                          [split[w] for w in alive])
 
             parts = [rows_from(w, split[w]) for w in alive if split[w] > 0]
-            batch = _on({k: np.concatenate([p[k] for p in parts], axis=0)
-                         for k in parts[0]}, device)
-            extra = make_extra(cfg, batch["tokens"].shape[0], device)
-            if extra is not None:     # the stub frontends' zeros, as JAX
-                batch["extra_embeds"] = extra
+            batch = place({k: np.concatenate([p[k] for p in parts], axis=0)
+                           for k in parts[0]})
             # the span ends after the loss is read back, so on the card
             # it holds the whole step
             with obs.get().span("lm.step", cat="elastic", step=train_step,
@@ -527,7 +556,8 @@ def _lm_shard_reader(pipe_factory: Callable[[int, int], Any], W0: int):
 
 def _lm_local_loop(*, args, mode: str, params, opt, loss_fn,
                    pipe_factory: Callable[[int, int], Any],
-                   step0: int = 0, device=None) -> Dict[str, Any]:
+                   step0: int = 0, device=None,
+                   mesh=None) -> Dict[str, Any]:
     """local_sgd / easgd over the real LM: per-worker replicas run the
     generic `core.data_parallel` rounds; deaths drop a replica row
     (`BoundedStalenessContinuation` / `EASGDCenterSurvival`), no rewind."""
@@ -607,14 +637,14 @@ def _lm_local_loop(*, args, mode: str, params, opt, loss_fn,
                 per_w.append({k: np.stack([b[k] for b in ks])
                               for k in ks[0]})
             batches_wk = _on({k: np.stack([p[k] for p in per_w])
-                              for k in per_w[0]}, device)
+                              for k in per_w[0]}, device, mesh)
             if mode == "local_sgd":
                 params_w, opt_w, metrics = DP.local_sgd_round(
                     loss_fn, params_w, opt, opt_w, batches_wk)
             else:
                 params_w, center, metrics = DP.easgd_round(
                     loss_fn, params_w, center, batches_wk, easgd_cfg)
-            losses[train_step] = float(metrics["loss"])
+            losses[train_step] = float(SH.whole(metrics["loss"]))
             if train_step % args.log_every == 0:
                 log.info("step %5d loss %.4f workers %d mode %s",
                          train_step, losses[train_step], len(ids), mode)
@@ -644,14 +674,18 @@ def _lm_local_loop(*, args, mode: str, params, opt, loss_fn,
 
 def _lm_ps_loop(*, args, mode: str, params, loss_fn,
                 pipe_factory: Callable[[int, int], Any],
-                step0: int = 0, device=None) -> Dict[str, Any]:
+                step0: int = 0, device=None,
+                mesh=None) -> Dict[str, Any]:
     """async_ps / ssp over the real LM: workers push grads / pull params
     against the transport's ParamServer role (server-side SGD with
     momentum); ssp also bounds the clock gap through the coordinator's
     `clock_gate` (death-aware).  The PS host is membership id
     `args.workers`; its death is fatal (the model lives there).  A pull
     casts the server's fp32 entries to each leaf's dtype on the device,
-    rounding to nearest even as numpy's `astype` does."""
+    rounding to nearest even as numpy's `astype` does.  Under a mesh a
+    push's gradients are made whole on every rank (rank 0 alone sends
+    them), and a pull's entries, which every rank receives, are laid out
+    as the params' leaves, each rank keeping its own shard."""
     from repro_torch.checkpoint import AsyncCheckpointer, save_checkpoint
     from repro_torch.checkpoint.ckpt import _flatten, _unflatten_like
 
@@ -666,8 +700,10 @@ def _lm_ps_loop(*, args, mode: str, params, loss_fn,
             ckpt = AsyncCheckpointer(args.ckpt_dir, keep_last=args.keep_last)
         rows_from = _lm_shard_reader(pipe_factory, W0)
 
-        # structure + dtypes for the pull side
-        dtypes = {k: t.dtype for k, t in _flatten(params).items()}
+        # structure, dtypes and layouts for the pull side
+        layouts = {k: (t.dtype, t.device_mesh, t.placements)
+                   if SH.is_dtensor(t) else (t.dtype, None, None)
+                   for k, t in _flatten(params).items()}
         template = tree_map(lambda p: None, params)
         coord.transport.ps_open(ps_id, args.lr, host_flat(params),
                                 momentum=0.9)
@@ -681,11 +717,17 @@ def _lm_ps_loop(*, args, mode: str, params, loss_fn,
         coord.close()
         raise
 
+    def pull_leaf(arr, dt, on, pls):
+        t = torch.from_numpy(arr).to(device).to(dt)
+        if on is None:
+            return t
+        from torch.distributed.tensor import distribute_tensor
+        return distribute_tensor(t, on, pls, src_data_rank=None)
+
     def pull_params():
         _, entries = coord.transport.ps_pull(ps_id)
         return _unflatten_like(template, {
-            k: torch.from_numpy(entries[k]).to(device).to(dt)
-            for k, dt in dtypes.items()})
+            k: pull_leaf(entries[k], *lay) for k, lay in layouts.items()})
 
     ckpt_every = args.ckpt_every or 20
     n = max(1, args.batch // W0)
@@ -739,14 +781,14 @@ def _lm_ps_loop(*, args, mode: str, params, loss_fn,
                 credit[w] -= 1.0
                 ptree = pull_params()
                 loss, grads = DP.value_and_grad(
-                    loss_fn, ptree, _on(rows_from(w, n), device))
+                    loss_fn, ptree, _on(rows_from(w, n), device, mesh))
                 del ptree
                 gflat = host_flat(grads)
                 del grads
                 clock = gate.advance(w)
                 coord.transport.ps_push(ps_id, w, clock, gflat)
                 del gflat
-                round_losses.append(float(loss))
+                round_losses.append(float(SH.whole(loss)))
             if round_losses:
                 prev_loss = float(np.mean(round_losses))
             if prev_loss is not None:

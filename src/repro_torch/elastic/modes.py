@@ -459,9 +459,11 @@ class EASGD(_StackedReplicaMode):
 # ---------------------------------------------------------------------------
 def host_flat(tree: Pytree) -> Dict[str, np.ndarray]:
     """A tree's leaves as float32 host arrays, by checkpoint key: what a
-    worker pushes to (or seeds) a parameter server."""
+    worker pushes to (or seeds) a parameter server.  A DTensor leaf is
+    made whole first, on every rank (each must call this)."""
     from repro_torch.checkpoint.ckpt import _flatten
-    return {k: v.detach().float().cpu().numpy()
+    from repro_torch.core.sharding import whole
+    return {k: whole(v).detach().float().cpu().numpy()
             for k, v in _flatten(tree).items()}
 
 

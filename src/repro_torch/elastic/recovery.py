@@ -74,7 +74,10 @@ class SyncCheckpointRestore:
     consistent: every save/recover reports this host's last committed
     step, and the rewind target becomes the coordinator's fleet-wide
     MINIMUM over surviving hosts.  With a single reporting host this is
-    exactly the local behaviour."""
+    exactly the local behaviour.  Under a mesh's ranks the committed
+    step reported is rank 0's on every rank (`Transport.on_rank0`):
+    rank 0 alone writes a mesh's saves, so only its writer knows what
+    has committed, and every rank must rewind to the same step."""
     ckpt_dir: str
     keep_last: int = 3
     async_save: bool = False
@@ -119,8 +122,9 @@ class SyncCheckpointRestore:
         just made)."""
         if self.coordinator is None:
             return
-        committed = (self._ckpt.last_committed_step()
-                     if self._ckpt is not None else self.saved_step)
+        committed = self.coordinator.transport.on_rank0(
+            lambda: (self._ckpt.last_committed_step()
+                     if self._ckpt is not None else self.saved_step))
         self.coordinator.report_commit(self.host, committed)
 
     def recover(self, params: Pytree, opt_state: Pytree

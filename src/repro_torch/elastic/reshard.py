@@ -31,6 +31,7 @@ import torch
 from repro_torch.checkpoint.ckpt import (_flatten, _load_leaf,
                                          _unflatten_like, latest_step,
                                          save_checkpoint)
+from repro_torch.core import sharding as SH
 from repro_torch.core.data_parallel import dbs_partition, worker_mean
 from repro_torch.models.common import tree_map
 
@@ -39,8 +40,12 @@ InitPolicy = Union[str, Callable[[Any], Any]]  # "mean" | "donor" | fn(leaf)
 
 
 def _rows(leaf_w: torch.Tensor, idx: Sequence[int]) -> torch.Tensor:
-    return leaf_w[torch.as_tensor(list(idx), dtype=torch.long,
-                                  device=leaf_w.device)]
+    """Rows `idx` of the worker axis; a DTensor's (the worker axis never
+    split) gathered from its local shard, laid out as it is."""
+    local = SH.local(leaf_w)
+    rows = local[torch.as_tensor(list(idx), dtype=torch.long,
+                                 device=local.device)]
+    return SH.from_local_like(rows, leaf_w)
 
 
 def take_rows(tree_w: Pytree, idx: Sequence[int]) -> Pytree:

@@ -12,6 +12,7 @@ spelling, default and semantics cannot drift between entry points:
 * `add_trace_args(ap)`          — the observability flag group
 * `load_failure_trace(args)`    — ``--failure-trace`` JSON -> FailureTrace
 * `make_transport(args, trace)` — flags -> SimTransport / ProcTransport
+  (rank 0's, in a RankZeroTransport, under a mesh's ranks)
 * `run_traced(args, fn)`        — run under a Recorder, write trace.json
 
 Every port import is lazy: parsing ``--help`` does not import torch.
@@ -81,7 +82,20 @@ def make_transport(args, trace=None, device=None):
     the simulated clock, proc injects it against real worker processes
     (flight rings land in ``--flight-dir``) whose state rows live on
     ``device``, the launcher's (``ProcTransport``'s own rule: the card
-    unless the CPU is asked for)."""
+    unless the CPU is asked for).  Under a process group of more than
+    one rank (a mesh's ranks; every rank calls this at the same point)
+    rank 0 alone builds it, inside a `RankZeroTransport` over a gloo
+    group made for the control plane."""
+    if _world() > 1:
+        import torch.distributed as dist
+        from repro_torch.cluster.transport import RankZeroTransport
+        return RankZeroTransport.build(
+            lambda: _transport(args, trace, device),
+            dist.new_group(backend="gloo"))
+    return _transport(args, trace, device)
+
+
+def _transport(args, trace, device):
     if getattr(args, "transport", "sim") == "proc":
         from repro_torch.cluster.proc import ProcTransport
         return ProcTransport(inject=trace,
@@ -115,3 +129,9 @@ def _rank() -> int:
     """This process's rank in the default process group, 0 without one."""
     import torch.distributed as dist
     return dist.get_rank() if dist.is_initialized() else 0
+
+
+def _world() -> int:
+    """The default process group's size, 1 without one."""
+    import torch.distributed as dist
+    return dist.get_world_size() if dist.is_initialized() else 1

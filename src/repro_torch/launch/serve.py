@@ -64,7 +64,10 @@ attention kernels run on each rank's local heads, and the caches and
 page pools are split on their K/V heads (``launch/steps.cache_pspecs``
 with serve=True).  With D*M > 1 the launcher spawns D*M ranks itself
 (gloo on the CPU, NCCL with one card a rank), each running the same
-stream; rank 0 prints the summary and records --trace-out.
+stream; rank 0 prints the summary and records --trace-out.  With
+--replicas --transport proc the fleet's control plane is rank 0's: it
+alone starts the worker processes, and every rank's fleet enacts the
+membership events it broadcasts (`launch.cli.make_transport`).
 `serve(argv, mesh=...)` runs on a mesh over a group the caller
 initialised (a world of one, say).
 
@@ -207,7 +210,8 @@ def _serve_fleet(params, cfg, args, device, requests=None):
     print(f"routing: {st['routed']}")
     print("sample generation (first request):", finished[0].tokens[:16])
     return {"finished": finished, "stats": st, "t_total": dt,
-            "engine_stats": fleet.engine_stats()}
+            "engine_stats": fleet.engine_stats(),
+            "worker_pids": transport.worker_pids() if transport else []}
 
 
 def _serve_continuous(params, cfg, args, device, requests=None):
@@ -324,10 +328,6 @@ def serve(argv=None, *, mesh=None, requests=None, params=None) -> dict:
         ap.error(f"mesh {tuple(mesh.shape)} != --data {args.data} --model "
                  f"{args.model}")
     if mesh is None and args.data * args.model > 1:
-        if args.transport == "proc":
-            ap.error("--transport proc with a mesh larger than 1x1 "
-                     "(--data/--model) is not ported yet (ROADMAP, slice "
-                     "9b); under a mesh 'sim' runs")
         return _serve_spawned(args, params)
     return cli.run_traced(args, lambda: _serve(args, mesh, requests, params))
 
@@ -447,6 +447,11 @@ def _rank_main(rank: int, args, world: int, tmp: str, threads: int,
                                                   weights=weights))
         with SH.axis_env(SH.DP_TP_ENV), SH.use_mesh(mesh):
             res = summary(out)
+        # the worker processes each rank's transport started (--transport
+        # proc: rank 0's alone)
+        pids = [None] * world
+        dist.all_gather_object(pids, out.get("worker_pids", []))
+        res["worker_processes"] = [len(p) for p in pids]
         if rank == 0:
             print(f"served on a {args.data}x{args.model} mesh ({world} "
                   f"ranks, {args.device})", flush=True)

@@ -123,15 +123,7 @@ def loss_and_grads(params, cfg: ModelConfig, batch):
     parameter's gradient comes back laid out as the parameter (its
     partial sums over the data axes reduced: the data-parallel
     all-reduce)."""
-    loss, grads = value_and_grad(lambda p, b: MD.lm_loss(p, cfg, b), params,
-                                 batch)
-    return loss, tree_map(_like_param, grads, params)
-
-
-def _like_param(g, p):
-    if not SH.is_dtensor(g) or tuple(g.placements) == tuple(p.placements):
-        return g
-    return g.redistribute(p.device_mesh, p.placements)
+    return value_and_grad(lambda p, b: MD.lm_loss(p, cfg, b), params, batch)
 
 
 
@@ -150,19 +142,23 @@ def _at(tree, path):
 
 
 def _index(tree, sl):
-    """The view `t[sl]` of every tensor of a tree."""
+    """The view `t[sl]` of every tensor of a tree (the tree itself for
+    the whole leaf, `...`)."""
+    if sl is Ellipsis:
+        return tree
     if isinstance(tree, dict):
         return {k: _index(v, sl) for k, v in tree.items()}
     return tree[sl]
 
 
 def _copy_into(dst, src) -> None:
-    """Write the leaves of `src` into the tensors of `dst`, in place."""
+    """Write the leaves of `src` into the tensors of `dst`, in place (a
+    DTensor's into its local shard)."""
     if isinstance(dst, dict):
         for k in dst:
             _copy_into(dst[k], src[k])
     else:
-        dst.copy_(src)
+        SH.local(dst).copy_(SH.local(src))
 
 
 # elements of a leaf that an elementwise update takes at once: its fp32
@@ -193,40 +189,33 @@ def apply_grads(opt, params, opt_state, grads, max_norm: float = 1.0):
 
     DTensor leaves: an elementwise update runs on each rank's own shard;
     a whole-leaf one (Adafactor: statistics over whole rows and columns,
-    an update clipped by the whole leaf's RMS) on the leaf made whole on
-    every rank, one leaf at a time, each rank keeping its own shard."""
+    an update clipped by the whole leaf's RMS) takes the DTensor leaf and
+    reduces its statistics across the ranks itself, each rank writing
+    its own shard."""
     scale, gnorm = clip_scale(grads, max_norm)
     step = opt_state["step"]
     moments = [k for k in opt_state if k != "step"]
     new_step = None
     if SH.is_dtensor(scale):
-        # DTensor leaves: the norm summed over each element once; an
-        # elementwise update then runs on each rank's own shard
+        # DTensor leaves: the norm summed over each element once
         scale = scale.full_tensor()
     for path in _leaf_paths(params):
         p, g = _at(params, path), _at(grads, path)
         leaf = {k: _at(opt_state[k], path) for k in moments}
-        whole = SH.is_dtensor(p) and not opt.elementwise
-        if whole:
-            dst = (p, leaf)
-            p, g = SH.whole(p), SH.whole(g)
-            leaf = tree_map(SH.whole, leaf)
-        elif SH.is_dtensor(p):
+        if SH.is_dtensor(p) and opt.elementwise:
             p, g = p.to_local(), g.to_local()
             leaf = tree_map(lambda t: t.to_local(), leaf)
         for sl in leaf_slices(p, opt.elementwise):
             sub = {k: {"x": _index(v, sl)} for k, v in leaf.items()}
             sub["step"] = step
-            new_p, new_s = opt.update({"x": clip_leaf(g[sl], scale)}, sub,
-                                      {"x": p[sl]})
-            p[sl].copy_(new_p["x"])
+            gs = _index(g, sl)
+            clipped = SH.from_local_like(clip_leaf(SH.local(gs), scale), gs)
+            new_p, new_s = opt.update({"x": clipped}, sub,
+                                      {"x": _index(p, sl)})
+            _copy_into(_index(p, sl), new_p["x"])
             for k in moments:
                 _copy_into(_index(leaf[k], sl), new_s[k]["x"])
             new_step = new_s["step"]
-        if whole:                    # each rank keeps its own shard
-            for d, w in zip([dst[0]] + tree_leaves(dst[1]),
-                            [p] + tree_leaves(leaf)):
-                SH.local(d).copy_(SH.own_part(w, d))
     step.copy_(new_step)
     return params, opt_state, gnorm
 

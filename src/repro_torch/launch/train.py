@@ -44,11 +44,17 @@ ranks itself: gloo on ``--device cpu``, one card a rank over NCCL on
 ``cuda`` (it raises with fewer cards than ranks).  Every rank draws the
 same whole parameters from the seed and keeps its own shard; the batches
 are the unsharded run's, split on their batch dim; rank 0 prints the
-summary.  A 1x1 mesh is the unsharded step.  Every option but
-``--elastic`` runs on the mesh: every rank saves (rank 0 writes the
-files of the same state saved whole) and restores its own shards,
-rank 0 records ``--trace-out``, and Adafactor's statistics span whole
-rows and columns.
+summary.  A 1x1 mesh is the unsharded step.  Every option runs on the
+mesh: every rank saves (rank 0 writes the files of the same state saved
+whole) and restores its own shards, rank 0 records ``--trace-out``, and
+Adafactor reduces its row and column statistics across the ranks that
+split them.  ``--batch`` must divide over the mesh dims the env splits
+the batch over, as JAX's ``NamedSharding`` requires.  ``--elastic``
+runs every mode on the mesh: the control plane is rank 0's (the
+transport, its worker processes and parameter server; `launch.cli.
+make_transport`), every rank steps on the same membership, sync splits
+the assembled global batch as above, and the other modes keep each
+logical worker's rows whole on every rank beside the params' shards.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \
@@ -68,11 +74,16 @@ Usage:
       --steps 16 --batch 4 --seq 32 --elastic --workers 4 \
       --ckpt-dir /tmp/ck --ckpt-every 4 --keep-last 2 \
       --failure-trace trace.json [--mode local_sgd]
+  PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \
+      --env dp_tp --data 2 --model 2 --steps 8 --batch 8 --seq 32 \
+      --elastic --transport proc --ckpt-dir /tmp/ck --ckpt-every 4 \
+      --failure-trace trace.json [--mode async_ps]
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
 import os
 import tempfile
@@ -86,9 +97,9 @@ from repro_torch.checkpoint import (AsyncCheckpointer, latest_step,
 from repro_torch.configs import get_config
 from repro_torch.core import sharding as SH
 from repro_torch.data import make_pipeline
+from repro_torch.elastic.driver import lm_batch
 from repro_torch.launch import cli
-from repro_torch.launch.steps import (batch_pspecs, make_extra,
-                                      make_train_step)
+from repro_torch.launch.steps import batch_pspecs, make_train_step
 from repro_torch.models import model as MD
 from repro_torch.obs import recorder as obs
 from repro_torch.optim.optimizers import get_optimizer, warmup_cosine
@@ -175,10 +186,22 @@ def parse_args(argv=None) -> argparse.Namespace:
         # elastic checkpoints every few steps: a blocking save there
         # steals a whole step from every worker, so async is the default
         args.async_ckpt = args.elastic
-    if args.data * args.model > 1 and args.elastic:
-        ap.error("--elastic with a mesh larger than 1x1 (--data/--model) "
-                 "is not ported yet (ROADMAP, slice 9b)")
+    shards = _batch_shards(args)
+    if args.batch % shards:
+        ap.error(f"--batch {args.batch}: the {args.env} env splits the "
+                 f"batch over {shards} ranks of the mesh")
     return args
+
+
+def _batch_shards(args) -> int:
+    """The ranks of the (--data, --model) mesh that split the batch under
+    --env."""
+    axes = ENVS[args.env].batch or ()
+    sizes = {"data": args.data, "model": args.model}
+    n = 1
+    for a in (axes if isinstance(axes, tuple) else (axes,)):
+        n *= sizes.get(a, 1)
+    return n
 
 
 def _train_spawned(args) -> dict:
@@ -228,11 +251,16 @@ def _rank_main(rank: int, args, world: int, tmp: str,
             print(f"trained {len(ls)} steps on a {args.data}x{args.model} "
                   f"{args.env} mesh ({world} ranks, {args.device}): loss "
                   f"{ls[0]:.4f} -> {ls[-1]:.4f}", flush=True)
+            res = {"losses": out["losses"],
+                   "entropy_floor": out["entropy_floor"],
+                   "env": args.env, "mesh": [args.data, args.model]}
+            if args.elastic:
+                res.update(final_alive=list(out["final_alive"]),
+                           transitions=out["transitions"],
+                           recoveries=[dataclasses.astuple(r) for r in
+                                       out["recoveries"]])
             with open(os.path.join(tmp, "summary.json"), "w") as f:
-                json.dump({"losses": out["losses"],
-                           "entropy_floor": out["entropy_floor"],
-                           "env": args.env, "mesh": [args.data, args.model]},
-                          f)
+                json.dump(res, f)
     finally:
         dist.destroy_process_group()
 
@@ -278,16 +306,24 @@ def _train(args, mesh=None) -> dict:
     step_fn = make_train_step(cfg, opt, compress_grads=args.compress_grads)
     pipe = make_pipeline(cfg.vocab_size, args.batch, args.seq, seed=args.seed)
     entropy_floor = pipe.source.entropy_nats
+
+    def place(b):
+        """A numpy batch as the step takes it (on a mesh, split)."""
+        batch = lm_batch(cfg, b, device)
+        return batch if mesh is None else _split_batch(batch, cfg, mesh, env)
+
     if args.elastic:
         from repro_torch.elastic import elastic_lm_loop
-        out = elastic_lm_loop(
-            args=args, cfg=cfg, step_fn=step_fn, params=params,
-            opt_state=opt_state,
-            pipe_factory=lambda shard, num: make_pipeline(
-                cfg.vocab_size, args.batch, args.seq, shard_id=shard,
-                num_shards=num, seed=args.seed),
-            step0=step0, opt=opt,
-            loss_fn=lambda p, b: MD.lm_loss(p, cfg, b), device=device)
+        with _on_mesh(mesh, env):
+            out = elastic_lm_loop(
+                args=args, cfg=cfg, step_fn=step_fn, params=params,
+                opt_state=opt_state,
+                pipe_factory=lambda shard, num: make_pipeline(
+                    cfg.vocab_size, args.batch, args.seq, shard_id=shard,
+                    num_shards=num, seed=args.seed),
+                step0=step0, opt=opt,
+                loss_fn=lambda p, b: MD.lm_loss(p, cfg, b), device=device,
+                mesh=mesh, place=place)
         return {"losses": out["losses"], "entropy_floor": entropy_floor,
                 "params": out["params"], "recoveries": out["recoveries"],
                 "final_alive": out["final_alive"],
@@ -312,13 +348,7 @@ def _train(args, mesh=None) -> dict:
     try:
         for i in range(args.steps):
             step = step0 + i
-            batch = {k: torch.from_numpy(v).to(device)
-                     for k, v in next(batches).items()}
-            extra = make_extra(cfg, args.batch, device)
-            if extra is not None:     # the stub frontends' zeros, as JAX
-                batch["extra_embeds"] = extra
-            if mesh is not None:      # the unsharded batch, split
-                batch = _split_batch(batch, cfg, mesh, env)
+            batch = place(next(batches))
             noise = None
             if args.compress_grads:
                 noise = torch.Generator(device=device).manual_seed(

@@ -9,7 +9,11 @@ A bf16 parameter updates in float32 and is cast back, as there.  Under a
 mesh the moments of a DTensor parameter are DTensors laid out as it is
 (``state_specs``: the moments take their parameters' specs, ``step`` is
 replicated), and Adafactor's row and column statistics keep the splits
-of the dims they keep.
+of the dims they keep.  Adafactor updates a DTensor leaf on each rank's
+own shard: its row and column means, the mean of the row statistics and
+the update's RMS add the ranks' partial sums over the mesh dims that
+split the reduced dims, and no rank holds more of the leaf than its
+shard.
 """
 from __future__ import annotations
 
@@ -151,9 +155,57 @@ def adamw(lr: Callable, b1: float = 0.9, b2: float = 0.95,
     return Optimizer(init, update, state_specs)
 
 
+class _Splits:
+    """The process groups of the mesh dims that split each dim of a
+    DTensor leaf (none for a plain tensor), and the means over a leaf's
+    dims taken on its local shard.  Over a dim no mesh dim splits, the
+    local mean (the plain update's own op); over a split dim, the local
+    sum all-reduced over each splitting mesh dim in mesh-dim order, on
+    every rank alike, then divided by the whole dim."""
+
+    def __init__(self, p: torch.Tensor):
+        from repro_torch.core import sharding as SH
+        self.shape = tuple(p.shape)
+        self.groups = []                       # (mesh dim, tensor dim, group)
+        if SH.is_dtensor(p):
+            from torch.distributed.tensor import Shard
+            mesh = p.device_mesh
+            for i, q in enumerate(p.placements):
+                if isinstance(q, Shard) and mesh.size(i) > 1:
+                    self.groups.append((i, q.dim % p.dim(),
+                                        mesh.get_group(i)))
+
+    def _sum(self, s: torch.Tensor, dims) -> torch.Tensor:
+        import torch.distributed as dist
+        for _, d, g in self.groups:
+            if d in dims:
+                dist.all_reduce(s, group=g)
+        return s
+
+    def mean(self, x: torch.Tensor, dim: int, of: int,
+             keepdim: bool = False) -> torch.Tensor:
+        """The mean of local `x` over its `dim`, the leaf's dim `of`."""
+        of %= len(self.shape)
+        if not any(d == of for _, d, _ in self.groups):
+            return x.mean(dim=dim, keepdim=keepdim)
+        return self._sum(x.sum(dim=dim, keepdim=keepdim), {of}) / \
+            self.shape[of]
+
+    def mean_all(self, x: torch.Tensor) -> torch.Tensor:
+        """The mean of local `x`, shaped as the leaf's shard, over the
+        whole leaf."""
+        if not self.groups:
+            return x.mean()
+        return self._sum(x.sum(), {d for _, d, _ in self.groups}) / \
+            math.prod(self.shape)
+
+
 def adafactor(lr: Callable, eps: float = 1e-30,
               decay: float = 0.8) -> Optimizer:
-    """Factored second moments for >=2D params (row/col statistics)."""
+    """Factored second moments for >=2D params (row/col statistics).  A
+    DTensor leaf updates on each rank's shard (`_Splits`): the gradient
+    laid out as the parameter, the statistics in their ``state_specs``
+    layout, and each rank writes only its own elements."""
     def _factored(p):
         return p.dim() >= 2 and p.shape[-1] > 1 and p.shape[-2] > 1
 
@@ -172,25 +224,33 @@ def adafactor(lr: Callable, eps: float = 1e-30,
         lr_t = lr(step - 1)
 
         def upd(p, g, f):
-            g = g.float()
+            from repro_torch.core import sharding as SH
+            red = _Splits(p)
+            if SH.is_dtensor(g) and g.placements != p.placements:
+                g = g.redistribute(p.device_mesh, p.placements)
+            g = SH.local(g).float()
+            fl = {k: SH.local(v) for k, v in f.items()}
             g2 = g.square() + eps
             if _factored(p):
-                r = beta * f["r"] + (1 - beta) * g2.mean(dim=-1)
-                c = beta * f["c"] + (1 - beta) * g2.mean(dim=-2)
+                n = p.dim()
+                r = beta * fl["r"] + (1 - beta) * red.mean(g2, -1, of=n - 1)
+                c = beta * fl["c"] + (1 - beta) * red.mean(g2, -2, of=n - 2)
+                rmean = red.mean(r, -1, of=n - 2, keepdim=True)
                 denom = torch.sqrt(
                     r[..., None] * c[..., None, :] /
-                    torch.clamp(r.mean(dim=-1, keepdim=True)[..., None],
-                                min=eps))
+                    torch.clamp(rmean[..., None], min=eps))
                 nf = {"r": r, "c": c}
             else:
-                v = beta * f["v"] + (1 - beta) * g2
+                v = beta * fl["v"] + (1 - beta) * g2
                 denom = torch.sqrt(v)
                 nf = {"v": v}
             upd_ = g / torch.clamp(denom, min=1e-12)
             # update clipping (Adafactor's RMS rule)
-            rms = torch.sqrt(upd_.square().mean() + 1e-12)
+            rms = torch.sqrt(red.mean_all(upd_.square()) + 1e-12)
             upd_ = upd_ / torch.clamp(rms, min=1.0)
-            return (p.float() - lr_t * upd_).to(p.dtype), nf
+            new_p = (SH.local(p).float() - lr_t * upd_).to(p.dtype)
+            return (SH.from_local_like(new_p, p),
+                    {k: SH.from_local_like(v, f[k]) for k, v in nf.items()})
 
         out = tree_map(upd, params, grads, state["f"])
         return (tree_map(lambda o: o[0], out),

@@ -44,6 +44,14 @@ machine advances one wall tick per fleet step, and each replica earns
 ticks: prefill 1, a fused k-tick decode chunk k).  Goodput — delivered
 tokens per wall tick — is therefore exact and trace-deterministic, which
 is what makes recovery cost a deterministic, comparable number.
+
+Under a mesh every rank runs its own fleet on its shards of the same
+params.  Drains, suspects, hedges, joins and rates all follow the
+coordinator's transitions and the wall tick, never a clock of the
+rank's own; with `launch.cli.make_transport`'s `RankZeroTransport` the
+transitions, and the backup role's replies, are rank 0's on every rank,
+so every rank's fleet takes the same decisions and calls the same
+collectives.
 """
 from __future__ import annotations
 

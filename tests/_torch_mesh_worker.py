@@ -26,6 +26,15 @@ intra-op thread.
                        (2,2) mesh under each env with --optimizer
                        adafactor, --ckpt-dir, --async-ckpt and
                        --trace-out, and unsharded
+  elastic_<mode>_<t>   `elastic_lm_loop` on (2,2) under dp_tp in each
+                       mode over the sim transport (sync and async_ps
+                       also over proc) with one death, and the same loop
+                       unsharded on every rank (each its own checkpoint
+                       directory): losses, recoveries, final_alive,
+                       transitions and the checkpoint steps on disk
+  control_<where>      rank 0's inner transport raising in `start` and in
+                       `role_call` behind `RankZeroTransport`: what each
+                       rank raised, and how soon
 
 Each train check also counts the ops whose local output holds whole
 vocab rows of the logits, (rows, S, V): a vocab-parallel loss makes none
@@ -226,11 +235,52 @@ def check_ckpt(refs, env, tmp):
     return out
 
 
+class _WholeLeaf(TorchDispatchMode):
+    """Counts the ops whose output (a DTensor's local shard) has the
+    whole `shape` of the leaf being updated."""
+
+    def __init__(self, shape):
+        super().__init__()
+        self.shape, self.hits = tuple(shape), 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        for t in torch.utils._pytree.tree_leaves(out):
+            if isinstance(t, torch.Tensor):
+                t = getattr(t, "_local_tensor", t)
+                self.hits += tuple(t.shape) == self.shape
+        return out
+
+
+def _watched_update(opt, params, st, grads):
+    """One update (no clip) a leaf at a time, each under a `_WholeLeaf`
+    watch of its own shape: the same update as `apply_grads` on the
+    whole tree.  Returns (split leaves watched, ops that made a split
+    leaf whole)."""
+    from repro_torch.launch.steps import _at, _leaf_paths
+    step, split, hits = st["step"], 0, 0
+    moments = [k for k in st if k != "step"]
+    for path in _leaf_paths(params):
+        p = _at(params, path)
+        one = {k: {"x": _at(st[k], path)} for k in moments}
+        one["step"] = step.clone()
+        watch = _WholeLeaf(p.shape)
+        with watch:
+            apply_grads(opt, {"x": p}, one, {"x": _at(grads, path)},
+                        max_norm=float("inf"))
+        if SH.local(p).numel() < p.numel():
+            split += 1
+            hits += watch.hits
+    step.add_(1)
+    return split, hits
+
+
 def check_adafactor(refs, env):
     """Two Adafactor steps (no clip) under `env` on (2,2) and unsharded,
     from the same weights on the same batch: params and statistics,
     each step's gradients, and whether the statistics are placed as
-    `state_specs` says."""
+    `state_specs` says.  The sharded run's second update goes a leaf at
+    a time under a watch for ops that make a split leaf whole."""
     from repro_torch.models.common import tree_leaves
     mesh = _mesh((2, 2))
     opt = get_optimizer("adafactor", lambda s: LR)
@@ -244,10 +294,14 @@ def check_adafactor(refs, env):
                 params = MD.distribute_params(params, CFG, mesh)
             st = opt.init(params)
             grads_np = []
-            for _ in range(2):
+            for i in range(2):
                 _, grads = loss_and_grads(params, CFG, _batch(refs, on))
                 grads_np.append(_np(grads))
-                apply_grads(opt, params, st, grads, max_norm=float("inf"))
+                if on and i:
+                    out["watched"] = _watched_update(opt, params, st, grads)
+                else:
+                    apply_grads(opt, params, st, grads,
+                                max_norm=float("inf"))
             if on:
                 specs = opt.state_specs(MD.model_pspecs(CFG))["f"]
                 out["placed_as_specs"] = all(
@@ -304,6 +358,115 @@ def check_launcher(env, tmp):
                        f"{tmp}/{n}.json").read_text())["traceEvents"]
                    if e["ph"] != "M") for n in ("mesh", "plain")]
     return out
+
+
+ELASTIC = {"sync": (4, 2, 3), "local_sgd": (2, 1, 1), "easgd": (2, 1, 1),
+           "async_ps": (3, 2, 1), "ssp": (3, 2, 1)}   # steps, every, death
+EL_W, EL_B, EL_S, EL_LR = 2, 8, 32, 3e-3
+
+
+def elastic_args(mode, transport, ckpt_dir, trace_path):
+    """The launcher's flags for `elastic_lm_loop` (test_torch_mesh's JAX
+    reference builds the same)."""
+    import argparse
+    steps, every, _ = ELASTIC[mode]
+    return argparse.Namespace(
+        arch="tiny", mode=mode, workers=EL_W, steps=steps, batch=EL_B,
+        seq=EL_S, lr=EL_LR, ckpt_dir=ckpt_dir, ckpt_every=every,
+        keep_last=2, async_ckpt=True, failure_trace=trace_path,
+        transport=transport, flight_dir=None, staleness=2, log_every=100)
+
+
+def check_elastic(refs, mode, transport, tmp):
+    """`elastic_lm_loop` on (2,2) under dp_tp, then unsharded, from the
+    JAX weights, worker 1 killed at the mode's death step; each run's
+    losses, recoveries, final_alive, transitions and checkpoint steps."""
+    import json
+
+    from repro_torch.data import make_pipeline
+    from repro_torch.elastic import elastic_lm_loop
+    from repro_torch.elastic.driver import lm_batch
+    from repro_torch.launch.train import _split_batch
+    from repro_torch.optim.optimizers import warmup_cosine
+    steps, _, death = ELASTIC[mode]
+    tmp = os.path.join(tmp, f"elastic_{mode}_{transport}")
+    rank = dist.get_rank()
+    trace = os.path.join(tmp, f"trace{rank}.json")
+    os.makedirs(tmp, exist_ok=True)
+    with open(trace, "w") as f:
+        json.dump([{"step": death, "kind": "fail", "worker": 1}], f)
+    opt = get_optimizer("adamw", warmup_cosine(EL_LR, 20, steps))
+    out = {}
+    for name in ("mesh", "plain"):
+        on = _mesh((2, 2)) if name == "mesh" else None
+        # the plain run goes on every rank: each writes its own files
+        ckpt = os.path.join(tmp, name if on else f"plain{rank}")
+        args = elastic_args(mode, transport, ckpt, trace)
+        with SH.axis_env(SH.DP_TP_ENV), (
+                SH.use_mesh(on) if on else contextlib.nullcontext()):
+            params = params_from_numpy(refs["params"], "cpu")
+            if on:
+                params = MD.distribute_params(params, CFG, on)
+
+            def place(b):
+                batch = lm_batch(CFG, b, "cpu")
+                return batch if on is None else _split_batch(
+                    batch, CFG, on, SH.DP_TP_ENV)
+            res = elastic_lm_loop(
+                args=args, cfg=CFG, step_fn=make_train_step(CFG, opt),
+                params=params, opt_state=opt.init(params),
+                pipe_factory=lambda shard, num: make_pipeline(
+                    CFG.vocab_size, EL_B, EL_S, shard_id=shard,
+                    num_shards=num, seed=0),
+                opt=opt, loss_fn=lambda p, b: MD.lm_loss(p, CFG, b),
+                device="cpu", mesh=on, place=place)
+        out[name] = {
+            "losses": res["losses"], "final_alive": tuple(res["final_alive"]),
+            "transitions": res["transitions"],
+            "recoveries": [(r.wall_step, r.worker, r.cause, r.lost_steps)
+                           for r in res["recoveries"]],
+            "steps": sorted(p for p in os.listdir(ckpt)
+                            if p.startswith("step_"))}
+    return out
+
+
+def check_control_plane(where):
+    """Rank 0's inner transport raises in `start` (a worker that fails
+    to start) or in `role_call` (its host died): every rank must raise
+    the same error, soon, rather than wait in a collective."""
+    import time
+
+    from repro_torch.cluster.coordinator import Coordinator
+    from repro_torch.cluster.sim import SimTransport
+    from repro_torch.cluster.transport import RankZeroTransport, RoleHostDied
+    from repro_torch.elastic.membership import FailureTrace
+
+    class Faulty(SimTransport):
+        def start(self, num_workers):
+            if where == "start":
+                raise RuntimeError("worker 1 did not start")
+
+        def role_call(self, host, verb, payload=None):
+            raise RoleHostDied(host, verb)
+
+    t0 = time.perf_counter()
+    raised = None
+    try:
+        t = RankZeroTransport.build(lambda: Faulty(FailureTrace()),
+                                    dist.new_group(backend="gloo"))
+        coord = Coordinator(t, 2)
+        try:
+            coord.transport.role_call(2, "ps_pull")
+        finally:
+            coord.close()
+    except Exception as e:        # noqa: BLE001 - what each rank raised
+        raised = (type(e).__name__, str(e),
+                  getattr(e, "host", None), getattr(e, "verb", None))
+    took = time.perf_counter() - t0
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, (raised, took))
+    return {"raised": [r for r, _ in every],
+            "seconds": max(s for _, s in every)}
 
 
 def check_pp(refs):
@@ -419,6 +582,12 @@ def run(rank, world, store, refs, out_path):
                     lambda e=env: check_adafactor(refs, e))]
     checks += [(f"launch_{env}", lambda e=env: check_launcher(e, tmp))
                for env in ("dp", "tp", "dp_tp", "fsdp")]
+    checks += [(f"elastic_{mode}_{t}",
+                lambda m=mode, t=t: check_elastic(refs, m, t, tmp))
+               for mode in ELASTIC for t in ("sim", "proc")
+               if t == "sim" or mode in ("sync", "async_ps")]
+    checks += [(f"control_{w}", lambda w=w: check_control_plane(w))
+               for w in ("start", "role_call")]
     checks += [("dp_tp_nc", lambda: check_compressed(refs)),
                ("pp", lambda: check_pp(refs)),
                ("smdp", lambda: check_smdp(refs))]

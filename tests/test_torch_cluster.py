@@ -388,3 +388,24 @@ def test_proc_custom_role_through_role_modules(tmp_path, monkeypatch):
         assert proc.ps_pull(0)[1]["w"].tolist() == [0.5, 0.5]
         with pytest.raises(ValueError, match="never reused"):
             proc.spawn_worker(1)
+
+
+def test_proc_worker_reads_a_long_command_in_linear_time():
+    """The worker's command lines (`proc._Lines`): lines split across
+    chunks and several lines in one chunk come back whole and in order,
+    and a 128 MiB line fed in 64 KiB pipe reads costs one pass (an
+    accumulated buffer searched again at every read costs 2048 passes
+    over up to 128 MiB: minutes, and hours at a model's gigabyte)."""
+    from repro_torch.cluster.proc import _Lines
+    lines = _Lines()
+    assert lines.feed(b'{"v": "a"}\n{"v"') == [b'{"v": "a"}']
+    assert lines.feed(b': "b"}') == []
+    assert lines.feed(b'\n\n{"v": "c"}\nx') == [b'{"v": "b"}', b'',
+                                                 b'{"v": "c"}']
+    assert lines.feed(b"y\n") == [b"xy"]
+    chunk = b"x" * (1 << 16)
+    t0 = time.perf_counter()
+    for _ in range(2048):
+        assert lines.feed(chunk) == []
+    (line,) = lines.feed(b"\n")
+    assert len(line) == 1 << 27 and time.perf_counter() - t0 < 10.0

@@ -1516,6 +1516,67 @@ def test_mesh_checkpoint_round_trip_on_card(one_rank_mesh, tmp_path):
         assert a.dtype == b.dtype and torch.equal(SH.local(a),
                                                   SH.local(b))
 
+def test_rank_zero_transport_beside_nccl(one_rank_mesh):
+    """`RankZeroTransport` over a gloo group made beside the NCCL world:
+    rank 0's results (events, a role reply, an error) come back through
+    its broadcast, the card's tensors untouched by it."""
+    import torch.distributed as dist
+    from repro_torch.cluster.coordinator import Coordinator
+    from repro_torch.cluster.sim import SimTransport
+    from repro_torch.cluster.transport import RankZeroTransport
+    from repro_torch.elastic.membership import FailureTrace, TraceEvent
+    trace = FailureTrace([TraceEvent(1, "fail", 1)])
+    t = RankZeroTransport.build(lambda: SimTransport(trace),
+                                dist.new_group(backend="gloo"))
+    coord = Coordinator(t, 3)
+    try:
+        assert coord.advance(0) == []
+        assert [x.as_tuple()[:3] for x in coord.advance(1)] == [
+            (1, "death", 1)]
+        assert coord.alive() == (0, 2)
+        t.ps_open(2, 0.1, {"w": np.ones(4, np.float32)})
+        _, entries = t.ps_pull(2)
+        np.testing.assert_array_equal(entries["w"], np.ones(4, np.float32))
+        with pytest.raises(ValueError, match="unknown"):
+            t.on_rank0(lambda: (_ for _ in ()).throw(ValueError("unknown")))
+        x = torch.arange(8, device="cuda", dtype=torch.float32)
+        dist.all_reduce(x)           # the NCCL world still works beside it
+        assert x.tolist() == list(range(8))
+    finally:
+        coord.close()
+
+
+def test_adafactor_step_on_dtensor_shards_bit_equal(one_rank_mesh):
+    """One Adafactor step on qwen3 SMOKE's bf16 params laid out under
+    fsdp on the 1x1 mesh equals the plain step bit for bit (params and
+    statistics)."""
+    from repro_torch.core import sharding as SH
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import apply_grads
+    from repro_torch.launch.train import ENVS
+    from repro_torch.models import model as MD
+    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.optim.optimizers import adafactor
+    cfg = get_config("qwen3-0.6b", smoke=True)
+    p0 = MD.init_model(cfg, torch.Generator(device="cuda").manual_seed(0))
+    g = torch.Generator(device="cuda").manual_seed(3)
+    grads = tree_map(lambda t: torch.randn(t.shape, generator=g,
+                                           device="cuda").to(t.dtype), p0)
+    opt = adafactor(lambda s: 1e-2)
+    plain = tree_map(torch.clone, p0)
+    st = opt.init(plain)
+    apply_grads(opt, plain, st, grads)
+    with SH.axis_env(ENVS["fsdp"]):
+        pd = MD.distribute_params(tree_map(torch.clone, p0), cfg,
+                                  one_rank_mesh)
+        gd = MD.distribute_params(grads, cfg, one_rank_mesh)
+        sd = opt.init(pd)
+        apply_grads(opt, pd, sd, gd)
+    for a, b in zip(tree_leaves(pd) + tree_leaves(sd),
+                    tree_leaves(plain) + tree_leaves(st)):
+        assert torch.equal(SH.local(a), b)
+
+
 # ---------------------------------------------------------------------------
 # deep RL and classic ML on the card (no kernel on these paths)
 # ---------------------------------------------------------------------------

@@ -3,7 +3,8 @@ the (32, 8) production mesh of a fake group of 256 ranks, with no
 device, it writes the JAX dry run's record keys for qwen3-0.6b at full
 width, skips whisper-tiny x long_500k as JAX's `shape_plan` does, and
 keeps a record that fails with its error.  train_4k's step keeps
-lm_loss's logits split over the vocab: its temp fits a card.  The
+lm_loss's logits split over the vocab: its temp fits a card; with
+Adafactor it gathers over "data" what AdamW's does.  The
 module and the roofline and mesh modules it runs load no JAX and
 nothing of `repro`."""
 import json
@@ -79,6 +80,18 @@ def test_dryrun_train_4k_fits_a_card(qwen):
     assert rec["status"] == "ok", rec.get("error")
     assert 0 < rec["temp_bytes"] < 80e9
     assert rec["peak_memory_bytes"] < 80e9
+
+
+def test_dryrun_adafactor_gathers_as_adamw(qwen, tmp_path):
+    """Adafactor updates each rank's own shard: train_4k's all-gather
+    over "data" is AdamW's (0.68 GB a chip), where making each leaf
+    whole on every rank gathered 3.69 GB."""
+    _, recs = _dryrun(tmp_path, "--arch", "qwen3-0.6b", "--shape",
+                      "train_4k", "--optimizer", "adafactor")
+    ada, adamw = recs["qwen3-0.6b|train_4k"], qwen[1]["qwen3-0.6b|train_4k"]
+    assert ada["status"] == "ok", ada.get("error")
+    gather = ada["coll_by_op"]["all-gather@data"]
+    assert 0 < gather <= 1.1 * adamw["coll_by_op"]["all-gather@data"]
 
 
 def test_dryrun_skips_and_keeps_failures(tmp_path):

@@ -226,19 +226,29 @@ def test_train_mesh_refuses_without_enough_cards(monkeypatch):
                "2", "--steps", "1"])
 
 
-@pytest.mark.parametrize("flag", [
-    ["train", "--elastic"], ["train", "--elastic", "--mode", "local_sgd"],
-    ["serve", "--replicas", "2", "--transport", "proc"]])
-def test_train_mesh_refuses_unported_options(flag):
-    """Under a mesh larger than 1x1 only `train --elastic` and `serve
-    --transport proc` are still refused, before any rank is spawned."""
-    from repro_torch.launch.serve import serve
-    from repro_torch.launch.train import train
-    launcher = {"train": train, "serve": serve}[flag[0]]
+@pytest.mark.parametrize("mode", ["sync", "local_sgd", "easgd", "async_ps",
+                                  "ssp"])
+def test_train_mesh_accepts_elastic_in_every_mode(mode):
+    """No option of either launcher is refused under a mesh any more:
+    `--elastic` parses with --data 2 --model 2 in every mode (and `serve
+    --replicas --transport proc` runs there, tests/test_torch_serve_
+    mesh.py)."""
+    from repro_torch.launch.train import parse_args
+    args = parse_args(["--smoke", "--device", "cpu", "--data", "2",
+                       "--model", "2", "--elastic", "--mode", mode,
+                       "--ckpt-dir", "unused", "--transport", "proc"])
+    assert args.elastic and args.mode == mode and args.async_ckpt
+
+
+def test_train_mesh_refuses_a_batch_the_data_dim_does_not_divide():
+    """As JAX's NamedSharding would: dp_tp splits the batch over the 2
+    data ranks, so --batch 3 cannot be placed; tp splits none."""
+    from repro_torch.launch.train import parse_args
+    argv = ["--smoke", "--device", "cpu", "--data", "2", "--model", "2",
+            "--batch", "3"]
     with pytest.raises(SystemExit):
-        launcher(["--smoke", "--device", "cpu", "--data", "2", "--model",
-                  "1", "--steps" if flag[0] == "train" else "--gen", "1"]
-                 + flag[1:])
+        parse_args(argv)
+    assert parse_args(argv + ["--env", "tp"]).batch == 3
 
 
 # the RL and classic slices: their packages load without torch (the

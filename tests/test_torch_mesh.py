@@ -40,7 +40,19 @@ hold to the JAX worker's own tolerances:
   * the launcher's loop on a (2,2) mesh under every env with Adafactor,
     an asynchronous save every step and --trace-out: losses at rtol 1e-5
     of the unsharded loop's, rank 0 alone recording, its trace holding
-    the unsharded run's events.
+    the unsharded run's events;
+  * Adafactor on the mesh makes no split leaf whole: an update a leaf at
+    a time under a watch finds no op whose local output has the whole
+    leaf's shape;
+  * `elastic_lm_loop` on (2,2) under dp_tp in all five modes over the
+    sim transport, sync and async_ps also over proc, with one death, from
+    JAX's weights: transitions, recoveries, final_alive and the
+    checkpoint steps on disk exactly the unsharded loop's in the same
+    world, losses at rtol 1e-5 (the sharded reductions reassociate); the
+    sync runs also against JAX's `elastic_lm_loop` (run here, as
+    `test_torch_elastic_lm.py` calls it);
+  * an error of rank 0's transport (in `start`, in `role_call`) raised
+    on every rank of the `RankZeroTransport`, each within seconds.
 """
 import os
 import pickle
@@ -354,3 +366,95 @@ def test_launcher_loop_with_state_options_on_the_mesh(world, env):
     assert r["steps"] == ["step_00000001", "step_00000002"]
     mesh, plain = r["events"]
     assert mesh == plain and any(e[0] == "ckpt.commit" for e in mesh)
+
+
+@pytest.mark.parametrize("env", [e for e, _ in STATE_ENVS],
+                         ids=[i for _, i in STATE_ENVS])
+def test_adafactor_makes_no_split_leaf_whole(world, env):
+    """The sharded run's second update, a leaf at a time: no op of it
+    outputs a local tensor of a split leaf's whole shape (the update
+    before this slice gathered each leaf whole on every rank)."""
+    _, r = _result(world, f"adafactor_{env}")
+    split, hits = r["watched"]
+    assert split > 0 and hits == 0
+
+
+ELASTIC_RUNS = ["sync-sim", "local_sgd-sim", "easgd-sim", "async_ps-sim",
+                "ssp-sim", "sync-proc", "async_ps-proc"]
+
+
+def _elastic(world, run):
+    mode, transport = run.split("-")
+    return _result(world, f"elastic_{mode}_{transport}")[1]
+
+
+@pytest.mark.parametrize("run", ELASTIC_RUNS)
+def test_elastic_loop_on_the_mesh_equals_unsharded(world, run):
+    from _torch_mesh_worker import ELASTIC
+    r = _elastic(world, run)
+    mesh, plain = r["mesh"], r["plain"]
+    steps, _, death = ELASTIC[run.split("-")[0]]
+    for key in ("recoveries", "final_alive", "transitions", "steps"):
+        assert mesh[key] == plain[key], key
+    assert [x[:2] for x in mesh["recoveries"]] == [(death, 1)]
+    assert mesh["final_alive"] == (0,) and len(mesh["steps"]) >= 2
+    assert len(mesh["losses"]) == steps
+    np.testing.assert_allclose(mesh["losses"], plain["losses"], rtol=1e-5)
+
+
+@pytest.fixture(scope="module")
+def jax_elastic(tmp_path_factory):
+    """JAX's `elastic_lm_loop` in sync mode at the worker's settings, as
+    the JAX launcher hands it over without a mesh."""
+    import json
+
+    from repro.data import make_pipeline
+    from repro.elastic import driver as JD
+    from repro.launch.steps import batch_abstract, make_train_step
+    from repro.optim.optimizers import warmup_cosine
+    import _torch_mesh_worker as W
+    tmp = tmp_path_factory.mktemp("jax_elastic")
+    steps, _, death = W.ELASTIC["sync"]
+    trace = tmp / "trace.json"
+    trace.write_text(json.dumps([{"step": death, "kind": "fail",
+                                  "worker": 1}]))
+    opt = get_optimizer("adamw", warmup_cosine(W.EL_LR, 20, steps))
+    params = jax.tree_util.tree_map(jnp.asarray, _init(CFG, 0))
+    batch_abs = batch_abstract(CFG, W.EL_B, W.EL_S)
+    res = JD.elastic_lm_loop(
+        args=W.elastic_args("sync", "sim", str(tmp / "ck"), str(trace)),
+        cfg=CFG, step_fn=jax.jit(make_train_step(CFG, opt)), params=params,
+        opt_state=jax.jit(opt.init)(params),
+        bshard={k: None for k in batch_abs}, batch_abs=batch_abs,
+        pipe_factory=lambda shard, num: make_pipeline(
+            CFG.vocab_size, W.EL_B, W.EL_S, shard_id=shard,
+            num_shards=num, seed=0),
+        step0=0, opt=opt, loss_fn=lambda p, b: JMD.lm_loss(p, CFG, b))
+    return {"losses": res["losses"], "final_alive": tuple(res["final_alive"]),
+            "transitions": [tuple(t) for t in res["transitions"]],
+            "recoveries": [(r.wall_step, r.worker, r.cause, r.lost_steps)
+                           for r in res["recoveries"]],
+            "steps": sorted(p.name for p in (tmp / "ck").glob("step_*"))}
+
+
+@pytest.mark.parametrize("transport", ["sim", "proc"])
+def test_elastic_sync_on_the_mesh_equals_jax(world, jax_elastic, transport):
+    mesh = _elastic(world, f"sync-{transport}")["mesh"]
+    for key in ("recoveries", "final_alive", "steps"):
+        assert mesh[key] == jax_elastic[key], key
+    assert [tuple(t) for t in mesh["transitions"]] == \
+        jax_elastic["transitions"]
+    np.testing.assert_allclose(mesh["losses"], jax_elastic["losses"],
+                               rtol=1e-5)
+
+
+@pytest.mark.parametrize("where", ["start", "role_call"])
+def test_rank0_control_plane_error_raised_on_every_rank(world, where):
+    _, r = _result(world, f"control_{where}")
+    first = r["raised"][0]
+    assert first is not None and r["raised"] == [first] * WORLD
+    if where == "start":
+        assert first[:2] == ("RuntimeError", "worker 1 did not start")
+    else:
+        assert first[0] == "RoleHostDied" and first[2:] == (2, "ps_pull")
+    assert r["seconds"] < 30

@@ -13,7 +13,11 @@ the pools' placements to `cache_pspecs(serve=True)`.
 
 The unsharded and the (2, 2) runs record --trace-out: rank 0's trace
 holds the unsharded run's events (names, cats, phases, args), one
-`request` span a request beside the engine's `serve.*` events."""
+`request` span a request beside the engine's `serve.*` events.
+
+`--replicas 2 --transport proc --paged` on the (2, 2) mesh with replica
+1 killed: the tokens of the 1x1 proc and sim runs, and only rank 0's
+transport starts worker processes (one a replica)."""
 import collections
 import json
 import pickle
@@ -171,3 +175,22 @@ def test_mesh_serve_trace_holds_the_unsharded_events(launched):
         names[name] += n
     assert names["request"] == 6
     assert names["serve.admit"] == 6 and names["serve.first_token"] == 6
+
+
+def test_proc_fleet_on_a_2x2_mesh(tmp_path):
+    from repro_torch.launch.serve import serve, summary
+    weights = _jax_weights()
+    trace = tmp_path / "trace.json"
+    trace.write_text(json.dumps([{"step": 4, "kind": "fail", "worker": 1}]))
+    argv = ["--smoke", "--device", "cpu", "--replicas", "2", "--paged",
+            "--page-size", "4", "--requests", "6", "--batch", "2",
+            "--prompt-len", "16", "--gen", "8", "--failure-trace",
+            str(trace)]
+    sim = summary(serve(argv, params=weights))
+    proc = summary(serve(argv + ["--transport", "proc"], params=weights))
+    mesh = serve(argv + ["--transport", "proc", "--data", "2", "--model",
+                         "2"], params=weights)
+    assert mesh["tokens"] == proc["tokens"] == sim["tokens"]
+    assert mesh["stats"]["drains"] == proc["stats"]["drains"] == 1
+    assert mesh["stats"] == proc["stats"]
+    assert mesh["worker_processes"] == [2, 0, 0, 0]

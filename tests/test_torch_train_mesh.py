@@ -9,7 +9,12 @@ resumed from it for 2 more, and an unbroken blocking run of 4 steps
 that saves at steps 2 and 4.  The resumed run's losses and step-4 files
 are the unbroken run's bit for bit (gloo's reductions repeat run to
 run), the asynchronous step-2 files the blocking run's byte for byte,
-and rank 0's trace holds the 1x1 run's events (names, cats, args)."""
+and rank 0's trace holds the 1x1 run's events (names, cats, args).
+
+`--elastic --transport proc` on the 2x2 mesh (sync, worker 1 killed at
+wall 3, a save every 2 steps): rank 0's transport runs the worker
+processes, and the run's recoveries, transitions and final_alive are the
+1x1 run's, its losses at rtol 1e-5."""
 import collections
 import json
 import pathlib
@@ -99,3 +104,25 @@ def test_mesh_trace_holds_the_1x1_events(state_runs):
     assert steps == [0, 1]
     assert {"ckpt.snapshot", "ckpt.write", "ckpt.commit"} <= {
         n for n, _, _ in mesh}
+
+
+def test_elastic_proc_launcher_on_a_2x2_mesh(tmp_path):
+    from repro_torch.launch.train import train
+    trace = tmp_path / "trace.json"
+    trace.write_text(json.dumps([{"step": 3, "kind": "fail", "worker": 1}]))
+    argv = ["--smoke", "--device", "cpu", "--batch", "8", "--seq", "32",
+            "--log-every", "100", "--steps", "4", "--elastic", "--workers",
+            "2", "--transport", "proc", "--ckpt-every", "2",
+            "--failure-trace", str(trace)]
+    mesh = train(argv + MESH + ["--ckpt-dir", str(tmp_path / "m")])
+    plain = train(argv + ["--ckpt-dir", str(tmp_path / "p")])
+    recs = [(r.wall_step, r.worker, r.cause, r.lost_steps)
+            for r in plain["recoveries"]]
+    assert recs == [(3, 1, "fail", 1)]
+    assert [tuple(r[:4]) for r in mesh["recoveries"]] == recs
+    assert tuple(mesh["final_alive"]) == tuple(plain["final_alive"]) == (0,)
+    assert [tuple(t) for t in mesh["transitions"]] == plain["transitions"]
+    assert len(mesh["losses"]) == 4
+    np.testing.assert_allclose(mesh["losses"], plain["losses"], rtol=1e-5)
+    assert sorted(p.name for p in (tmp_path / "m").glob("step_*")) == \
+        sorted(p.name for p in (tmp_path / "p").glob("step_*"))
